@@ -1,0 +1,136 @@
+"""ctypes loader for the native C++ helpers (``apsim_native.cpp`` beside this
+file, a copy of the JAX package's source).
+
+Builds the shared library on first use with g++ (``-ffp-contract=off``, so
+the fp64 rescore's sums are the same as the reference package's) into
+``build/apsim_tpu_torch/``, keyed by a content hash.  Only the two rescore
+entry points are bound here; the source's hashing and padding helpers serve
+paths that are not ported yet.  Both entry points return None when no
+compiler is available, and the caller takes its NumPy path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import sys
+import threading
+
+import numpy as np
+
+from ..utils.build import build_shared_lib
+
+__all__ = ["get_lib", "native_available", "native_pair_dots",
+           "native_group_dots"]
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "apsim_native.cpp")
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+
+
+def get_lib():
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        # no -march=native: the library may be built on one machine and
+        # loaded on another; with -ffp-contract=off the sums are the same
+        cmd = ["g++", "-O3", "-std=c++17", "-ffp-contract=off", "-shared",
+               "-fPIC"]
+        try:
+            so, _ = build_shared_lib(_SRC, cmd, timeout=120)
+        except (OSError, RuntimeError, TimeoutError) as e:
+            print(f"apsim_native build failed ({e}); using NumPy fallback",
+                  file=sys.stderr)
+            return None
+        lib = ctypes.CDLL(so)
+        lib.apsim_pair_dots.restype = None
+        lib.apsim_pair_dots.argtypes = [
+            _I64, _I32, _F64, _I64, _I32, _F64, _I64, _I64, ctypes.c_int64,
+            _F64,
+        ]
+        lib.apsim_group_dots.restype = None
+        lib.apsim_group_dots.argtypes = [
+            _I64, _I32, _F64, _I64, _I64, ctypes.c_int64, _F64, _F64,
+        ]
+        _lib = lib
+        return _lib
+
+
+def native_available() -> bool:
+    return get_lib() is not None
+
+
+def _check_rows(rows: np.ndarray, indptr, name: str) -> None:
+    # the C loops index indptr[row + 1] unchecked — an out-of-range row id
+    # (an upstream bug, e.g. a leaked padded row) must raise here instead of
+    # reading past the arrays
+    if rows.size and (
+        int(rows.min()) < 0 or int(rows.max()) >= len(indptr) - 1
+    ):
+        raise IndexError(
+            f"{name} out of range [0, {len(indptr) - 1}): "
+            f"min={int(rows.min())}, max={int(rows.max())}"
+        )
+
+
+def native_pair_dots(
+    a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, a_rows, b_rows
+):
+    """Exact fp64 dots of (a_rows[p] of A) · (b_rows[p] of B); None if the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a_rows = np.ascontiguousarray(a_rows, np.int64)
+    b_rows = np.ascontiguousarray(b_rows, np.int64)
+    _check_rows(a_rows, a_indptr, "a_rows")
+    _check_rows(b_rows, b_indptr, "b_rows")
+    out = np.empty(a_rows.size, dtype=np.float64)
+    lib.apsim_pair_dots(
+        np.ascontiguousarray(a_indptr, np.int64),
+        np.ascontiguousarray(a_indices, np.int32),
+        np.ascontiguousarray(a_data, np.float64),
+        np.ascontiguousarray(b_indptr, np.int64),
+        np.ascontiguousarray(b_indices, np.int32),
+        np.ascontiguousarray(b_data, np.float64),
+        a_rows, b_rows, a_rows.size, out,
+    )
+    return out
+
+
+def native_group_dots(indptr, cindices, data, a_rows, b_rows, scratch):
+    """Grouped same-matrix fp64 pair dots (see apsim_group_dots in the C
+    source): ``a_rows`` MUST be sorted ascending and ``cindices`` must be the
+    compact-dim translation of the CSR's indices with values in
+    ``[0, len(scratch))``.  ``scratch`` must be all-zero on entry (it is
+    restored to all-zero on return).  Returns None if the native library is
+    unavailable; bit-identical to ``native_pair_dots`` on the same pairs."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a_rows = np.ascontiguousarray(a_rows, np.int64)
+    b_rows = np.ascontiguousarray(b_rows, np.int64)
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    cindices = np.ascontiguousarray(cindices, np.int32)
+    data = np.ascontiguousarray(data, np.float64)
+    if cindices.size != data.size or len(indptr) < 1 or int(indptr[-1]) > cindices.size:
+        raise ValueError("CSR arrays inconsistent")
+    _check_rows(a_rows, indptr, "a_rows")
+    _check_rows(b_rows, indptr, "b_rows")
+    # NOTE cindices range vs scratch is validated ONCE at translation build
+    # time (rescore.build_compact) — a per-call scan would be O(corpus nnz)
+    # and cost more than the dots themselves
+    out = np.empty(a_rows.size, dtype=np.float64)
+    lib.apsim_group_dots(
+        indptr, cindices, data, a_rows, b_rows, a_rows.size, scratch, out,
+    )
+    return out
