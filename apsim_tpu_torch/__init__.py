@@ -4,10 +4,13 @@ The port of the JAX package ``apsim_tpu`` (which stays as its reference) to
 PyTorch with hand-written Hopper kernels.  This package imports ``torch``
 and never ``jax`` or ``apsim_tpu``: the host-only modules it shares with the
 JAX package are copies.  Ported so far: ``Engine.build`` and the exact
-thresholded ``Engine.all_pairs`` join, with checkpoint loading.
+thresholded ``Engine.all_pairs`` join, the out-of-core
+``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join), and loading
+either engine from the JAX package's checkpoints.
 """
 
 from .config import AllPairsConfig, load_config
+from .engine.chunked import ChunkedAllPairs
 from .engine.engine import Engine
 from .engine.output import PairResult, SimilarityOutput
 from .vector.batch import CSRMatrix
@@ -19,6 +22,7 @@ __all__ = [
     "AllPairsConfig",
     "load_config",
     "Engine",
+    "ChunkedAllPairs",
     "PairResult",
     "SimilarityOutput",
     "SparseVector",

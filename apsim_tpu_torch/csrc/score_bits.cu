@@ -1,27 +1,36 @@
-// Upper-triangle all-pairs score kernels for Hopper (sm_90a), int8 and bf16.
+// All-pairs score kernels for Hopper (sm_90a), int8 and bf16.
 //
-// Replaces the TPU kernels of apsim_tpu/ops/pallas_score.py:
-//   score_bits_int8  <- _kernel_int8 (launched by pallas_score_bits_int8)
-//   score_bits_bf16  <- _kernel      (launched by pallas_score_bits)
+// Replaces the TPU kernels of apsim_tpu/ops/pallas_score.py and
+// apsim_tpu/ops/panel.py:
+//   score_bits_int8        <- _kernel_int8       (pallas_score_bits_int8)
+//   score_bits_bf16        <- _kernel            (pallas_score_bits)
+//   panel_score_bits_int8  <- _kernel_int8_cross (panel_score_bits_int8)
 //
-// For every block p of the upper-triangle block list (bi[p], bj[p]) the
-// kernels score the tm x tn tile X[bi*tm:, :] . X[bj*tn:, :]^T over all of K,
-// admit a cell when its score clears tau_eff AND its global row is below its
-// global column, and write the same hit structure as the TPU kernels:
+// All three are one template.  For every block p of a block list
+// (bi[p], bj[p]) it scores the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T
+// over all of K, admits a cell when its score clears tau_eff AND its GLOBAL
+// row is below its GLOBAL column, and writes the same hit structure as the
+// TPU kernels:
 //   gb  [n_blocks, tm/8,  tn] uint8  bit o of byte (g, c) = row g*8+o
 //   g64 [n_blocks, tm/64, tn] uint8  any hit among the 64 rows of a super
 //   cnt [n_blocks, 3]         int32  (pairs, hit groups, hit supers)
-// cnt must be zero on entry: every thread block adds its counts with int32
-// atomicAdd, which is order-independent, so the totals are exact.
+// Global coordinates are the local ones plus a per-launch offset
+// (off_row, off_col): the panel origins of a cross-panel rectangle, or 0
+// for the dense upper triangle, which is the same launch with Xj = Xi.  An
+// optional valid[n_blocks] (null = all valid) blanks a block: it writes
+// zero bytes and adds no counts.  Every gb/g64 byte of every block is
+// written (the wrappers allocate them with torch.empty); cnt must be zero
+// on entry: every thread block adds its counts with int32 atomicAdd, which
+// is order-independent, so the totals are exact.
 //
-// int8 epilogue (pallas_score.py:478-483): D = q_i . q_j in int32,
-//   s_hat = D * (a_i a_j),  bound = 0.5 (a_j b_i + a_i b_j)
-//                                   + 0.25 (a_i a_j) min(n_i, n_j)
+// int8 epilogue (pallas_score.py:478-483, panel.py:int8_bound_mask):
+//   D = q_i . q_j in int32,  s_hat = D * (a_i a_j),
+//   bound = 0.5 (a_j b_i + a_i b_j) + 0.25 (a_i a_j) min(n_i, n_j)
 //   hit  <=>  s_hat + bound >= tau_eff.
 // Written with __fmul_rn/__fadd_rn in exactly that order (and built with
 // --fmad=false), so no FMA contraction: gb/g64/cnt are bit-identical to the
 // plain PyTorch version.  The int32 accumulator is neither widened nor
-// saturated; the engine only takes this path while 127^2 * max_nnz < 2^30.
+// saturated; the engines only take this path while 127^2 * max_nnz < 2^30.
 //
 // Work layout.  A TPU block (1024 x 512) does not fit one SM, so one thread
 // block owns a 64-row x 128-column sub-tile of one (bi, bj) block: 64 rows
@@ -31,9 +40,10 @@
 // warps (2 x 4) each own 32 x 32 cells and run mma.sync
 // (m16n8k32 s8.s8->s32, m16n8k16 bf16.bf16->f32); both shapes consume 8
 // 32-bit words of K per row per step, so one fragment loader serves both.
-// Sub-tiles that lie wholly on or below the diagonal skip the K loop.  Hits
-// are bit-packed with warp shuffles into a shared [8][128] byte tile, which
-// 128 threads then write out column-coalesced with the counts.
+// Sub-tiles that lie wholly on or below the global diagonal, and invalid
+// blocks, skip the K loop.  Hits are bit-packed with warp shuffles into a
+// shared [8][128] byte tile, which 128 threads then write out
+// column-coalesced with the counts.
 //
 // What bounds it on the card.  Each sub-tile streams its 64-row and
 // 128-row operand panels over all of K: (64 + 128) * K bytes for
@@ -43,10 +53,8 @@
 // is operand-bytes bound, not tensor-core bound.  The single-buffered
 // shared tile with a register prefetch of the next stage also stalls on
 // every __syncthreads.  Left for later: wgmma on 128 x 256 warpgroup tiles
-// fed by a TMA ring of stages, a persistent schedule over the block list
-// that keeps operand panels in L2, and the row/column offsets plus the
-// per-block valid flag of the cross-panel kernel (ops/panel.py:
-// _kernel_int8_cross), which enter only where row0/col0 are formed.
+// fed by a TMA ring of stages, and a persistent schedule over the block
+// list that keeps operand panels in L2.
 
 #include <cstdint>
 #include <climits>
@@ -104,13 +112,17 @@ struct Bf16Op {
   }
 };
 
-// x: [row_cap, row_bytes] operand rows (int8 values or bf16 pairs);
-// aux: [3, row_cap] f32 (int8 only, else unused).
+// xi: [rows_i, row_bytes], xj: [rows_j, row_bytes] operand rows (int8
+// values or bf16 pairs); aux_i/aux_j: [3, rows_i] / [3, rows_j] f32 (int8
+// only, else unused); valid: [n_blocks] int32 or null.
 template <class Op, bool kAux>
 __global__ void __launch_bounds__(THREADS)
-score_bits_kernel(const uint8_t* __restrict__ x, long long row_bytes,
-                  const float* __restrict__ aux, int row_cap,
+score_bits_kernel(const uint8_t* __restrict__ xi,
+                  const uint8_t* __restrict__ xj, long long row_bytes,
+                  const float* __restrict__ aux_i, int rows_i,
+                  const float* __restrict__ aux_j, int rows_j,
                   const int* __restrict__ bi, const int* __restrict__ bj,
+                  const int* __restrict__ valid, int off_row, int off_col,
                   float tau, int tm, int tn, uint8_t* __restrict__ gb,
                   uint8_t* __restrict__ g64, int* __restrict__ cnt) {
   __shared__ __align__(16) uint32_t sA[BM * LDS];
@@ -131,16 +143,22 @@ score_bits_kernel(const uint8_t* __restrict__ x, long long row_bytes,
   bid /= sub_n;
   const int cm = (int)(bid % sub_m);
   const long long p = bid / sub_m;
-  const int row0 = bi[p] * tm + cm * BM;  // global row of local row 0
-  const int col0 = bj[p] * tn + cn * BN;  // global column of local column 0
+  const int lrow0 = bi[p] * tm + cm * BM;  // operand row of local row 0
+  const int lcol0 = bj[p] * tn + cn * BN;  // operand row of local column 0
+  const int row0 = off_row + lrow0;        // global row of local row 0
+  const int col0 = off_col + lcol0;        // global column of local col 0
+  const bool ok = valid == nullptr || valid[p] != 0;
 
   if (kAux) {
     for (int i = tid; i < BM + BN; i += THREADS) {
-      const int r = i < BM ? row0 + i : col0 + (i - BM);
-      float* dst = i < BM ? sAuxI[i] : sAuxJ[i - BM];
-      dst[0] = aux[r];
-      dst[1] = aux[row_cap + r];
-      dst[2] = aux[2LL * row_cap + r];
+      const bool is_i = i < BM;
+      const float* src = is_i ? aux_i : aux_j;
+      const long long n = is_i ? rows_i : rows_j;
+      const int r = is_i ? lrow0 + i : lcol0 + (i - BM);
+      float* dst = is_i ? sAuxI[i] : sAuxJ[i - BM];
+      dst[0] = src[r];
+      dst[1] = src[n + r];
+      dst[2] = src[2 * n + r];
     }
   }
 
@@ -152,11 +170,12 @@ score_bits_kernel(const uint8_t* __restrict__ x, long long row_bytes,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 
-  // no cell with row < col when the smallest row is >= the largest column
-  const bool live = row0 < col0 + BN - 1;
+  // no cell with row < col when the smallest global row is >= the largest
+  // global column; an invalid block has no cell at all
+  const bool live = ok && row0 < col0 + BN - 1;
   if (live) {
-    const uint8_t* xa = x + (long long)row0 * row_bytes;
-    const uint8_t* xb = x + (long long)col0 * row_bytes;
+    const uint8_t* xa = xi + (long long)lrow0 * row_bytes;
+    const uint8_t* xb = xj + (long long)lcol0 * row_bytes;
     const int n_stages = (int)(row_bytes / KB);
     uint4 ra[A_VECS], rb[B_VECS];
     auto load = [&](int s) {
@@ -235,7 +254,7 @@ score_bits_kernel(const uint8_t* __restrict__ x, long long row_bytes,
       for (int i = 0; i < 4; ++i) {
         const int lr = wm * 32 + mt * 16 + g + 8 * (i >> 1);
         const int lc = wn * 32 + nt * 8 + 2 * t + (i & 1);
-        const bool h = (row0 + lr < col0 + lc) &&
+        const bool h = ok && (row0 + lr < col0 + lc) &&
                        Op::hit(acc[mt][nt][i], sAuxI[lr], sAuxJ[lc], tau);
         w |= (uint32_t)h << (8 * i + g);
       }
@@ -284,19 +303,22 @@ score_bits_kernel(const uint8_t* __restrict__ x, long long row_bytes,
 }
 
 template <class Op, bool kAux>
-int launch(const void* x, long long row_bytes, const void* aux, int row_cap,
-           const void* bi, const void* bj, float tau, int n_blocks, int tm,
-           int tn, void* gb, void* g64, void* cnt, void* stream) {
-  if (tm % BM || tn % BN || row_bytes % KB || row_cap % tm || row_cap % tn)
+int launch(const void* xi, const void* xj, long long row_bytes,
+           const void* aux_i, int rows_i, const void* aux_j, int rows_j,
+           const void* bi, const void* bj, const void* valid, int off_row,
+           int off_col, float tau, int n_blocks, int tm, int tn, void* gb,
+           void* g64, void* cnt, void* stream) {
+  if (tm % BM || tn % BN || row_bytes % KB || rows_i % tm || rows_j % tn)
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)n_blocks * (tm / BM) * (tn / BN);
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
   if (grid == 0) return (int)cudaSuccess;
   score_bits_kernel<Op, kAux><<<(unsigned)grid, THREADS, 0,
                                 (cudaStream_t)stream>>>(
-      (const uint8_t*)x, row_bytes, (const float*)aux, row_cap,
-      (const int*)bi, (const int*)bj, tau, tm, tn, (uint8_t*)gb,
-      (uint8_t*)g64, (int*)cnt);
+      (const uint8_t*)xi, (const uint8_t*)xj, row_bytes,
+      (const float*)aux_i, rows_i, (const float*)aux_j, rows_j,
+      (const int*)bi, (const int*)bj, (const int*)valid, off_row, off_col,
+      tau, tm, tn, (uint8_t*)gb, (uint8_t*)g64, (int*)cnt);
   return (int)cudaGetLastError();
 }
 
@@ -304,15 +326,16 @@ int launch(const void* x, long long row_bytes, const void* aux, int row_cap,
 
 extern "C" {
 
-// xq int8 [row_cap, dim_cap], aux f32 [3, row_cap], bi/bj int32 [n_blocks];
-// outputs as in the header comment.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// Dense upper triangle.  xq int8 [row_cap, dim_cap], aux f32 [3, row_cap],
+// bi/bj int32 [n_blocks]; outputs as in the header comment.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 int score_bits_int8(const void* xq, const void* aux, const void* bi,
                     const void* bj, float tau_eff, int row_cap, int dim_cap,
                     int n_blocks, int tm, int tn, void* gb, void* g64,
                     void* cnt, void* stream) {
-  return launch<Int8Op, true>(xq, dim_cap, aux, row_cap, bi, bj, tau_eff,
-                              n_blocks, tm, tn, gb, g64, cnt, stream);
+  return launch<Int8Op, true>(xq, xq, dim_cap, aux, row_cap, aux, row_cap,
+                              bi, bj, nullptr, 0, 0, tau_eff, n_blocks, tm,
+                              tn, gb, g64, cnt, stream);
 }
 
 // x bf16 [row_cap, dim_cap]; the rest as score_bits_int8.
@@ -320,9 +343,25 @@ int score_bits_bf16(const void* x, const void* bi, const void* bj,
                     float tau_eff, int row_cap, int dim_cap, int n_blocks,
                     int tm, int tn, void* gb, void* g64, void* cnt,
                     void* stream) {
-  return launch<Bf16Op, false>(x, 2LL * dim_cap, nullptr, row_cap, bi, bj,
+  return launch<Bf16Op, false>(x, x, 2LL * dim_cap, nullptr, row_cap,
+                               nullptr, row_cap, bi, bj, nullptr, 0, 0,
                                tau_eff, n_blocks, tm, tn, gb, g64, cnt,
                                stream);
+}
+
+// One cross-panel rectangle.  xi int8 [rows_i, dim_cap], xj int8
+// [rows_j, dim_cap], auxi/auxj f32 [3, rows_i] / [3, rows_j], bi/bj int32
+// [n_blocks] (local tile ids), valid int32 [n_blocks] or null, (off_row,
+// off_col) the global rows of xi's and xj's row 0.
+int panel_score_bits_int8(const void* xi, const void* xj, const void* auxi,
+                          const void* auxj, const void* bi, const void* bj,
+                          const void* valid, int off_row, int off_col,
+                          float tau_eff, int rows_i, int rows_j, int dim_cap,
+                          int n_blocks, int tm, int tn, void* gb, void* g64,
+                          void* cnt, void* stream) {
+  return launch<Int8Op, true>(xi, xj, dim_cap, auxi, rows_i, auxj, rows_j,
+                              bi, bj, valid, off_row, off_col, tau_eff,
+                              n_blocks, tm, tn, gb, g64, cnt, stream);
 }
 
 }  // extern "C"

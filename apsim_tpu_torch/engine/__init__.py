@@ -1,2 +1,3 @@
+from .chunked import ChunkedAllPairs
 from .engine import Engine
 from .output import PairResult, SimilarityOutput

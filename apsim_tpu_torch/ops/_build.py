@@ -1,4 +1,5 @@
-"""Build and bind the CUDA kernels of ``csrc/score_bits.cu``.
+"""Build and bind the CUDA kernels of ``csrc/score_bits.cu``
+(``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``).
 
 The source has a plain C interface, so it is compiled by ``nvcc`` alone into
 a shared library (seconds, where a build against PyTorch's headers takes
@@ -67,6 +68,11 @@ def kernels() -> ctypes.CDLL:
             lib.score_bits_bf16.argtypes = [
                 _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
                 _P, _P, _P, _P,
+            ]
+            lib.panel_score_bits_int8.restype = _I
+            lib.panel_score_bits_int8.argtypes = [
+                _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
             ]
             _info.update(
                 library=so, seconds=time.perf_counter() - t0, log=log

@@ -36,7 +36,8 @@ from ._build import kernels
 __all__ = [
     "GROUP", "SUPER", "SUPER2", "LAUNCHES", "check_tiles", "upper_blocks_rect",
     "quantize_rows", "score_bits_int8", "score_bits_bf16",
-    "score_bits_int8_plain", "score_bits_bf16_plain", "int8_scores",
+    "score_bits_int8_plain", "score_bits_bf16_plain", "int8_bound_value",
+    "int8_scores",
     "bf16_scores", "bitpack_mask", "unpack_bits", "compact_bits",
     "allpairs_extract_int8", "allpairs_extract_bf16",
 ]
@@ -47,8 +48,10 @@ SUPER2 = 512  # rows per pre-level cell (reduced from g64 at compaction time)
 K_QUANTUM = 128  # the kernels stream K in 128-byte stages per row
 COL_QUANTUM = 128  # columns per CUDA thread block
 
-# kernel launches per wrapper (only a launch of the CUDA kernel counts)
-LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0}
+# kernel launches per wrapper (only a launch of the CUDA kernel counts);
+# ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``
+LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
+            "panel_score_bits_int8": 0}
 
 
 def check_tiles(rows_i: int, rows_j: int, dim: int, tm: int, tn: int,
@@ -115,14 +118,20 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, torch.stack([alpha, alpha * l1q, nnz])
 
 
-def _check_operands(x, bi, bj, tm: int, tn: int, dtype, row_bytes: int):
-    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(
-            f"operand must be a contiguous 2-D {dtype} tensor, got "
-            f"{x.dtype} {tuple(x.shape)}"
-        )
-    row_cap = x.shape[0]
-    check_tiles(row_cap, row_cap, row_bytes, tm, tn, K_QUANTUM)
+def _check_operands(x, bi, bj, tm: int, tn: int, dtype, row_bytes: int,
+                    xj=None):
+    """Validate ``x`` (and the column operand ``xj``, default ``x``) and the
+    block list for the kernels' tiling; raise on anything they refuse."""
+    xj = x if xj is None else xj
+    for op in (x, xj):
+        if op.dtype != dtype or op.dim() != 2 or not op.is_contiguous():
+            raise ValueError(
+                f"operand must be a contiguous 2-D {dtype} tensor, got "
+                f"{op.dtype} {tuple(op.shape)}"
+            )
+    if xj.shape[1] != x.shape[1] or xj.device != x.device:
+        raise ValueError("row and column operands differ in width or device")
+    check_tiles(x.shape[0], xj.shape[0], row_bytes, tm, tn, K_QUANTUM)
     if tm % SUPER or tn % COL_QUANTUM:
         raise ValueError(
             f"tm must be a multiple of {SUPER} and tn of {COL_QUANTUM}, "
@@ -198,34 +207,45 @@ def _block_chunks(n_blocks: int, tm: int, tn: int, dim: int):
         yield s, min(s + step, n_blocks)
 
 
-def _panels(x, bi, bj, tm: int, tn: int, s: int, e: int, dtype):
-    row_cap, dim = x.shape
-    a = x.view(row_cap // tm, tm, dim)[bi[s:e].long()].to(dtype)
-    b = x.view(row_cap // tn, tn, dim)[bj[s:e].long()].to(dtype)
+def _panels(xi, xj, bi, bj, tm: int, tn: int, s: int, e: int, dtype):
+    dim = xi.shape[1]
+    a = xi.view(xi.shape[0] // tm, tm, dim)[bi[s:e].long()].to(dtype)
+    b = xj.view(xj.shape[0] // tn, tn, dim)[bj[s:e].long()].to(dtype)
     return a, b
 
 
-def int8_scores(xq, aux, bi, bj, tm: int, tn: int):
+def int8_bound_value(d, ai, bi_b, ci, aj, bj_b, cj):
+    """The int8 epilogue's ``s_hat + bound`` for raw int32 dots ``d`` and
+    broadcastable aux rows (α, α·L1(q), nnz) of the row side ``i`` and the
+    column side ``j``, in the JAX kernels' operation order
+    (``pallas_score.py:478-483``, ``panel.py:int8_bound_mask``).  The one
+    definition of the bound for every plain int8 scorer of the port."""
+    s_hat = d.to(torch.float32) * (ai * aj)
+    bound = (
+        0.5 * (aj * bi_b + ai * bj_b)
+        + 0.25 * (ai * aj) * torch.minimum(ci, cj)
+    )
+    return s_hat + bound
+
+
+def int8_scores(xq, aux, bi, bj, tm: int, tn: int, xj=None, auxj=None):
     """Yield ``(s, e, v)`` for chunks of blocks: ``v [e-s, tm, tn]`` f32 is
-    the int8 epilogue's ``s_hat + bound``, in the JAX kernel's operation
-    order (``pallas_score.py:478-483``).  ``D`` is a float64 product of the
-    int8 values, exact because |D| < 2^30 under the engine's gate."""
-    row_cap = xq.shape[0]
-    aux_i = aux.view(3, row_cap // tm, tm)
-    aux_j = aux.view(3, row_cap // tn, tn)
+    the int8 epilogue's ``s_hat + bound`` of ``xq``'s row tiles ``bi``
+    against the column operand's (``xj``/``auxj``, default ``xq``/``aux``)
+    row tiles ``bj``.  ``D`` is a float64 product of the int8 values, exact
+    because |D| < 2^30 under the engines' gate."""
+    xj = xq if xj is None else xj
+    auxj = aux if auxj is None else auxj
+    aux_i = aux.view(3, xq.shape[0] // tm, tm)
+    aux_j = auxj.view(3, xj.shape[0] // tn, tn)
     for s, e in _block_chunks(bi.numel(), tm, tn, xq.shape[1]):
-        a, b = _panels(xq, bi, bj, tm, tn, s, e, torch.float64)
+        a, b = _panels(xq, xj, bi, bj, tm, tn, s, e, torch.float64)
         d = torch.bmm(a, b.transpose(1, 2)).to(torch.int32)
         del a, b
         ii, jj = bi[s:e].long(), bj[s:e].long()
         ai, bi_b, ci = (aux_i[r][ii][:, :, None] for r in range(3))
         aj, bj_b, cj = (aux_j[r][jj][:, None, :] for r in range(3))
-        s_hat = d.to(torch.float32) * (ai * aj)
-        bound = (
-            0.5 * (aj * bi_b + ai * bj_b)
-            + 0.25 * (ai * aj) * torch.minimum(ci, cj)
-        )
-        yield s, e, s_hat + bound
+        yield s, e, int8_bound_value(d, ai, bi_b, ci, aj, bj_b, cj)
 
 
 def bf16_scores(x, bi, bj, tm: int, tn: int):
@@ -234,7 +254,7 @@ def bf16_scores(x, bi, bj, tm: int, tn: int):
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the fp32 reference product needs TF32 off")
     for s, e in _block_chunks(bi.numel(), tm, tn, x.shape[1]):
-        a, b = _panels(x, bi, bj, tm, tn, s, e, torch.float32)
+        a, b = _panels(x, x, bi, bj, tm, tn, s, e, torch.float32)
         yield s, e, torch.bmm(a, b.transpose(1, 2))
 
 
@@ -253,14 +273,19 @@ def bitpack_mask(mi: torch.Tensor):
     return gbi.to(torch.uint8), g64.to(torch.uint8), cnt.to(torch.int32)
 
 
-def _plain_bits(chunks, bi, bj, tau_eff, tm: int, tn: int, device):
+def _plain_bits(chunks, bi, bj, tau_eff, tm: int, tn: int, device,
+                off=(0, 0), valid=None):
+    """Threshold, strict global upper triangle (local coordinates plus the
+    offsets ``off = (row0, col0)``), per-block ``valid`` flag, bit-pack."""
     gb, g64, cnt = _outputs(bi.numel(), tm, tn, device)
     ar_m = torch.arange(tm, device=device)
     ar_n = torch.arange(tn, device=device)
     for s, e, v in chunks:
-        rows = bi[s:e].long()[:, None] * tm + ar_m
-        cols = bj[s:e].long()[:, None] * tn + ar_n
+        rows = off[0] + bi[s:e].long()[:, None] * tm + ar_m
+        cols = off[1] + bj[s:e].long()[:, None] * tn + ar_n
         mi = (v >= tau_eff) & (rows[:, :, None] < cols[:, None, :])
+        if valid is not None:
+            mi &= (valid[s:e] != 0)[:, None, None]
         gb[s:e], g64[s:e], cnt[s:e] = bitpack_mask(mi)
     return gb, g64, cnt
 

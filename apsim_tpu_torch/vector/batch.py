@@ -1,9 +1,10 @@
 """Host-side batch layouts (copied from ``apsim_tpu/vector/batch.py``).
 
-Only what the dense join needs: :class:`CSRMatrix`, the host CSR that ETL,
-the oracle and the engine's fp64 shadow use, and the flat packed COO that
-the index build scatters onto the device.  The padded ``[rows, k]`` layout
-and the growable CSR belong to the streaming paths and are not ported yet.
+What the batch joins need: :class:`CSRMatrix`, the host CSR that ETL, the
+oracle and the dense engine's fp64 shadow use; :class:`GrowableCSR`, the
+chunked engine's append-only fp64 shadow; and the flat packed COO that the
+index build scatters onto the device.  The padded ``[rows, k]`` layout
+belongs to the streaming paths and is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 
 from .sparse import SparseVector
 
-__all__ = ["CSRMatrix", "round_up", "pow2_bucket", "pack_coo_i32"]
+__all__ = ["CSRMatrix", "GrowableCSR", "round_up", "pow2_bucket",
+           "pack_coo_i32"]
 
 
 def round_up(x: int, m: int) -> int:
@@ -124,3 +126,59 @@ class CSRMatrix:
         out = np.zeros(self.n_cols, dtype=np.int64)
         np.add.at(out, self.indices, 1)
         return out
+
+
+class GrowableCSR:
+    """Append-only host CSR with geometric capacity growth — the fp64 shadow
+    store used by streaming engines (amortized O(nnz) total append cost
+    instead of O(nnz · batches) reallocation)."""
+
+    def __init__(self, n_cols: int):
+        self.n_cols = int(n_cols)
+        self.n_rows = 0
+        self._nnz = 0
+        self._indptr = np.zeros(1024, dtype=np.int64)
+        self._indices = np.empty(4096, dtype=np.int32)
+        self._data = np.empty(4096, dtype=np.float64)
+
+    def append(self, csr: CSRMatrix) -> None:
+        nnz = int(csr.indptr[-1])
+        need_rows = self.n_rows + csr.n_rows + 1
+        if need_rows > self._indptr.size:
+            grown = np.zeros(max(self._indptr.size * 2, need_rows), np.int64)
+            grown[: self.n_rows + 1] = self._indptr[: self.n_rows + 1]
+            self._indptr = grown
+        need = self._nnz + nnz
+        if need > self._indices.size:
+            cap = max(self._indices.size * 2, need)
+            gi = np.empty(cap, np.int32)
+            gi[: self._nnz] = self._indices[: self._nnz]
+            gd = np.empty(cap, np.float64)
+            gd[: self._nnz] = self._data[: self._nnz]
+            self._indices, self._data = gi, gd
+        base = self._indptr[self.n_rows]
+        self._indptr[self.n_rows + 1 : self.n_rows + csr.n_rows + 1] = (
+            base + csr.indptr[1:]
+        )
+        self._indices[self._nnz : self._nnz + nnz] = csr.indices[:nnz]
+        self._data[self._nnz : self._nnz + nnz] = csr.data[:nnz]
+        self.n_rows += csr.n_rows
+        self._nnz += nnz
+
+    def truncate(self, n_rows: int) -> None:
+        """Drop rows >= ``n_rows`` (failed-insert rollback).  O(1): the tail
+        storage is simply reused by the next append."""
+        if not 0 <= n_rows <= self.n_rows:
+            raise ValueError(f"truncate({n_rows}) outside [0, {self.n_rows}]")
+        self.n_rows = n_rows
+        self._nnz = int(self._indptr[n_rows])
+
+    def view(self) -> CSRMatrix:
+        """Read-only CSR view of the current contents."""
+        return CSRMatrix(
+            self.n_rows,
+            self.n_cols,
+            self._indptr[: self.n_rows + 1],
+            self._indices[: self._nnz],
+            self._data[: self._nnz],
+        )

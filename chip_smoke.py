@@ -24,6 +24,16 @@ result line):
    operands and tiles (timed, CUDA events, median of 5), and exact pair-set
    parity of both joins with an fp64 dense oracle that shares no code with
    the engine.
+5. The out-of-core path.  The cross-panel kernel against its plain version
+   on two panels of a padded 3,000-row chunked index (panel offsets, a
+   diagonal and an off-diagonal pair, blocks blanked by valid = 0, tiles
+   (1024, 512) and (64, 128)), bit-identical.  Then, with the counters
+   zeroed just before, ``ChunkedAllPairs.build`` + ``all_pairs(0.8)``
+   three times on ``synthetic_corpus(100000, seed=0)`` (the resident
+   sweep; the third timed with its stage split); the kernel against its
+   plain version on one diagonal and one off-diagonal panel pair of that
+   join (timed); one join with the rolling sweep; exact pair-set parity of
+   both joins with the fp64 oracle.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
@@ -39,9 +49,10 @@ import time
 import numpy as np
 import torch
 
-from apsim_tpu_torch import AllPairsConfig, CSRMatrix, Engine
+from apsim_tpu_torch import AllPairsConfig, ChunkedAllPairs, CSRMatrix, Engine
+from apsim_tpu_torch.bench.ooc import join_ops
 from apsim_tpu_torch.bench.scale import synthetic_corpus
-from apsim_tpu_torch.ops import _build, tri_score as ts
+from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
 
 TAU = 0.8
 BF16_BAND = 1e-5  # |plain fp32 score - tau_eff| allowed where bf16 bits differ
@@ -49,7 +60,9 @@ SOURCE = "apsim_tpu_torch/csrc/score_bits.cu"
 REPLACES = {
     "score_bits_int8": "apsim_tpu/ops/pallas_score.py:453",  # _kernel_int8
     "score_bits_bf16": "apsim_tpu/ops/pallas_score.py:117",  # _kernel
+    "panel_score_bits_int8": "apsim_tpu/ops/panel.py:151",  # _kernel_int8_cross
 }
+OOC_ROWS = 100_000
 
 
 def log(*a) -> None:
@@ -193,6 +206,79 @@ def timed_join(eng: Engine, label: str) -> dict:
     return {"rec": rec, "res": res}
 
 
+def compare_panel(eng: ChunkedAllPairs, pi: int, pj: int, tm: int, tn: int,
+                  timed: bool, blank: bool = False) -> dict:
+    """Cross-panel kernel vs its plain version on panels (pi, pj) of a
+    chunked engine's join state, bit-identical; with ``blank`` every third
+    block is blanked by valid = 0."""
+    st = eng._panel_state()
+    rb = st["geom"][0]
+    grid = (panel_ops.diag_grid(rb, tm, tn) if pi == pj
+            else panel_ops.full_grid(rb, rb, tm, tn))
+    bi, bj = (torch.from_numpy(a).to(eng.device) for a in grid)
+    valid = None
+    if blank:
+        valid = torch.ones_like(bi)
+        valid[1::3] = 0
+    args = (eng._build_slab(st, pi), eng._build_slab(st, pj),
+            st["aux_of"][pi], st["aux_of"][pj], bi, bj, (pi * rb, pj * rb),
+            eng._tau_eff(TAU), tm, tn)
+    kern = lambda: panel_ops.panel_score_bits_int8(*args, valid=valid)
+    plain = lambda: panel_ops.panel_score_bits_int8_plain(*args, valid=valid)
+    k = kern()
+    torch.cuda.synchronize()
+    p = plain()
+    check_packing(k)
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
+    if err:
+        n = int((ts.unpack_bits(k[0]) != ts.unpack_bits(p[0])).sum())
+        raise AssertionError(
+            f"panel kernel differs from plain on pair {(pi, pj)} at tiles "
+            f"{(tm, tn)}: {n} hit cells, max byte error {err}"
+        )
+    if blank and (k[0][1::3].any() or k[2][1::3].any()):
+        raise AssertionError("a block with valid = 0 wrote hits or counts")
+    rec = {"pair": [pi, pj], "offsets": [pi * rb, pj * rb],
+           "tiles": [tm, tn], "blocks": int(bi.numel()), "blanked": blank,
+           "pairs_kernel": int(k[2][:, 0].sum()), "max_abs_err": 0.0}
+    del k, p
+    if timed:
+        rec["ms"] = median_ms(kern)
+        rec["plain_ms"] = median_ms(plain)
+        rec["tops"] = (rec["blocks"] * tm * tn * args[0].shape[1] * 2
+                       / rec["ms"] / 1e9)
+    return rec
+
+
+def ooc_join(eng: ChunkedAllPairs, label: str, reps: int) -> dict:
+    """``reps`` joins at TAU; the last is timed with its stage split."""
+    for _ in range(reps - 1):
+        eng.all_pairs(TAU)
+    before = dict(eng.timer.totals)
+    counts0 = dict(eng.timer.counts)
+    cand0 = eng.stats["candidates_scored"]
+    t0 = time.perf_counter()
+    res = eng.all_pairs(TAU)
+    secs = time.perf_counter() - t0
+    stages = {k: v - before.get(k, 0.0) for k, v in eng.timer.totals.items()
+              if k != "all_pairs"}
+    n = eng.n_rows
+    geom = eng._panel_geom()
+    ops = join_ops(geom)
+    rec = {
+        "rows": n, "geom": dict(zip(("rb", "tm", "tn", "n_panels", "d_cap"),
+                                    geom)),
+        "seconds": secs, "decided_pairs_per_s": n * (n - 1) / 2 / secs,
+        "candidates": eng.stats["candidates_scored"] - cand0,
+        "pairs": res.n_pairs, "stages_s": stages,
+        "slab_builds": eng.timer.counts["slabs"] - counts0.get("slabs", 0),
+        "int8_ops": ops, "kernel_stage_tops": ops / stages["kernel"] / 1e12,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    log(f"{label}: {json.dumps(rec)}")
+    return {"rec": rec, "res": res}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -242,8 +328,8 @@ def main() -> int:
     j16 = timed_join(eng16, "main path bf16, 8586 rows")
     launches = dict(ts.LAUNCHES)
     log(f"kernel launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n < 1:
+    for k in ("score_bits_int8", "score_bits_bf16"):
+        if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
     if not eng8._used_int8 or eng16._used_int8:
         raise AssertionError("the joins did not take the intended kernels")
@@ -269,6 +355,71 @@ def main() -> int:
     for j in (j8, j16):
         if not j["res"].n_pairs or not np.all(np.isfinite(j["res"].sims)):
             raise AssertionError("join produced no pairs or non-finite sims")
+    del eng8, eng16, j8, j16
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: the out-of-core path
+    small = ChunkedAllPairs(AllPairsConfig(), dev, panel_rows=1024)
+    small.build(synthetic_corpus(3000, seed=2))
+    if small._panel_geom()[3] != 3 or small.row_cap <= small.n_rows:
+        raise AssertionError("phase 5 needs three panels with padding rows")
+    for tm, tn in ((1024, 512), (64, 128)):
+        for pi, pj in ((0, 0), (0, 2), (1, 2)):
+            for blank in (False, True):
+                rec = compare_panel(small, pi, pj, tm, tn, timed=False,
+                                    blank=blank)
+                log(f"phase 5 panel kernel, 3000 rows: {json.dumps(rec)}")
+    del small
+
+    ooc_csr = synthetic_corpus(OOC_ROWS, seed=0)
+    eng = ChunkedAllPairs(AllPairsConfig(), dev)
+    torch.cuda.reset_peak_memory_stats()
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    log(f"build chunked engine: {json.dumps(eng.build(ooc_csr))}")
+    jr = ooc_join(eng, f"out-of-core path, resident sweep, {OOC_ROWS} rows",
+                  reps=3)
+    ooc_launches = dict(ts.LAUNCHES)
+    log(f"kernel launches on the out-of-core path: {ooc_launches}")
+    n_pairs = jr["rec"]["geom"]["n_panels"] * (
+        jr["rec"]["geom"]["n_panels"] + 1) // 2
+    if ooc_launches["panel_score_bits_int8"] != 3 * n_pairs:
+        raise AssertionError("the out-of-core join did not launch the panel "
+                             "kernel once per panel pair")
+    launches["panel_score_bits_int8"] = ooc_launches["panel_score_bits_int8"]
+
+    last = jr["rec"]["geom"]["n_panels"] - 1
+    recs = []
+    for pi, pj in ((0, 0), (0, last)):
+        rec = compare_panel(eng, pi, pj, *eng._panel_geom()[1:3], timed=True)
+        log(f"phase 5 panel kernel at the join's operands: {json.dumps(rec)}")
+        recs.append(rec)
+    off = recs[1]
+    kernels.append({
+        "name": "panel_score_bits_int8", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["panel_score_bits_int8"],
+        "launches": launches["panel_score_bits_int8"],
+        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "ms": off["ms"], "plain_ms": off["plain_ms"],
+    })
+
+    eng._panel_resident_bytes = 0
+    jroll = ooc_join(eng, f"out-of-core path, rolling sweep, {OOC_ROWS} rows",
+                     reps=1)
+    del eng
+    torch.cuda.empty_cache()
+    want = oracle_pairs(ooc_csr, TAU, dev)
+    for label, j in (("resident", jr), ("rolling", jroll)):
+        got = set(zip(j["res"].i.tolist(), j["res"].j.tolist()))
+        if got != want:
+            raise AssertionError(
+                f"out-of-core {label} join differs from the fp64 oracle: "
+                f"{len(got - want)} extra, {len(want - got)} missing"
+            )
+        if not got or not np.all(np.isfinite(j["res"].sims)):
+            raise AssertionError("join produced no pairs or non-finite sims")
+        log(f"out-of-core {label} join, {OOC_ROWS} rows: parity OK, "
+            f"{len(got)} pairs equal the fp64 oracle")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

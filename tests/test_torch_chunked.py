@@ -1,0 +1,255 @@
+"""The port's out-of-core ``ChunkedAllPairs`` join end to end on the CPU,
+against the JAX package's ``ChunkedAllPairs(use_pallas="on")`` (Pallas in
+interpret mode) and the fp64 brute-force oracle, case by case as
+``tests/test_chunked.py`` runs them: multi-panel sweep, rolling sweep,
+single panel, all-dormant corpus, single-slab tier; then checkpoints saved
+by the JAX package, the cost model, and the paths not ported yet.
+
+Tolerances: entry buffers equal the JAX ones exactly; pair sets and
+candidate sets are equal; similarities agree to 1e-12 (both are fp64
+rescores of the same entries).
+
+The port's kernel tiles are (64, 128) where the JAX package's CPU tiles
+are (64, 64) (the CUDA kernel needs ``tn % 128``), so its panel heights are
+multiples of 128; the candidate set is decided per cell and does not
+depend on the tiles, which ``test_candidates_equal_jax_under_jax_tiles``
+shows.
+"""
+
+import numpy as np
+import pytest
+
+import apsim_tpu
+import apsim_tpu_torch as pt
+from apsim_tpu.engine import ChunkedAllPairs as JaxChunked
+from apsim_tpu.vector.sparse import Vectors
+from apsim_tpu_torch.bench import ooc as pt_ooc
+from apsim_tpu_torch.ops import tri_score as ts
+
+from oracle import brute_force_pairs, random_sparse_corpus
+
+DIM = 500
+
+
+def cfg_kw(**kw):
+    base = dict(vector_dim=DIM, query_tile=64, row_bucket=64, dim_bucket=64)
+    base.update(kw)
+    return base
+
+
+def to_pt(csr):
+    return pt.CSRMatrix(csr.n_rows, csr.n_cols, csr.indptr, csr.indices,
+                        csr.data)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(23)
+    return random_sparse_corpus(rng, 220, DIM)
+
+
+@pytest.fixture(scope="module")
+def big_corpus():
+    """Enough rows for 4 panels of 128 (the rolling sweep's I-blocks)."""
+    rng = np.random.default_rng(29)
+    base = random_sparse_corpus(rng, 400, DIM)
+    rows = [base.row(i) for i in range(base.n_rows)]
+    rows += [base.row(i) for i in range(0, 40, 4)]  # cross-panel duplicates
+    return apsim_tpu.vector.batch.CSRMatrix.from_vectors(rows, DIM)
+
+
+# case -> (corpus fixture, port kwargs, JAX kwargs, engine attributes)
+CASES = {
+    "multi_panel": ("corpus", dict(panel_rows=128), dict(panel_rows=64), {}),
+    "rolling": ("big_corpus", dict(panel_rows=128), dict(panel_rows=128),
+                {"_panel_resident_bytes": 0}),
+    "single_panel": ("corpus", {}, {}, {}),
+    "single_slab": ("corpus", {}, {}, {"_use_single_slab": True}),
+}
+
+
+def make_pair(csr, case, **cfg):
+    _, pkw, jkw, attrs = CASES[case]
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**cfg)), "cpu",
+                           chunk_dim=128, **pkw)
+    j = JaxChunked(apsim_tpu.AllPairsConfig(**cfg_kw(use_pallas="on",
+                                                     **cfg)),
+                   chunk_dim=128, **jkw)
+    for eng in (p, j):
+        for k, v in attrs.items():
+            setattr(eng, k, v)
+        eng.build(to_pt(csr) if eng is p else csr)
+    return p, j
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_join_equals_jax_and_oracle(case, request):
+    csr = request.getfixturevalue(CASES[case][0])
+    p, j = make_pair(csr, case)
+    rb, tm, tn, n_panels, d_cap = p._panel_geom()
+    assert p._panel_ok() and (tm, tn, d_cap) == (64, 128, 512)
+    state = p._panel_state()
+    if case == "multi_panel":
+        assert n_panels >= 2
+    if case == "rolling":
+        assert n_panels >= 3
+        # S = 4 slabs in flight -> B = 2 row panels per column scan
+        p._panel_sweep_bytes = 4 * rb * d_cap
+        j._panel_sweep_bytes = 4 * rb * d_cap
+        assert n_panels * rb * d_cap > p._panel_resident_bytes
+    if case == "single_panel":
+        assert n_panels == 1
+    assert p._single_slab_ok(state) is (case == "single_slab")
+    for tau in (0.3, 0.6):
+        before = dict(ts.LAUNCHES)
+        slabs0 = p.timer.counts.get("slabs", 0)
+        rp, rj = p.all_pairs(tau), j.all_pairs(tau)
+        assert ts.LAUNCHES == before  # CPU tensors: plain versions
+        want = brute_force_pairs(csr, tau)
+        assert rp.pair_set() == rj.pair_set() == want
+        sj = dict(zip(zip(rj.i.tolist(), rj.j.tolist()), rj.sims.tolist()))
+        for a, b, s in zip(rp.i.tolist(), rp.j.tolist(), rp.sims.tolist()):
+            assert abs(s - sj[(a, b)]) <= 1e-12
+        if case == "rolling":
+            # I-blocks {0,1} and {2,3}: 4 + 2 I-slabs, 2 J-slabs
+            assert p.timer.counts["slabs"] - slabs0 == 6
+    assert len(brute_force_pairs(csr, 0.3)) > 100
+
+
+def test_build_layout_equals_jax(corpus):
+    p, j = make_pair(corpus, "multi_panel")
+    for a, b in zip(j._ent_host, p._ent_host):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(j._counts, p._counts)
+    assert (j._n_chunks, j._chunk_cap, j._chunk_width, j.row_cap) == (
+        p._n_chunks, p._chunk_cap, p._chunk_width, p.row_cap)
+    assert np.array_equal(j.compact.ext_of_col, p.compact.ext_of_col)
+    assert np.array_equal(j._dorm_dims, p._dorm_dims)
+    assert np.array_equal(j.max_weights, p.max_weights)
+    assert j._max_norm == p._max_norm
+
+
+def test_candidates_equal_jax_under_jax_tiles(corpus):
+    """Same panel height (128): the JAX sweep at its CPU tiles (64, 64)
+    and the port's at (64, 128) produce the same candidate set."""
+    p, j = make_pair(corpus, "multi_panel")
+    j.panel_rows = 128
+    j._panel_geom_cache = None
+    assert j._panel_geom()[1:3] == (64, 64) and j._panel_geom()[4] == 2
+    assert p._panel_geom()[1:4] == (64, 128, 2)
+    for tau in (0.2, 0.5):
+        tau_eff = p._tau_eff(tau)
+        assert tau_eff == j._tau_eff(tau)
+        pr, pc = p._all_pairs_panel(tau_eff)
+        jr, jc = j._all_pairs_panel(tau_eff)
+        got = sorted(zip(pr.tolist(), pc.tolist()))
+        assert got == sorted(zip(jr.tolist(), jc.tolist()))
+        assert len(got) > (100 if tau == 0.2 else 10)
+
+
+def test_all_dormant_corpus():
+    """Every dim df==1 -> zero device entries: the panel join still runs
+    (empty slabs) and finds 0 pairs.  The insert half of the JAX test waits
+    for the chunked insert."""
+    vecs = [(f"v{i}", Vectors.sparse(300, [i * 3, i * 3 + 1], [0.6, 0.8]))
+            for i in range(40)]
+    kw = dict(vector_dim=300, query_tile=64, row_bucket=64, dim_bucket=64)
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(**kw), "cpu", chunk_dim=64,
+                           panel_rows=128)
+    j = JaxChunked(apsim_tpu.AllPairsConfig(use_pallas="on", **kw),
+                   chunk_dim=64, panel_rows=64)
+    p.build(vecs)
+    j.build(vecs)
+    assert p._panel_ok() and int(p._counts.sum()) == 0
+    assert p.stats["dormant_dims"] == j.stats["dormant_dims"] == 80
+    assert p.all_pairs(0.5).n_pairs == j.all_pairs(0.5).n_pairs == 0
+    assert p.stats["candidates_scored"] == 0
+
+
+@pytest.mark.parametrize("flavor", ["chunked", "dense", "other_chunk_dim"])
+def test_load_jax_checkpoint(corpus, flavor, tmp_path):
+    """A JAX-saved chunked checkpoint places its entry buffers (fast path);
+    a dense-flavor one, or one of another chunk_dim, rebuilds from the CSR
+    shadow.  Either way: the JAX engine's pairs."""
+    ids = [f"doc{i}" for i in range(corpus.n_rows)]
+    if flavor == "dense":
+        j = apsim_tpu.Engine(apsim_tpu.AllPairsConfig(**cfg_kw()))
+    else:
+        j = JaxChunked(apsim_tpu.AllPairsConfig(**cfg_kw()),
+                       chunk_dim=256 if flavor == "other_chunk_dim" else 128)
+    j.build([(d, corpus.row(i)) for i, d in enumerate(ids)])
+    j.save(str(tmp_path))
+    want = j.all_pairs(0.4).pair_set()
+    p = pt.ChunkedAllPairs.load(str(tmp_path), pt.AllPairsConfig(**cfg_kw()),
+                                device="cpu", chunk_dim=128)
+    z = np.load(tmp_path / "index.npz")
+    assert p._fast_restorable(z) is (flavor == "chunked")
+    assert p.ids == ids and p.n_rows == corpus.n_rows
+    assert np.array_equal(p.max_weights, j.max_weights)
+    ref = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()), "cpu",
+                             chunk_dim=128)
+    ref.build(to_pt(corpus), ids)
+    for a, b in zip(ref._ent_host, p._ent_host):
+        assert np.array_equal(a, b)
+    assert np.array_equal(ref.compact.ext_of_col, p.compact.ext_of_col)
+    assert p._max_norm == ref._max_norm
+    got = p.all_pairs(0.4)
+    assert got.pair_set() == want == brute_force_pairs(corpus, 0.4, ids)
+
+
+def test_cost_model_matches_jax():
+    """The panel height and count the port's cost model picks equal the
+    JAX package's at 32,768 compact columns (16 chunks of 2048)."""
+    picks = {}
+    for n in (20_000, 100_000, 500_000):
+        out = []
+        for eng in (JaxChunked(apsim_tpu.AllPairsConfig()),
+                    pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu")):
+            eng.n_rows, eng._n_chunks = n, 16
+            eng._compact._base = 32768
+            g = eng._panel_geom()
+            out.append((g[0], g[-2], g[-1], g[1], g[2]))
+        assert out[0] == out[1]
+        picks[n] = out[1][:2]
+    assert picks[100_000] == (8192, 13)
+
+
+@pytest.mark.parametrize("what", [
+    "insert", "topk", "freeze", "save", "use_pallas_off", "no_int8",
+    "profile_dir", "odd_panel_rows",
+])
+def test_unported_paths_raise(corpus, what):
+    kw = {"use_pallas_off": {"use_pallas": "off"},
+          "no_int8": {"pallas_int8": False},
+          "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
+    rows = 64 if what == "odd_panel_rows" else None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu",
+                               chunk_dim=128, panel_rows=rows)
+        e.build(to_pt(corpus))
+        {"insert": lambda: e.insert([("q", corpus.row(0))]),
+         "topk": lambda: e.topk([("q", corpus.row(0))], 3),
+         "freeze": e.freeze,
+         "save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
+
+
+def test_device_must_be_explicit():
+    with pytest.raises(TypeError):
+        pt.ChunkedAllPairs(pt.AllPairsConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt.ChunkedAllPairs(pt.AllPairsConfig(), "meta")
+
+
+def test_ooc_bench_report_on_cpu():
+    """The out-of-core bench's join runs end to end at a small size (its
+    command line refuses a machine without CUDA); --stripes and --stream
+    are not ported."""
+    rep = pt_ooc.run_ooc(600, device="cpu", chunk_dim=1024)
+    assert rep["device"] == "cpu" and rep["panel_path"]
+    assert rep["sweep"] == "resident"
+    assert rep["pairs"] > 0 and rep["join_seconds"] > 0
+    assert set(rep["stages_s"]) >= {"quantize_sort", "slabs", "kernel",
+                                    "compact", "d2h", "rescore"}
+    for flag in ("--stripes", "--stream"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt_ooc.main(["600", flag, "4"])

@@ -6,15 +6,17 @@ without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: int8 (gb, g64, cnt) bit-identical; bf16 hit cells may differ
-only where the plain fp32 score lies within 1e-5 of tau_eff.
+Tolerances: int8 (gb, g64, cnt) bit-identical, the dense and the
+cross-panel kernel alike; bf16 hit cells may differ only where the plain
+fp32 score lies within 1e-5 of tau_eff.
 """
 
 import pytest
 import torch
 
-from apsim_tpu_torch import AllPairsConfig, Engine
+from apsim_tpu_torch import AllPairsConfig, ChunkedAllPairs, Engine
 from apsim_tpu_torch.bench.scale import synthetic_corpus
+from apsim_tpu_torch.ops import panel as panel_ops
 from apsim_tpu_torch.ops import tri_score as ts
 
 pytestmark = pytest.mark.cuda
@@ -67,4 +69,61 @@ def test_all_pairs_on_cuda_equals_cpu(engines, int8):
         got[dev] = eng.all_pairs(0.8).pair_set()
         launched = ts.LAUNCHES[name] - before
         assert launched == (1 if dev == "cuda" else 0)
+    assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+@pytest.fixture(scope="module")
+def chunked():
+    """Chunked engines on the card and on the CPU: 3,000 rows in three
+    panels of 1,024 (the last one mostly padding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    csr = synthetic_corpus(3000, seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = ChunkedAllPairs(AllPairsConfig(), dev, panel_rows=1024)
+        out[dev].build(csr)
+    assert out["cuda"]._panel_geom()[3] == 3
+    return out
+
+
+@pytest.mark.parametrize("valid", ["all", "some_zero"])
+@pytest.mark.parametrize("pair", [(0, 0), (0, 1), (1, 2)])
+@pytest.mark.parametrize("tiles", [(64, 128), (1024, 512)])
+def test_panel_kernel_matches_plain(chunked, tiles, pair, valid):
+    """Kernel 3 against its plain version on two panels of the padded
+    index: panel offsets, diagonal and off-diagonal pairs, blocks blanked
+    by valid = 0."""
+    eng = chunked["cuda"]
+    st = eng._panel_state()
+    rb = st["geom"][0]
+    tm, tn = tiles
+    pi, pj = pair
+    grid = (panel_ops.diag_grid(rb, tm, tn) if pi == pj
+            else panel_ops.full_grid(rb, rb, tm, tn))
+    bi, bj = (torch.from_numpy(a).cuda() for a in grid)
+    v = None
+    if valid == "some_zero":
+        v = torch.ones_like(bi)
+        v[1::3] = 0
+    args = (eng._build_slab(st, pi), eng._build_slab(st, pj),
+            st["aux_of"][pi], st["aux_of"][pj], bi, bj, (pi * rb, pj * rb),
+            eng._tau_eff(0.5), tm, tn)
+    before = ts.LAUNCHES["panel_score_bits_int8"]
+    k = panel_ops.panel_score_bits_int8(*args, valid=v)
+    assert ts.LAUNCHES["panel_score_bits_int8"] == before + 1
+    p = panel_ops.panel_score_bits_int8_plain(*args, valid=v)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if v is not None:
+        assert not k[0][1::3].any() and not k[2][1::3].any()
+
+
+def test_chunked_all_pairs_on_cuda_equals_cpu(chunked):
+    got = {}
+    for dev, eng in chunked.items():
+        before = ts.LAUNCHES["panel_score_bits_int8"]
+        got[dev] = eng.all_pairs(0.8).pair_set()
+        launched = ts.LAUNCHES["panel_score_bits_int8"] - before
+        assert launched == (6 if dev == "cuda" else 0)  # 3 + 2 + 1 pairs
     assert got["cuda"] == got["cpu"] and got["cpu"]

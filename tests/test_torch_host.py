@@ -1,28 +1,58 @@
 """The port's host-only modules (copies, not imports) agree exactly with the
 JAX package's on the same seeded inputs: compact column space, packed COO,
-fp64 pair rescore, synthetic corpora, config loading."""
+growable CSR shadow, fp64 pair rescore, synthetic corpora, config loading.
 
+The JAX package's native library is built once, under an exclusive file
+lock, while this module is imported: with a cold cache, parallel test
+workers used to compile it at the same time into one shared temporary
+file, and a worker that lost that race ran without the library (its native
+tests skipped and its rescore took the NumPy sum order)."""
+
+import fcntl
 import os
 
 import numpy as np
 import pytest
 
+import apsim_tpu.native as jax_native
 from apsim_tpu.bench import scale as jax_scale
 from apsim_tpu.config import load_config as jax_load_config
 from apsim_tpu.index.compact import CompactSpace as JaxCompactSpace
 from apsim_tpu.ops import rescore as jax_rescore
+from apsim_tpu.vector.batch import GrowableCSR as JaxGrowableCSR
 from apsim_tpu.vector.batch import pack_coo_i32 as jax_pack_coo
 from apsim_tpu_torch.bench import scale as pt_scale
 from apsim_tpu_torch.config import load_config as pt_load_config
 from apsim_tpu_torch.index.compact import CompactSpace as PtCompactSpace
 from apsim_tpu_torch.ops import rescore as pt_rescore
 from apsim_tpu_torch.vector.batch import CSRMatrix as PtCSR
+from apsim_tpu_torch.vector.batch import GrowableCSR as PtGrowableCSR
 from apsim_tpu_torch.vector.batch import pack_coo_i32 as pt_pack_coo
 
 from oracle import random_sparse_corpus
 
 DIM = 3000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _build_jax_native_once():
+    """Build (or load) the JAX package's native library while holding an
+    exclusive lock beside its cache.  Every test worker imports this module
+    while collecting, before any test runs, so each worker then holds the
+    library and only one process ever compiles it."""
+    cache = os.environ.get(
+        "APSIM_NATIVE_CACHE", os.path.expanduser("~/.cache/apsim_native")
+    )
+    os.makedirs(cache, exist_ok=True)
+    with open(os.path.join(cache, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            jax_native.get_lib()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+_build_jax_native_once()
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +87,29 @@ def test_pack_coo_identical(n):
     a = jax_pack_coo(rows, cols, vals, 512)
     b = pt_pack_coo(rows, cols, vals, 512)
     assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_growable_csr_identical(corpus):
+    """Appends past the initial capacities, a rollback, and a re-append
+    give the same views in both packages."""
+    views = []
+    for cls in (JaxGrowableCSR, PtGrowableCSR):
+        g = cls(DIM)
+        for s in range(0, corpus.n_rows, 70):
+            e = min(s + 70, corpus.n_rows)
+            ip = corpus.indptr[s:e + 1] - corpus.indptr[s]
+            g.append(PtCSR(e - s, DIM, ip,
+                           corpus.indices[corpus.indptr[s]:corpus.indptr[e]],
+                           corpus.data[corpus.indptr[s]:corpus.indptr[e]]))
+        g.truncate(200)
+        g.append(PtCSR(1, DIM, corpus.indptr[:2], corpus.indices,
+                       corpus.data))
+        views.append(g.view())
+    a, b = views
+    assert (a.n_rows, a.n_cols) == (b.n_rows, b.n_cols) == (201, DIM)
+    for f in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(a, f), getattr(b, f))
+    assert np.array_equal(b.indptr[:201], corpus.indptr[:201])
 
 
 @pytest.mark.parametrize("path", ["grouped", "merge", "numpy"])
