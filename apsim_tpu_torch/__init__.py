@@ -5,14 +5,18 @@ PyTorch with hand-written Hopper kernels.  This package imports ``torch``
 and never ``jax`` or ``apsim_tpu``: the host-only modules it shares with the
 JAX package are copies.  Ported so far: ``Engine.build`` and the exact
 thresholded ``Engine.all_pairs`` join, the out-of-core
-``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join), and loading
-either engine from the JAX package's checkpoints.
+``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join), their
+single-host mesh variants ``MeshChunkedAllPairs`` (chunk axis sharded) and
+``MeshEngine`` (rows-sharded), and loading each engine from the JAX
+package's checkpoints.  Entry points run on the card (``"cuda"``, or a mesh
+over the cards) unless the caller names the CPU.
 """
 
 from .config import AllPairsConfig, load_config
 from .engine.chunked import ChunkedAllPairs
 from .engine.engine import Engine
 from .engine.output import PairResult, SimilarityOutput
+from .parallel import MeshChunkedAllPairs, MeshEngine, make_mesh
 from .vector.batch import CSRMatrix
 from .vector.sparse import SparseVector, Vectors
 
@@ -23,6 +27,9 @@ __all__ = [
     "load_config",
     "Engine",
     "ChunkedAllPairs",
+    "MeshChunkedAllPairs",
+    "MeshEngine",
+    "make_mesh",
     "PairResult",
     "SimilarityOutput",
     "SparseVector",

@@ -1,12 +1,23 @@
 // All-pairs score kernels for Hopper (sm_90a), int8 and bf16.
 //
-// Replaces the TPU kernels of apsim_tpu/ops/pallas_score.py and
-// apsim_tpu/ops/panel.py:
+// Replaces the TPU kernels of apsim_tpu/ops/pallas_score.py,
+// apsim_tpu/ops/panel.py and apsim_tpu/ops/panel_mesh.py:
 //   score_bits_int8        <- _kernel_int8       (pallas_score_bits_int8)
 //   score_bits_bf16        <- _kernel            (pallas_score_bits)
 //   panel_score_bits_int8  <- _kernel_int8_cross (panel_score_bits_int8)
+//   int8_matmul            <- _mm_kernel         (_int8_matmul)
 //
-// All three are one template.  For every block p of a block list
+// int8_matmul is the plain per-shard partial dot of the mesh panel join:
+// out = xi . xj^T in int32 over the full m x n grid, no block list, no
+// epilogue; it shares the mainloop below and is described at its kernel.
+// What bounds it: at the join's shapes (m = n = 8192, d = 32,768 on one
+// shard, 4,096 on eight) it does 2 m n d ops on (m + n) d + 4 m n bytes:
+// ~1,600 ops per byte at d = 4,096 and ~5,500 at 32,768, above the card's
+// ~590 (1,979 TOPS over 3.35 TB/s), so operations bound it (2.2 ms against
+// 0.24 ms of bytes at d = 32,768).  Its 64 x 128 tiles re-read operands
+// from L2 at 85 ops per byte, as the score kernels do (below).
+//
+// The score kernels are one template.  For every block p of a block list
 // (bi[p], bj[p]) it scores the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T
 // over all of K, admits a cell when its score clears tau_eff AND its GLOBAL
 // row is below its GLOBAL column, and writes the same hit structure as the
@@ -112,6 +123,85 @@ struct Bf16Op {
   }
 };
 
+// The shared mainloop: acc += xa[0:64, :] . xb[0:128, :]^T over all of K
+// (row_bytes bytes per row, a multiple of KB), for the fragments this
+// thread owns.  xa / xb point at the sub-tile's first operand row.  One
+// shared stage of each panel, the next stage prefetched into registers
+// while the MMAs of the current one run.
+template <class Op>
+__device__ __forceinline__ void mainloop(const uint8_t* __restrict__ xa,
+                                         const uint8_t* __restrict__ xb,
+                                         long long row_bytes, uint32_t* sA,
+                                         uint32_t* sB,
+                                         typename Op::Acc (&acc)[2][4][4]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int n_stages = (int)(row_bytes / KB);
+  uint4 ra[A_VECS], rb[B_VECS];
+  auto load = [&](int s) {
+#pragma unroll
+    for (int v = 0; v < A_VECS; ++v) {
+      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
+      ra[v] = __ldg(reinterpret_cast<const uint4*>(
+          xa + r * row_bytes + (long long)s * KB + c * 16));
+    }
+#pragma unroll
+    for (int v = 0; v < B_VECS; ++v) {
+      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
+      rb[v] = __ldg(reinterpret_cast<const uint4*>(
+          xb + r * row_bytes + (long long)s * KB + c * 16));
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int v = 0; v < A_VECS; ++v) {
+      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
+      *reinterpret_cast<uint4*>(&sA[r * LDS + c * 4]) = ra[v];
+    }
+#pragma unroll
+    for (int v = 0; v < B_VECS; ++v) {
+      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
+      *reinterpret_cast<uint4*>(&sB[r * LDS + c * 4]) = rb[v];
+    }
+  };
+  load(0);
+  store();
+  __syncthreads();
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) load(s + 1);  // in flight during the MMAs
+#pragma unroll
+    for (int ks = 0; ks < KW / 8; ++ks) {
+      const int kw = ks * 8;
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t* ra0 = &sA[(wm * 32 + mt * 16 + g) * LDS + kw + t];
+        a[mt][0] = ra0[0];
+        a[mt][1] = ra0[8 * LDS];
+        a[mt][2] = ra0[4];
+        a[mt][3] = ra0[8 * LDS + 4];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* rb0 = &sB[(wn * 32 + nt * 8 + g) * LDS + kw + t];
+        b[nt][0] = rb0[0];
+        b[nt][1] = rb0[4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) Op::mma(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+    if (s + 1 < n_stages) {
+      store();
+      __syncthreads();
+    }
+  }
+}
+
 // xi: [rows_i, row_bytes], xj: [rows_j, row_bytes] operand rows (int8
 // values or bf16 pairs); aux_i/aux_j: [3, rows_i] / [3, rows_j] f32 (int8
 // only, else unused); valid: [n_blocks] int32 or null.
@@ -174,70 +264,8 @@ score_bits_kernel(const uint8_t* __restrict__ xi,
   // global column; an invalid block has no cell at all
   const bool live = ok && row0 < col0 + BN - 1;
   if (live) {
-    const uint8_t* xa = xi + (long long)lrow0 * row_bytes;
-    const uint8_t* xb = xj + (long long)lcol0 * row_bytes;
-    const int n_stages = (int)(row_bytes / KB);
-    uint4 ra[A_VECS], rb[B_VECS];
-    auto load = [&](int s) {
-#pragma unroll
-      for (int v = 0; v < A_VECS; ++v) {
-        const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-        ra[v] = __ldg(reinterpret_cast<const uint4*>(
-            xa + r * row_bytes + (long long)s * KB + c * 16));
-      }
-#pragma unroll
-      for (int v = 0; v < B_VECS; ++v) {
-        const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-        rb[v] = __ldg(reinterpret_cast<const uint4*>(
-            xb + r * row_bytes + (long long)s * KB + c * 16));
-      }
-    };
-    auto store = [&]() {
-#pragma unroll
-      for (int v = 0; v < A_VECS; ++v) {
-        const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-        *reinterpret_cast<uint4*>(&sA[r * LDS + c * 4]) = ra[v];
-      }
-#pragma unroll
-      for (int v = 0; v < B_VECS; ++v) {
-        const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-        *reinterpret_cast<uint4*>(&sB[r * LDS + c * 4]) = rb[v];
-      }
-    };
-    load(0);
-    store();
-    __syncthreads();
-    for (int s = 0; s < n_stages; ++s) {
-      if (s + 1 < n_stages) load(s + 1);  // in flight during the MMAs
-#pragma unroll
-      for (int ks = 0; ks < KW / 8; ++ks) {
-        const int kw = ks * 8;
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const uint32_t* ra0 = &sA[(wm * 32 + mt * 16 + g) * LDS + kw + t];
-          a[mt][0] = ra0[0];
-          a[mt][1] = ra0[8 * LDS];
-          a[mt][2] = ra0[4];
-          a[mt][3] = ra0[8 * LDS + 4];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t* rb0 = &sB[(wn * 32 + nt * 8 + g) * LDS + kw + t];
-          b[nt][0] = rb0[0];
-          b[nt][1] = rb0[4];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) Op::mma(acc[mt][nt], a[mt], b[nt]);
-      }
-      __syncthreads();
-      if (s + 1 < n_stages) {
-        store();
-        __syncthreads();
-      }
-    }
+    mainloop<Op>(xi + (long long)lrow0 * row_bytes,
+                 xj + (long long)lcol0 * row_bytes, row_bytes, sA, sB, acc);
   } else if (kAux) {
     __syncthreads();  // the aux tiles are read below either way
   }
@@ -302,6 +330,50 @@ score_bits_kernel(const uint8_t* __restrict__ xi,
   }
 }
 
+// Kernel 4: out[m, n] = xi[m, d] . xj[n, d]^T in int32, no epilogue.  One
+// thread block per 64 x 128 output tile over the full (m/64) x (n/128) grid,
+// column tiles fastest, the whole K loop inside the block (the Pallas grid's
+// K axis and its VMEM accumulator become mainloop's registers).  Each warp
+// stores its 32 x 32 cells as int2 pairs: lanes 4g..4g+3 write 32 contiguous
+// bytes of one output row.
+__global__ void __launch_bounds__(THREADS)
+int8_matmul_kernel(const uint8_t* __restrict__ xi,
+                   const uint8_t* __restrict__ xj, long long d, int n,
+                   int* __restrict__ out) {
+  __shared__ __align__(16) uint32_t sA[BM * LDS];
+  __shared__ __align__(16) uint32_t sB[BN * LDS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int n_tiles = n / BN;
+  const long long row0 = (long long)(blockIdx.x / n_tiles) * BM;
+  const int col0 = (int)(blockIdx.x % n_tiles) * BN;
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+  mainloop<Int8Op>(xi + row0 * d, xj + (long long)col0 * d, d, sA, sB, acc);
+
+  // fragment element i of tile (mt, nt): row wm*32 + mt*16 + g + 8*(i/2),
+  // column wn*32 + nt*8 + 2t + (i%2)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const long long r = row0 + wm * 32 + mt * 16 + g;
+      const int c = col0 + wn * 32 + nt * 8 + 2 * t;
+      *reinterpret_cast<int2*>(out + r * n + c) =
+          make_int2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<int2*>(out + (r + 8) * n + c) =
+          make_int2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
 template <class Op, bool kAux>
 int launch(const void* xi, const void* xj, long long row_bytes,
            const void* aux_i, int rows_i, const void* aux_j, int rows_j,
@@ -362,6 +434,22 @@ int panel_score_bits_int8(const void* xi, const void* xj, const void* auxi,
   return launch<Int8Op, true>(xi, xj, dim_cap, auxi, rows_i, auxj, rows_j,
                               bi, bj, valid, off_row, off_col, tau_eff,
                               n_blocks, tm, tn, gb, g64, cnt, stream);
+}
+
+// Kernel 4.  xi int8 [m, d], xj int8 [n, d], out int32 [m, n] (every
+// element written); m % 64, n % 128 and d % 128 must be 0.
+int int8_matmul(const void* xi, const void* xj, int m, int n, int d,
+                void* out, void* stream) {
+  if (m % BM || n % BN || d % KB || m < 0 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)(m / BM) * (n / BN);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (grid == 0) return (int)cudaSuccess;
+  if (d == 0) return (int)cudaMemsetAsync(out, 0, (size_t)m * n * sizeof(int),
+                                          (cudaStream_t)stream);
+  int8_matmul_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)xi, (const uint8_t*)xj, d, n, (int*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

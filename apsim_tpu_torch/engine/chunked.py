@@ -55,8 +55,8 @@ INT8_NNZ_GATE = (1 << 30) // (127 * 127)
 
 
 class ChunkedAllPairs:
-    def __init__(self, config: AllPairsConfig | None,
-                 device: torch.device | str, chunk_dim: int = 2048,
+    def __init__(self, config: AllPairsConfig | None = None,
+                 device: torch.device | str = "cuda", chunk_dim: int = 2048,
                  panel_rows: int | None = None):
         self.cfg = config or AllPairsConfig()
         self.device = torch.device(device)
@@ -97,8 +97,10 @@ class ChunkedAllPairs:
         self._panel_state_cache = None
         self._compact_rescore_cache = None
 
-    # dormant-dim archive and margin policy shared with the dense engine
-    # (one definition each, as in the JAX package)
+    # dormant-dim archive, margin policy and device wait shared with the
+    # dense engine (one definition each, as in the JAX package; the mesh
+    # subclass's _sync waits for every shard's device)
+    _sync = Engine._sync
     _drop_unmapped = Engine._drop_unmapped
     _archive_dormant = Engine._archive_dormant
     _margin_rel = Engine._margin_rel
@@ -144,8 +146,7 @@ class ChunkedAllPairs:
         the split holds its own device time."""
         with self.timer.section(name):
             yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
 
     # ------------------------------------------------------------------ build
     def build(self, vectors, ids: Sequence[str] | None = None) -> dict:
@@ -161,7 +162,9 @@ class ChunkedAllPairs:
         kept = self._archive_dormant(csr)
         # gather-only dim remap: the bucketing below is order-free
         ccols = self._compact.map_cols(kept.indices)
-        n_chunks = max(1, -(-self._compact.n_active // self.chunk_dim))
+        n_chunks = self._round_chunks(
+            max(1, -(-self._compact.n_active // self.chunk_dim))
+        )
         self._n_chunks = n_chunks
         rows_of = np.repeat(
             np.arange(kept.n_rows, dtype=np.int32), np.diff(kept.indptr)
@@ -181,8 +184,7 @@ class ChunkedAllPairs:
         self._max_norm = float(norms.max()) if norms.size else 0.0
         np.maximum.at(self.max_weights, csr.indices, csr.data)
         self.stats["vectors_indexed"] += csr.n_rows
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         return {
             "n_rows": self.n_rows,
             "row_cap": self.row_cap,
@@ -192,6 +194,11 @@ class ChunkedAllPairs:
             "chunk_cap": self._chunk_cap,
             "build_seconds": time.time() - t0,
         }
+
+    def _round_chunks(self, n: int) -> int:
+        """Chunk count for ``n`` needed chunks (the mesh subclass rounds up
+        to a multiple of its shard count)."""
+        return n
 
     def _place(self, rows2d, cols2d, vals2d, counts) -> None:
         """Put the entry buffers on the device (host mirror kept) and drop
@@ -388,9 +395,17 @@ class ChunkedAllPairs:
             return (torch.cat([f[0] for f in found]).cpu().numpy(),
                     torch.cat([f[1] for f in found]).cpu().numpy())
 
+    def _slab_bytes(self, rb: int, d_cap: int) -> int:
+        """Per-device bytes of one int8 panel slab, which the sweep budgets
+        are compared against (the mesh subclass: one shard's share)."""
+        return rb * d_cap
+
     def _sweep(self, state, tau_eff) -> list:
+        """Every panel pair (I <= J) through ``_op_panel_pair``.  A slab is
+        whatever ``_build_slab`` returns (one tensor here, a per-shard list
+        in the mesh subclass); the sweep only hands it on."""
         rb, _, _, n_panels, d_cap = state["geom"]
-        slab_bytes = rb * d_cap
+        slab_bytes = self._slab_bytes(rb, d_cap)
         found: list = []
         if n_panels * slab_bytes <= self._panel_resident_bytes:
             # all slabs resident for the whole sweep
@@ -510,9 +525,11 @@ class ChunkedAllPairs:
     def _fast_restorable(self, z) -> bool:
         if "chunk_geom" not in z:
             return False  # dense-flavor or pre-extras checkpoint
-        _, _, chunk_dim, dormant = (int(v) for v in z["chunk_geom"])
+        n_chunks, _, chunk_dim, dormant = (int(v) for v in z["chunk_geom"])
         return (chunk_dim == self.chunk_dim
-                and dormant == int(self.cfg.dormant_dims))
+                and dormant == int(self.cfg.dormant_dims)
+                # a mesh subclass needs n_chunks divisible by its shards
+                and self._round_chunks(n_chunks) == n_chunks)
 
     def _fast_restore(self, csr: CSRMatrix, ids, z) -> None:
         """Place the checkpointed entry buffers; skip every build pass."""
@@ -547,16 +564,12 @@ class ChunkedAllPairs:
         self.stats["vectors_indexed"] += csr.n_rows
 
     @classmethod
-    def load(cls, path: str, config: AllPairsConfig | None = None, *,
-             device: torch.device | str, **kw) -> "ChunkedAllPairs":
+    def load(cls, path: str, config: AllPairsConfig | None = None,
+             **kw) -> "ChunkedAllPairs":
         """Engine restored from a checkpoint written by the JAX package's
-        ``Engine.save`` or ``ChunkedAllPairs.save``."""
-        ckpt_cfg = Engine.read_checkpoint_config(path)
-        cfg = config or AllPairsConfig().replace(
-            vector_dim=int(ckpt_cfg["vector_dim"]),
-            similarity_threshold=float(ckpt_cfg["similarity_threshold"]),
-            dtype=str(ckpt_cfg["dtype"]),
-        )
-        eng = cls(cfg, device, **kw)
+        ``Engine.save`` or ``ChunkedAllPairs.save``; ``kw`` goes to the
+        constructor (``device``, ``chunk_dim``, ... ; the mesh subclass:
+        ``mesh``)."""
+        eng = cls(Engine.checkpoint_engine_config(path, config), **kw)
         eng.restore(path)
         return eng

@@ -3,8 +3,9 @@
 
 One object holds:
 
-  - a dense index matrix ``x [row_cap, dim_cap]`` on an explicit device, over
-    compact frequency-ordered columns (the inverted-index replacement);
+  - a dense index matrix ``x [row_cap, dim_cap]`` on one device (the card,
+    ``"cuda"``, unless the caller names another; no fallback to the CPU),
+    over compact frequency-ordered columns (the inverted-index replacement);
   - a host float64 CSR shadow (exact rescoring, checkpoints);
   - per-dimension max weights.
 
@@ -67,8 +68,8 @@ def _as_csr(
 
 
 class Engine:
-    def __init__(self, config: AllPairsConfig | None,
-                 device: torch.device | str):
+    def __init__(self, config: AllPairsConfig | None = None,
+                 device: torch.device | str = "cuda"):
         self.cfg = config or AllPairsConfig()
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
@@ -245,10 +246,7 @@ class Engine:
         compact_csr = self.compact.map_csr(self._archive_dormant(csr))
         row_cap = round_up(max(csr.n_rows, 1), self._row_quantum())
         dim_cap = self.compact.capacity
-        self.x = score_ops.new_index_matrix(
-            row_cap, dim_cap, self.cfg.dtype, self.device
-        )
-        self._scatter_rows(compact_csr)
+        self.x = self._new_index(compact_csr, row_cap, dim_cap)
         self.n_rows = csr.n_rows
         self.ids = list(new_ids)
         self.id_to_row = {v: k for k, v in enumerate(self.ids)}
@@ -265,23 +263,38 @@ class Engine:
             build_seconds=time.time() - t0,
         )
 
-    def _scatter_rows(self, compact_csr: CSRMatrix) -> None:
-        """Chunked flat-COO scatter of compact CSR rows into the fresh
-        device matrix: one O(nnz) packed H2D copy and one in-place scatter
-        per ~4M-entry chunk."""
-        nnz = int(compact_csr.indptr[-1])
-        rows_all = np.repeat(
-            np.arange(compact_csr.n_rows, dtype=np.int64),
-            np.diff(compact_csr.indptr),
+    def _new_index(self, compact_csr: CSRMatrix, row_cap: int,
+                   dim_cap: int) -> torch.Tensor | None:
+        """The built index on the device.  The mesh engine overrides this
+        to build per-shard row blocks, each on its own device."""
+        x = score_ops.new_index_matrix(
+            row_cap, dim_cap, self.cfg.dtype, self.device
         )
+        self._scatter_rows(x, compact_csr)
+        return x
+
+    @staticmethod
+    def _scatter_rows(x: torch.Tensor, compact_csr: CSRMatrix,
+                      row0: int = 0) -> None:
+        """Chunked flat-COO scatter of compact CSR rows ``[row0, row0 +
+        len(x))`` into the fresh device matrix ``x``: one O(nnz) packed H2D
+        copy and one in-place scatter per ~4M-entry chunk."""
+        ip = compact_csr.indptr
+        r0 = min(row0, compact_csr.n_rows)
+        r1 = min(row0 + x.shape[0], compact_csr.n_rows)
+        base = int(ip[r0])
+        rows_all = np.repeat(
+            np.arange(r1 - r0, dtype=np.int64), np.diff(ip[r0:r1 + 1])
+        )
+        nnz = rows_all.size
         chunk = 1 << 22  # ~48 MB of packed COO per copy
         for s in range(0, nnz, chunk):
             e = min(s + chunk, nnz)
             coo = pack_coo_i32(
-                rows_all[s:e], compact_csr.indices[s:e],
-                compact_csr.data[s:e], self.row_cap,
+                rows_all[s:e], compact_csr.indices[base + s:base + e],
+                compact_csr.data[base + s:base + e], x.shape[0],
             )
-            score_ops.scatter_coo(self.x, coo)
+            score_ops.scatter_coo(x, coo)
 
     def _append_shadow(self, csr: CSRMatrix) -> None:
         nnz = int(csr.indptr[-1])
@@ -558,6 +571,22 @@ class Engine:
         ) as f:
             return json.load(f)["config"]
 
+    @staticmethod
+    def checkpoint_engine_config(
+        path: str, config: AllPairsConfig | None = None
+    ) -> AllPairsConfig:
+        """``config``, or the checkpoint's vector_dim, threshold and dtype
+        over the defaults (the config every ``load`` builds its engine
+        with)."""
+        if config is not None:
+            return config
+        ckpt_cfg = Engine.read_checkpoint_config(path)
+        return AllPairsConfig().replace(
+            vector_dim=int(ckpt_cfg["vector_dim"]),
+            similarity_threshold=float(ckpt_cfg["similarity_threshold"]),
+            dtype=str(ckpt_cfg["dtype"]),
+        )
+
     def restore(self, path: str) -> None:
         """Rebuild this (empty) engine from a checkpoint."""
         csr, ids, max_weights, ckpt_cfg = Engine.read_checkpoint(path)
@@ -580,26 +609,22 @@ class Engine:
             self.max_weights = np.maximum(self.max_weights, max_weights)
 
     @classmethod
-    def load(cls, path: str, config: AllPairsConfig | None = None, *,
-             device: torch.device | str) -> "Engine":
+    def load(cls, path: str, config: AllPairsConfig | None = None,
+             **kw) -> "Engine":
         """Engine rebuilt from a checkpoint written by the JAX package's
-        ``Engine.save``."""
-        ckpt_cfg = cls.read_checkpoint_config(path)
-        cfg = config or AllPairsConfig().replace(
-            vector_dim=int(ckpt_cfg["vector_dim"]),
-            similarity_threshold=float(ckpt_cfg["similarity_threshold"]),
-            dtype=str(ckpt_cfg["dtype"]),
-        )
-        eng = cls(cfg, device)
+        ``Engine.save``; ``kw`` goes to the constructor (``device``; the
+        mesh subclass: ``mesh``)."""
+        eng = cls(cls.checkpoint_engine_config(path, config), **kw)
         eng.restore(path)
         return eng
 
     @classmethod
     def from_numpy(cls, indptr, indices, data, n_cols: int, ids=None,
-                   max_weights=None, config: AllPairsConfig | None = None, *,
-                   device: torch.device | str) -> "Engine":
+                   max_weights=None, config: AllPairsConfig | None = None,
+                   **kw) -> "Engine":
         """Engine built from host CSR arrays (the arrays a checkpoint
-        holds), so a caller can hand both packages the same corpus."""
+        holds), so a caller can hand both packages the same corpus;
+        ``kw`` goes to the constructor."""
         cfg = config or AllPairsConfig().replace(vector_dim=int(n_cols))
         if cfg.vector_dim != int(n_cols):
             raise ValueError(
@@ -610,6 +635,6 @@ class Engine:
             indptr.size - 1, int(n_cols), indptr,
             np.asarray(indices, np.int32), np.asarray(data, np.float64),
         )
-        eng = cls(cfg, device)
+        eng = cls(cfg, **kw)
         eng._restore_arrays(csr, ids, max_weights)
         return eng

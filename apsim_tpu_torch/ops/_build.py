@@ -1,5 +1,6 @@
 """Build and bind the CUDA kernels of ``csrc/score_bits.cu``
-(``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``).
+(``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``,
+``int8_matmul``).
 
 The source has a plain C interface, so it is compiled by ``nvcc`` alone into
 a shared library (seconds, where a build against PyTorch's headers takes
@@ -74,6 +75,8 @@ def kernels() -> ctypes.CDLL:
                 _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
             ]
+            lib.int8_matmul.restype = _I
+            lib.int8_matmul.argtypes = [_P, _P, _I, _I, _I, _P, _P]
             _info.update(
                 library=so, seconds=time.perf_counter() - t0, log=log
             )

@@ -49,9 +49,10 @@ K_QUANTUM = 128  # the kernels stream K in 128-byte stages per row
 COL_QUANTUM = 128  # columns per CUDA thread block
 
 # kernel launches per wrapper (only a launch of the CUDA kernel counts);
-# ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``
+# ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
+# ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py``
 LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
-            "panel_score_bits_int8": 0}
+            "panel_score_bits_int8": 0, "int8_matmul": 0}
 
 
 def check_tiles(rows_i: int, rows_j: int, dim: int, tm: int, tn: int,

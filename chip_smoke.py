@@ -34,6 +34,26 @@ result line):
    plain version on one diagonal and one off-diagonal panel pair of that
    join (timed); one join with the rolling sweep; exact pair-set parity of
    both joins with the fp64 oracle.
+6. The mesh paths, their shards on the one card.  Kernel 4 (the per-shard
+   int8 matmul) against its plain version, exact int32 equality, at two
+   small shapes and at the mesh join's own per-shard operands (a diagonal
+   and an off-diagonal panel pair at 1 shard and at 8), timed beside
+   ``torch._int_mm`` on the same operands (a yardstick only: the port never
+   calls it).  ``MeshChunkedAllPairs`` on phase 5's corpus: with
+   ``make_mesh(1)``, counters zeroed, build + ``all_pairs(0.8)`` three times
+   (the third timed with its stage split), kernel 4 launched once per panel
+   pair per join; then once over ``make_mesh(8, devices=[cuda:0] * 8)``,
+   8 launches per panel pair.  ``MeshEngine(shard_axis="rows")`` over 4
+   shards of the card on phase 3's corpus, three joins, kernel 3 launched 4
+   times per join; then kernel 3 against its plain version, bit-identical,
+   at the first and the last shard's own launch of that join (the gathered
+   int8 index, the shard's striped schedule and valid flags).  Every mesh
+   join's pair set equals the fp64 oracle and its candidate set that of the
+   single-device join on the same corpus.
+
+Every kernel's record holds its bound: the larger of its operations over
+the card's peak rate for their type and its bytes (inputs read once,
+outputs written once) over the memory rate, at this run's shapes.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
@@ -49,10 +69,14 @@ import time
 import numpy as np
 import torch
 
-from apsim_tpu_torch import AllPairsConfig, ChunkedAllPairs, CSRMatrix, Engine
+from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
+                             Engine, MeshChunkedAllPairs, MeshEngine,
+                             make_mesh)
 from apsim_tpu_torch.bench.ooc import join_ops
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
+from apsim_tpu_torch.ops import mesh_pallas, panel_mesh
+from apsim_tpu_torch.parallel.collectives import all_gather
 
 TAU = 0.8
 BF16_BAND = 1e-5  # |plain fp32 score - tau_eff| allowed where bf16 bits differ
@@ -61,8 +85,13 @@ REPLACES = {
     "score_bits_int8": "apsim_tpu/ops/pallas_score.py:453",  # _kernel_int8
     "score_bits_bf16": "apsim_tpu/ops/pallas_score.py:117",  # _kernel
     "panel_score_bits_int8": "apsim_tpu/ops/panel.py:151",  # _kernel_int8_cross
+    "int8_matmul": "apsim_tpu/ops/panel_mesh.py:42",  # _mm_kernel
 }
 OOC_ROWS = 100_000
+# H100 SXM peaks (NVIDIA data sheet, dense): int8 ops/s, bf16 flop/s, HBM
+PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*a) -> None:
@@ -89,6 +118,35 @@ def median_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over ``peak`` and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def upper_cells(bi, bj, tm: int, tn: int, off=(0, 0)) -> int:
+    """Cells of the blocks (bi, bj) whose global row lies below their
+    global column: the cells a scorer must compute."""
+    r = (off[0] + bi.cpu().numpy().astype(np.int64)[:, None] * tm
+         + np.arange(tm))
+    c0 = off[1] + bj.cpu().numpy().astype(np.int64)[:, None] * tn
+    return int(np.clip(c0 + tn - (r + 1), 0, tn).sum())
+
+
+def score_bound(operands, aux_bytes: int, bi, bj, tm: int, tn: int,
+                off, peak: float) -> dict:
+    """Bound of one score-kernel launch: 2 ops per cell per K element on
+    the strict-upper cells; the operand and aux bytes, the block list, and
+    the gb / g64 / cnt outputs."""
+    k = operands[0].shape[1]
+    n = bi.numel()
+    nbytes = (sum(o.numel() * o.element_size() for o in operands)
+              + aux_bytes + 8 * n + n * (tm // 8 * tn + tm // 64 * tn + 12))
+    return bound(2 * upper_cells(bi, bj, tm, tn, off) * k, nbytes, peak)
 
 
 def blocks(row_cap: int, tm: int, tn: int, dev):
@@ -171,9 +229,13 @@ def oracle_pairs(csr: CSRMatrix, tau: float, dev) -> set:
     return out
 
 
-def check_parity(res, csr: CSRMatrix, dev, label: str) -> int:
+def pair_set(pairs) -> set:
+    """(row, col) arrays as a set of int pairs."""
+    return set(zip(pairs[0].tolist(), pairs[1].tolist()))
+
+
+def check_parity(res, want: set, label: str) -> int:
     got = set(zip(res.i.tolist(), res.j.tolist()))
-    want = oracle_pairs(csr, TAU, dev)
     if got != want:
         raise AssertionError(
             f"{label}: pair set differs from the fp64 oracle: "
@@ -206,11 +268,47 @@ def timed_join(eng: Engine, label: str) -> dict:
     return {"rec": rec, "res": res}
 
 
+def compare_cross(args, valid, label: str, timed: bool) -> dict:
+    """Cross-panel kernel vs its plain version on the wrapper's positional
+    ``args`` and ``valid``, bit-identical; a block with valid = 0 must
+    write nothing."""
+    kern = lambda: panel_ops.panel_score_bits_int8(*args, valid=valid)
+    plain = lambda: panel_ops.panel_score_bits_int8_plain(*args, valid=valid)
+    bi, bj, off, tm, tn = args[4], args[5], args[6], args[8], args[9]
+    k = kern()
+    torch.cuda.synchronize()
+    p = plain()
+    check_packing(k)
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
+    if err:
+        n = int((ts.unpack_bits(k[0]) != ts.unpack_bits(p[0])).sum())
+        raise AssertionError(
+            f"panel kernel differs from plain ({label}) at tiles "
+            f"{(tm, tn)}: {n} hit cells, max byte error {err}"
+        )
+    if valid is not None:
+        off_blocks = valid == 0
+        if k[0][off_blocks].any() or k[2][off_blocks].any():
+            raise AssertionError("a block with valid = 0 wrote hits or counts")
+    rec = {"offsets": list(off), "tiles": [tm, tn], "blocks": int(bi.numel()),
+           "pairs_kernel": int(k[2][:, 0].sum()), "max_abs_err": 0.0}
+    del k, p
+    if timed:
+        rec["ms"] = median_ms(kern)
+        rec["plain_ms"] = median_ms(plain)
+        rec["tops"] = (rec["blocks"] * tm * tn * args[0].shape[1] * 2
+                       / rec["ms"] / 1e9)
+        rec.update(score_bound(args[:2], 4 * (args[2].numel()
+                                              + args[3].numel()),
+                               bi, bj, tm, tn, off, PEAK_INT8))
+    return rec
+
+
 def compare_panel(eng: ChunkedAllPairs, pi: int, pj: int, tm: int, tn: int,
                   timed: bool, blank: bool = False) -> dict:
     """Cross-panel kernel vs its plain version on panels (pi, pj) of a
-    chunked engine's join state, bit-identical; with ``blank`` every third
-    block is blanked by valid = 0."""
+    chunked engine's join state; with ``blank`` every third block is
+    blanked by valid = 0."""
     st = eng._panel_state()
     rb = st["geom"][0]
     grid = (panel_ops.diag_grid(rb, tm, tn) if pi == pj
@@ -223,35 +321,31 @@ def compare_panel(eng: ChunkedAllPairs, pi: int, pj: int, tm: int, tn: int,
     args = (eng._build_slab(st, pi), eng._build_slab(st, pj),
             st["aux_of"][pi], st["aux_of"][pj], bi, bj, (pi * rb, pj * rb),
             eng._tau_eff(TAU), tm, tn)
-    kern = lambda: panel_ops.panel_score_bits_int8(*args, valid=valid)
-    plain = lambda: panel_ops.panel_score_bits_int8_plain(*args, valid=valid)
-    k = kern()
-    torch.cuda.synchronize()
-    p = plain()
-    check_packing(k)
-    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
-    if err:
-        n = int((ts.unpack_bits(k[0]) != ts.unpack_bits(p[0])).sum())
-        raise AssertionError(
-            f"panel kernel differs from plain on pair {(pi, pj)} at tiles "
-            f"{(tm, tn)}: {n} hit cells, max byte error {err}"
-        )
-    if blank and (k[0][1::3].any() or k[2][1::3].any()):
-        raise AssertionError("a block with valid = 0 wrote hits or counts")
-    rec = {"pair": [pi, pj], "offsets": [pi * rb, pj * rb],
-           "tiles": [tm, tn], "blocks": int(bi.numel()), "blanked": blank,
-           "pairs_kernel": int(k[2][:, 0].sum()), "max_abs_err": 0.0}
-    del k, p
-    if timed:
-        rec["ms"] = median_ms(kern)
-        rec["plain_ms"] = median_ms(plain)
-        rec["tops"] = (rec["blocks"] * tm * tn * args[0].shape[1] * 2
-                       / rec["ms"] / 1e9)
-    return rec
+    rec = compare_cross(args, valid, f"pair {(pi, pj)}", timed)
+    return {"pair": [pi, pj], "blanked": blank, **rec}
 
 
-def ooc_join(eng: ChunkedAllPairs, label: str, reps: int) -> dict:
-    """``reps`` joins at TAU; the last is timed with its stage split."""
+def compare_rows_shard(eng: MeshEngine, s: int) -> dict:
+    """The cross-panel kernel vs its plain version on shard ``s``'s launch
+    of the rows mesh join: the all-gathered int8 index and aux, the shard's
+    striped schedule and its valid flags, zero offsets, the path's tiles."""
+    dev = eng.mesh.devices[s]
+    tm, tn = eng._mesh_rows_geom()
+    bi, bj, va = (torch.from_numpy(a[s]).to(dev) for a in
+                  mesh_pallas.rows_schedule(eng.row_cap, eng.n_shards, tm, tn))
+    qa = [ts.quantize_rows(x) for x in eng.x_blocks]
+    qg = all_gather([q for q, _ in qa], 0, dev)
+    ag = all_gather([a for _, a in qa], 1, dev).contiguous()
+    del qa
+    args = (qg, qg, ag, ag, bi, bj, (0, 0), eng._tau_eff(TAU), tm, tn)
+    rec = compare_cross(args, va, f"rows mesh shard {s}", timed=False)
+    return {"shard": s, "live_blocks": int(va.sum()), **rec}
+
+
+def ooc_join(eng: ChunkedAllPairs, label: str, reps: int,
+             ops_of=join_ops) -> dict:
+    """``reps`` joins at TAU; the last is timed with its stage split.
+    ``ops_of(geom)`` gives the join's int8 operations."""
     for _ in range(reps - 1):
         eng.all_pairs(TAU)
     before = dict(eng.timer.totals)
@@ -264,7 +358,7 @@ def ooc_join(eng: ChunkedAllPairs, label: str, reps: int) -> dict:
               if k != "all_pairs"}
     n = eng.n_rows
     geom = eng._panel_geom()
-    ops = join_ops(geom)
+    ops = ops_of(geom)
     rec = {
         "rows": n, "geom": dict(zip(("rb", "tm", "tn", "n_panels", "d_cap"),
                                     geom)),
@@ -277,6 +371,44 @@ def ooc_join(eng: ChunkedAllPairs, label: str, reps: int) -> dict:
     }
     log(f"{label}: {json.dumps(rec)}")
     return {"rec": rec, "res": res}
+
+
+def zero_launches() -> None:
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+
+
+def mesh_join_ops(geom) -> int:
+    """int8 operations of one mesh panel join: every panel pair is a full
+    ``rb x rb`` rectangle over the global width."""
+    rb, _, _, n_panels, d_cap = geom
+    return n_panels * (n_panels + 1) // 2 * 2 * rb * rb * d_cap
+
+
+def compare_mm(xi, xj, label: str) -> dict:
+    """Kernel 4 against its plain version on (xi, xj), exact int32
+    equality; timed (CUDA events, median of 5) beside ``torch._int_mm`` on
+    the same operands, the library yardstick."""
+    k = panel_mesh.int8_matmul(xi, xj)
+    torch.cuda.synchronize()
+    p = panel_mesh.int8_matmul_plain(xi, xj)
+    if not torch.equal(k, p):
+        raise AssertionError(
+            f"int8_matmul differs from plain ({label}): "
+            f"{int((k != p).sum())} cells")
+    lib_equal = bool(torch.equal(torch._int_mm(xi, xj.t()), k))
+    del k, p
+    (m, d), n = xi.shape, xj.shape[0]
+    ops = 2 * m * n * d
+    rec = {"label": label, "m": m, "n": n, "d": d, "max_abs_err": 0.0,
+           "library_equal": lib_equal,
+           "ms": median_ms(lambda: panel_mesh.int8_matmul(xi, xj)),
+           "plain_ms": median_ms(lambda: panel_mesh.int8_matmul_plain(xi, xj)),
+           "library_ms": median_ms(lambda: torch._int_mm(xi, xj.t()))}
+    rec["tops"] = ops / rec["ms"] / 1e9
+    rec.update(bound(ops, (m + n) * d + 4 * m * n, PEAK_INT8))
+    log(f"phase 6 kernel 4: {json.dumps(rec)}")
+    return rec
 
 
 def main() -> int:
@@ -320,8 +452,7 @@ def main() -> int:
     enron_csr = synthetic_corpus(8586, seed=0)
     eng8 = Engine(AllPairsConfig(), dev)
     eng16 = Engine(AllPairsConfig(pallas_int8=False), dev)
-    for k in ts.LAUNCHES:
-        ts.LAUNCHES[k] = 0
+    zero_launches()
     log(f"build int8 engine: {json.dumps(eng8.build(big_csr))}")
     j8 = timed_join(eng8, "main path int8, 32768 rows")
     log(f"build bf16 engine: {json.dumps(eng16.build(enron_csr))}")
@@ -342,19 +473,30 @@ def main() -> int:
         bi, bj = blocks(eng.row_cap, tm, tn, dev)
         rec = compare(kind, eng._operands(kind == "int8"), bi, bj,
                       eng._tau_eff(TAU), tm, tn, timed=True)
+        ops = eng._operands(kind == "int8")
+        ops = ops if kind == "int8" else (ops,)
+        rec.update(score_bound(
+            ops[:1], ops[1].numel() * 4 if kind == "int8" else 0, bi, bj,
+            tm, tn, (0, 0), PEAK_INT8 if kind == "int8" else PEAK_BF16))
         log(f"phase 4 {kind} row_cap={eng.row_cap} dim_cap={eng.dim_cap}: "
             f"{json.dumps(rec)}")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            # no one PyTorch call computes the bound epilogue + bit-pack
+            "library_ms": None,
         })
-    check_parity(j8["res"], big_csr, dev, "int8 join, 32768 rows")
-    check_parity(j16["res"], enron_csr, dev, "bf16 join, 8586 rows")
+    want32 = oracle_pairs(big_csr, TAU, dev)
+    check_parity(j8["res"], want32, "int8 join, 32768 rows")
+    check_parity(j16["res"], oracle_pairs(enron_csr, TAU, dev),
+                 "bf16 join, 8586 rows")
     for j in (j8, j16):
         if not j["res"].n_pairs or not np.all(np.isfinite(j["res"].sims)):
             raise AssertionError("join produced no pairs or non-finite sims")
+    cand32 = pair_set(eng8._all_pairs_kernel(eng8._tau_eff(TAU)))
     del eng8, eng16, j8, j16
     torch.cuda.empty_cache()
 
@@ -374,8 +516,7 @@ def main() -> int:
     ooc_csr = synthetic_corpus(OOC_ROWS, seed=0)
     eng = ChunkedAllPairs(AllPairsConfig(), dev)
     torch.cuda.reset_peak_memory_stats()
-    for k in ts.LAUNCHES:
-        ts.LAUNCHES[k] = 0
+    zero_launches()
     log(f"build chunked engine: {json.dumps(eng.build(ooc_csr))}")
     jr = ooc_join(eng, f"out-of-core path, resident sweep, {OOC_ROWS} rows",
                   reps=3)
@@ -401,11 +542,14 @@ def main() -> int:
         "launches": launches["panel_score_bits_int8"],
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": off["ms"], "plain_ms": off["plain_ms"],
+        "bound_ms": off["bound_ms"], "bound_by": off["bound_by"],
+        "library_ms": None,
     })
 
     eng._panel_resident_bytes = 0
     jroll = ooc_join(eng, f"out-of-core path, rolling sweep, {OOC_ROWS} rows",
                      reps=1)
+    cand100k = pair_set(eng._all_pairs_panel(eng._tau_eff(TAU)))
     del eng
     torch.cuda.empty_cache()
     want = oracle_pairs(ooc_csr, TAU, dev)
@@ -420,6 +564,82 @@ def main() -> int:
             raise AssertionError("join produced no pairs or non-finite sims")
         log(f"out-of-core {label} join, {OOC_ROWS} rows: parity OK, "
             f"{len(got)} pairs equal the fp64 oracle")
+
+    # ---- phase 6: the mesh paths, their shards on the one card
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for m, n, d in ((1024, 1024, 128), (256, 512, 384)):
+        xi, xj = (torch.randint(-127, 128, (r, d), dtype=torch.int8,
+                                device=dev, generator=gen) for r in (m, n))
+        compare_mm(xi, xj, f"random [{m}, {d}] x [{n}, {d}]^T")
+    del xi, xj
+    mm_main = None
+    for n_shards, reps in ((1, 3), (8, 1)):
+        mesh = (make_mesh(1) if n_shards == 1
+                else make_mesh(8, devices=[dev] * 8))
+        meng = MeshChunkedAllPairs(AllPairsConfig(), mesh=mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        log(f"build mesh chunked engine, {n_shards} shard(s) on one card: "
+            f"{json.dumps(meng.build(ooc_csr))}")
+        label = (f"mesh out-of-core path, {n_shards} shard(s) on one card, "
+                 f"{OOC_ROWS} rows")
+        jm = ooc_join(meng, label, reps=reps, ops_of=mesh_join_ops)
+        got = dict(ts.LAUNCHES)
+        log(f"kernel launches on the {label}: {got}")
+        geom = jm["rec"]["geom"]
+        n_pairs = geom["n_panels"] * (geom["n_panels"] + 1) // 2
+        expect = {k: 0 for k in got}
+        expect["int8_matmul"] = reps * n_shards * n_pairs
+        if got != expect:
+            raise AssertionError(f"{label}: launches {got}, expected {expect}")
+        check_parity(jm["res"], want, label)
+        if not np.all(np.isfinite(jm["res"].sims)):
+            raise AssertionError(f"{label}: non-finite sims")
+        if pair_set(meng._all_pairs_panel(meng._tau_eff(TAU))) != cand100k:
+            raise AssertionError(f"{label}: candidate set differs from the "
+                                 f"single-device join's")
+        log(f"{label}: candidate set equals the single-device join's "
+            f"({len(cand100k)}); d_local {geom['d_cap'] // n_shards}")
+        st = meng._panel_state()
+        x0 = meng._build_slab(st, 0)
+        xl = meng._build_slab(st, geom["n_panels"] - 1)
+        for pair, xj in (("(0, 0)", x0), (f"(0, {geom['n_panels'] - 1})", xl)):
+            rec = compare_mm(x0[0], xj[0], f"{label}, pair {pair}, shard 0")
+            if n_shards == 1 and xj is xl:
+                mm_main = dict(rec, launches=got["int8_matmul"])
+        del meng, st, x0, xl, jm
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["int8_matmul"],
+        **{k: mm_main[k] for k in ("launches", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+    })
+
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    reng = MeshEngine(AllPairsConfig(shard_axis="rows"), mesh=mesh4)
+    torch.cuda.empty_cache()
+    zero_launches()
+    log(f"build mesh rows engine, 4 shards on one card: "
+        f"{json.dumps(reng.build(big_csr))}")
+    label = "mesh rows path, 4 shards on one card, 32768 rows"
+    jrows = timed_join(reng, label)
+    got = dict(ts.LAUNCHES)
+    log(f"kernel launches on the {label}: {got}")
+    expect = {k: 0 for k in got}
+    expect["panel_score_bits_int8"] = 3 * 4
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    check_parity(jrows["res"], want32, label)
+    if pair_set(reng._all_pairs_kernel(reng._tau_eff(TAU))) != cand32:
+        raise AssertionError(f"{label}: candidate set differs from Engine's")
+    log(f"{label}: candidate set equals Engine's ({len(cand32)})")
+    for shard in (0, reng.n_shards - 1):
+        rec = compare_rows_shard(reng, shard)
+        log(f"phase 6 panel kernel at the rows path's operands: "
+            f"{json.dumps(rec)}")
+    del reng
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

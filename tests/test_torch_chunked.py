@@ -18,6 +18,7 @@ shows.
 
 import numpy as np
 import pytest
+import torch
 
 import apsim_tpu
 import apsim_tpu_torch as pt
@@ -234,8 +235,13 @@ def test_unported_paths_raise(corpus, what):
 
 
 def test_device_must_be_explicit():
-    with pytest.raises(TypeError):
-        pt.ChunkedAllPairs(pt.AllPairsConfig())
+    """The default device is the card; without CUDA that raises, and the
+    engine never falls back to the CPU on its own."""
+    if torch.cuda.is_available():
+        assert pt.ChunkedAllPairs(pt.AllPairsConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            pt.ChunkedAllPairs(pt.AllPairsConfig())
     with pytest.raises(ValueError, match="unsupported device"):
         pt.ChunkedAllPairs(pt.AllPairsConfig(), "meta")
 

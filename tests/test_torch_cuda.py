@@ -8,15 +8,19 @@ without them:
 
 Tolerances: int8 (gb, g64, cnt) bit-identical, the dense and the
 cross-panel kernel alike; bf16 hit cells may differ only where the plain
-fp32 score lies within 1e-5 of tau_eff.
+fp32 score lies within 1e-5 of tau_eff; the int8 matmul (kernel 4) equal
+to its plain version in every int32; the mesh joins over four shards of
+the card give the pair sets of the same joins over four CPU shards.
 """
 
 import pytest
 import torch
 
-from apsim_tpu_torch import AllPairsConfig, ChunkedAllPairs, Engine
+from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, Engine,
+                             MeshChunkedAllPairs, MeshEngine, make_mesh)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import panel as panel_ops
+from apsim_tpu_torch.ops import panel_mesh
 from apsim_tpu_torch.ops import tri_score as ts
 
 pytestmark = pytest.mark.cuda
@@ -126,4 +130,65 @@ def test_chunked_all_pairs_on_cuda_equals_cpu(chunked):
         got[dev] = eng.all_pairs(0.8).pair_set()
         launched = ts.LAUNCHES["panel_score_bits_int8"] - before
         assert launched == (6 if dev == "cuda" else 0)  # 3 + 2 + 1 pairs
+    assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("shape", [(64, 128, 128), (1024, 1024, 128),
+                                   (256, 512, 384), (512, 256, 4096)])
+def test_int8_matmul_matches_plain(card, shape):
+    """Kernel 4 against its plain version, every int32 equal."""
+    m, n, d = shape
+    gen = torch.Generator(device=card).manual_seed(m + n + d)
+    xi, xj = (torch.randint(-127, 128, (r, d), dtype=torch.int8,
+                            device=card, generator=gen) for r in (m, n))
+    before = ts.LAUNCHES["int8_matmul"]
+    k = panel_mesh.int8_matmul(xi, xj)
+    assert ts.LAUNCHES["int8_matmul"] == before + 1
+    assert k.dtype == torch.int32 and k.device == card
+    assert torch.equal(k, panel_mesh.int8_matmul_plain(xi, xj))
+
+
+@pytest.fixture(scope="module")
+def mesh_csr(card):
+    return synthetic_corpus(3000, seed=1)
+
+
+def test_mesh_chunked_on_cuda_equals_cpu(card, mesh_csr):
+    """MeshChunkedAllPairs over four shards of the card and of the CPU:
+    kernel 4 once per shard per panel pair on the card, none on the CPU,
+    the same pair set."""
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        eng = MeshChunkedAllPairs(
+            AllPairsConfig(), mesh=make_mesh(4, devices=[dev] * 4),
+            panel_rows=1024)
+        eng.build(mesh_csr)
+        n_panels = eng._panel_geom()[3]
+        before = ts.LAUNCHES["int8_matmul"]
+        got[dev.type] = eng.all_pairs(0.8).pair_set()
+        launched = ts.LAUNCHES["int8_matmul"] - before
+        pairs = n_panels * (n_panels + 1) // 2
+        assert launched == (4 * pairs if dev.type == "cuda" else 0)
+    assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+def test_mesh_rows_on_cuda_equals_cpu(card, mesh_csr):
+    """MeshEngine(shard_axis="rows") over four shards of the card and of
+    the CPU: kernel 3 once per shard on the card, the same pair set."""
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        eng = MeshEngine(AllPairsConfig(shard_axis="rows", use_pallas="on"),
+                         mesh=make_mesh(4, devices=[dev] * 4))
+        eng.build(mesh_csr)
+        before = ts.LAUNCHES["panel_score_bits_int8"]
+        got[dev.type] = eng.all_pairs(0.8).pair_set()
+        launched = ts.LAUNCHES["panel_score_bits_int8"] - before
+        assert launched == (4 if dev.type == "cuda" else 0)
     assert got["cuda"] == got["cpu"] and got["cpu"]

@@ -144,8 +144,13 @@ def test_unported_paths_raise(corpus, what):
 
 
 def test_device_must_be_explicit():
-    with pytest.raises(TypeError):
-        pt.Engine(pt.AllPairsConfig())
+    """The default device is the card; without CUDA that raises, and the
+    engine never falls back to the CPU on its own."""
+    if torch.cuda.is_available():
+        assert pt.Engine(pt.AllPairsConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            pt.Engine(pt.AllPairsConfig())
     with pytest.raises(ValueError, match="unsupported device"):
         pt.Engine(pt.AllPairsConfig(), "meta")
 
