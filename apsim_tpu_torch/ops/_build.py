@@ -62,8 +62,8 @@ def kernels() -> ctypes.CDLL:
             lib = ctypes.CDLL(so)
             lib.score_bits_int8.restype = _I
             lib.score_bits_int8.argtypes = [
-                _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P,
+                _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _P,
             ]
             lib.score_bits_bf16.restype = _I
             lib.score_bits_bf16.argtypes = [
@@ -72,11 +72,11 @@ def kernels() -> ctypes.CDLL:
             ]
             lib.panel_score_bits_int8.restype = _I
             lib.panel_score_bits_int8.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
             ]
             lib.int8_matmul.restype = _I
-            lib.int8_matmul.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+            lib.int8_matmul.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
             _info.update(
                 library=so, seconds=time.perf_counter() - t0, log=log
             )

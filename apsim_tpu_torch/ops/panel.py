@@ -145,17 +145,22 @@ def panel_score_bits_int8(xi, xj, auxi, auxj, bi, bj, off, tau_eff,
                               or valid.device != xi.device):
         raise ValueError("valid must be int32 shaped like bi, on the device")
     row0, col0 = (int(o) for o in off)
+    ts.check_aligned(xi, xj)
     if xi.device.type == "cpu":
         return panel_score_bits_int8_plain(
             xi, xj, auxi, auxj, bi, bj, (row0, col0), tau_eff, tm, tn, valid
         )
     gb, g64, cnt = ts._outputs(bi.numel(), tm, tn, xi.device)
+    tiles = ts.tile_list(bi, bj, tm, tn, (row0, col0), valid, xi.shape[0],
+                         xj.shape[0])
+    nxt = ts.next_tile_counter(xi.device)
     ts._launch("panel_score_bits_int8", xi, (
         xi.data_ptr(), xj.data_ptr(), auxi.data_ptr(), auxj.data_ptr(),
-        bi.data_ptr(), bj.data_ptr(),
+        tiles.data_ptr(), bi.data_ptr(), bj.data_ptr(),
         None if valid is None else valid.data_ptr(), row0, col0,
         float(tau_eff), xi.shape[0], xj.shape[0], xi.shape[1], bi.numel(),
         tm, tn, gb.data_ptr(), g64.data_ptr(), cnt.data_ptr(),
+        nxt.data_ptr(),
     ))
     return gb, g64, cnt
 

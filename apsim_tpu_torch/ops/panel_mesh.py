@@ -36,8 +36,7 @@ __all__ = [
     "slab_width",
 ]
 
-MM_TM = 64  # kernel 4's thread-block tile: rows ...
-MM_TN = 128  # ... and columns
+MM_TM, MM_TN = ts.INT8_TILES[-1]  # kernel 4's smallest thread-block tile
 EPILOGUE_CELLS = 1 << 23  # rectangle cells per epilogue chunk
 
 
@@ -58,8 +57,11 @@ def int8_matmul(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     """``xi [m, d] · xj [n, d]ᵀ`` as int32 ``[m, n]``: kernel 4, which
     replaces ``apsim_tpu/ops/panel_mesh.py:_int8_matmul`` (Pallas
     ``_mm_kernel``).  The kernel takes ``m % 64 == 0``, ``n % 128 == 0`` and
-    ``d % 128 == 0`` (zero columns padded on add nothing to an integer dot);
-    anything else is refused on either device."""
+    ``d % 128 == 0`` (zero columns padded on add nothing to an integer dot)
+    and operands that start on a 16-byte boundary (TMA loads them);
+    anything else is refused on either device.  It runs 128 x 256
+    thread-block tiles where they divide ``(m, n)``, else 64 x 128
+    (``tri_score.int8_tile``)."""
     _check_mm(xi, xj)
     m, d = xi.shape
     n = xj.shape[0]
@@ -68,11 +70,13 @@ def int8_matmul(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
             f"int8_matmul needs m % {MM_TM}, n % {MM_TN} and "
             f"d % {ts.K_QUANTUM} == 0, got m={m}, n={n}, d={d}"
         )
+    ts.check_aligned(xi, xj)
     if xi.device.type == "cpu":
         return int8_matmul_plain(xi, xj)
     out = torch.empty((m, n), dtype=torch.int32, device=xi.device)
+    nxt = ts.next_tile_counter(xi.device)
     ts._launch("int8_matmul", xi, (
-        xi.data_ptr(), xj.data_ptr(), m, n, d, out.data_ptr(),
+        xi.data_ptr(), xj.data_ptr(), m, n, d, out.data_ptr(), nxt.data_ptr(),
     ))
     return out
 

@@ -35,7 +35,9 @@ from ._build import kernels
 
 __all__ = [
     "GROUP", "SUPER", "SUPER2", "LAUNCHES", "check_tiles", "upper_blocks_rect",
-    "quantize_rows", "score_bits_int8", "score_bits_bf16",
+    "quantize_rows", "int8_tile", "live_subtiles", "tile_list",
+    "check_aligned", "next_tile_counter",
+    "score_bits_int8", "score_bits_bf16",
     "score_bits_int8_plain", "score_bits_bf16_plain", "int8_bound_value",
     "int8_scores",
     "bf16_scores", "bitpack_mask", "unpack_bits", "compact_bits",
@@ -46,7 +48,8 @@ GROUP = 8  # rows per bit-packed byte (fixed: the uint8 width)
 SUPER = 64  # rows per level-0 super-group (8 group bytes)
 SUPER2 = 512  # rows per pre-level cell (reduced from g64 at compaction time)
 K_QUANTUM = 128  # the kernels stream K in 128-byte stages per row
-COL_QUANTUM = 128  # columns per CUDA thread block
+COL_QUANTUM = 128  # columns of the smallest CUDA thread-block tile
+INT8_TILES = ((128, 256), (64, 128))  # the int8 kernels' thread-block tiles
 
 # kernel launches per wrapper (only a launch of the CUDA kernel counts);
 # ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
@@ -119,6 +122,82 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, torch.stack([alpha, alpha * l1q, nnz])
 
 
+def int8_tile(rows: int, cols: int) -> tuple[int, int]:
+    """The int8 kernels' thread-block tile for block tiles ``(rows, cols)``
+    (``(tm, tn)`` of kernels 1 and 3, ``(m, n)`` of kernel 4): 128 x 256
+    (two consumer warpgroups) where it divides them, else 64 x 128 (one).
+    ``csrc/score_bits.cu`` makes the same choice from the same shapes."""
+    for bm, bn in INT8_TILES:
+        if rows % bm == 0 and cols % bn == 0:
+            return bm, bn
+    raise ValueError(
+        f"no int8 thread-block tile divides ({rows}, {cols}): rows must be "
+        f"a multiple of 64 and columns of 128"
+    )
+
+
+def live_subtiles(bi, bj, tm: int, tn: int, off=(0, 0), valid=None):
+    """The int8 score kernels' tile list: int32 ids ``(p * tm/BM + cm) *
+    tn/BN + cn`` of every thread-block sub-tile of the block list, for the
+    ``int8_tile(tm, tn)`` thread-block tile ``(BM, BN)``, the live ones
+    first and each part in block-list order.  A sub-tile is live when its
+    block is valid and its smallest global row (local plus ``off[0]``) lies
+    below its largest global column (local plus ``off[1]``).  The kernel's
+    persistent thread blocks take the list round-robin, so the live tiles
+    spread evenly over them; a dead tile only writes its zero bytes.  Built
+    with torch ops on the block list's device, no host round trip."""
+    bm, bn = int8_tile(tm, tn)
+    sub_m, sub_n = tm // bm, tn // bn
+    ids = torch.arange(bi.numel() * sub_m * sub_n, device=bi.device)
+    p = ids // (sub_m * sub_n)
+    row0 = off[0] + bi.long()[p] * tm + (ids // sub_n) % sub_m * bm
+    col_last = off[1] + bj.long()[p] * tn + (ids % sub_n) * bn + bn - 1
+    live = row0 < col_last
+    if valid is not None:
+        live &= valid[p] != 0
+    return torch.argsort((~live).to(torch.int32), stable=True).to(torch.int32)
+
+
+_TILE_LISTS: dict = {}  # launch key -> (bi, bj, valid, tiles)
+_TILE_LISTS_MAX = 32
+
+
+def tile_list(bi, bj, tm: int, tn: int, off, valid, rows_i: int,
+              rows_j: int):
+    """``live_subtiles`` for one launch over ``rows_i`` x ``rows_j``
+    operands, cached: a join launches the same block list many times, and
+    building the list costs a dozen small device ops of host time.  The
+    key holds the block tensors' identities and versions (the entry keeps
+    the tensors alive, so an identity is not reused while it is cached)
+    and the offset difference ``off[1] - off[0]`` clamped to
+    ``[-rows_j, rows_i]``, outside which no sub-tile's liveness changes, so
+    every off-diagonal panel pair of a join shares one entry."""
+    delta = min(max(int(off[1]) - int(off[0]), -rows_j), rows_i)
+    key = (id(bi), bi._version, id(bj), bj._version, id(valid),
+           None if valid is None else valid._version, delta, tm, tn)
+    hit = _TILE_LISTS.get(key)
+    if hit is None:
+        tiles = live_subtiles(bi, bj, tm, tn, (0, delta), valid)
+        hit = (bi, bj, valid, tiles)
+        if len(_TILE_LISTS) >= _TILE_LISTS_MAX:
+            _TILE_LISTS.pop(next(iter(_TILE_LISTS)))
+        _TILE_LISTS[key] = hit
+    return hit[3]
+
+
+def check_aligned(*ops) -> None:
+    """The int8 kernels load their operands with TMA, which needs a
+    16-byte-aligned base (the row stride, a multiple of 128 bytes, is
+    aligned by the K quantum): refuse a view that starts elsewhere."""
+    for op in ops:
+        if op.data_ptr() % 16:
+            raise ValueError(
+                f"operand data must start on a 16-byte boundary, got an "
+                f"offset of {op.data_ptr() % 16} bytes (copy the view with "
+                f".clone())"
+            )
+
+
 def _check_operands(x, bi, bj, tm: int, tn: int, dtype, row_bytes: int,
                     xj=None):
     """Validate ``x`` (and the column operand ``xj``, default ``x``) and the
@@ -155,6 +234,11 @@ def _outputs(n: int, tm: int, tn: int, device):
     )
 
 
+def next_tile_counter(device) -> torch.Tensor:
+    """The int8 kernels' dynamic tile counter: one int32, zero."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def _launch(name: str, x: torch.Tensor, args) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -171,13 +255,16 @@ def score_bits_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024, tn: int = 512):
     if (aux.dtype != torch.float32 or tuple(aux.shape) != (3, row_cap)
             or not aux.is_contiguous() or aux.device != xq.device):
         raise ValueError(f"aux must be contiguous f32 [3, {row_cap}]")
+    check_aligned(xq)
     if xq.device.type == "cpu":
         return score_bits_int8_plain(xq, aux, bi, bj, tau_eff, tm, tn)
     gb, g64, cnt = _outputs(bi.numel(), tm, tn, xq.device)
+    tiles = tile_list(bi, bj, tm, tn, (0, 0), None, row_cap, row_cap)
+    nxt = next_tile_counter(xq.device)
     _launch("score_bits_int8", xq, (
-        xq.data_ptr(), aux.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-        float(tau_eff), row_cap, dim_cap, bi.numel(), tm, tn,
-        gb.data_ptr(), g64.data_ptr(), cnt.data_ptr(),
+        xq.data_ptr(), aux.data_ptr(), tiles.data_ptr(), bi.data_ptr(),
+        bj.data_ptr(), float(tau_eff), row_cap, dim_cap, bi.numel(), tm, tn,
+        gb.data_ptr(), g64.data_ptr(), cnt.data_ptr(), nxt.data_ptr(),
     ))
     return gb, g64, cnt
 

@@ -9,7 +9,16 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-   the CUDA kernels of ``apsim_tpu_torch/csrc/`` are built with nvcc.
+   the CUDA kernels of ``apsim_tpu_torch/csrc/`` are built with nvcc, and
+   ``ptxas`` must report 0 spill bytes for every kernel.
+   Then the int8 kernels at their edges, each bit for bit (kernels 1 and
+   3: gb, g64, cnt) or exactly (kernel 4: every int32) against its plain
+   version: K = 128 (one ring stage) and K = 4,096 at block tiles
+   (1024, 512), (512, 512), (256, 256) and (64, 128) (both thread-block
+   tiles, 128 x 256 and 64 x 128), the dense triangle and a cross-panel
+   rectangle with offsets and valid = 0 blocks, one with every sub-tile
+   dead; ±127 operands at K = 32,768 (the int32 gate's largest dot);
+   kernel 4 at both thread-block tiles with fewer tiles than SMs.
 2. Each kernel against its plain PyTorch version on the index of an engine
    built from ``synthetic_corpus(4096)`` with padding rows, at tiles
    (1024, 512) and (256, 256), tau_eff of tau = 0.8.  int8: gb, g64 and cnt
@@ -325,6 +334,70 @@ def compare_panel(eng: ChunkedAllPairs, pi: int, pj: int, tm: int, tn: int,
     return {"pair": [pi, pj], "blanked": blank, **rec}
 
 
+def int8_rows(dev, rows: int, k: int, seed: int):
+    """int8 operands and aux of ``rows`` random unit rows of width ``k``,
+    every fourth row a copy of the one before (hits at TAU)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, k), device=dev, generator=gen)
+    x[1::4] = x[0::4]
+    x /= x.norm(dim=1, keepdim=True)
+    return ts.quantize_rows(x)
+
+
+def edge_phase(dev) -> None:
+    """The int8 kernels at the edges of their tiling and ring (phase 1)."""
+    for k in (128, 4096):
+        for tm, tn in ((1024, 512), (512, 512), (256, 256), (64, 128)):
+            q, aux = int8_rows(dev, 2048, k, tm + k)
+            bi, bj = blocks(2048, tm, tn, dev)
+            rec = compare("int8", (q, aux), bi, bj, TAU, tm, tn, timed=False)
+            recs = [rec["pairs_kernel"]]
+            gi, gj = (torch.from_numpy(a).to(dev)
+                      for a in panel_ops.full_grid(1024, 1024, tm, tn))
+            valid = torch.ones_like(gi)
+            valid[::3] = 0
+            ai, aj = aux[:, :1024].contiguous(), aux[:, 1024:].contiguous()
+            for off in ((0, 1024), (512, 768), (1024, 0)):
+                args = (q[:1024], q[1024:], ai, aj, gi, gj, off, TAU, tm, tn)
+                recs.append(compare_cross(args, valid, f"edge {off}",
+                                          timed=False)["pairs_kernel"])
+            if recs[0] == 0 or recs[-1] != 0:
+                raise AssertionError(
+                    f"edge K={k} tiles {(tm, tn)}: expected hits in the "
+                    f"triangle and none in the dead rectangle, got {recs}")
+            log(f"phase 1 edges K={k} tiles {(tm, tn)} thread-block tile "
+                f"{ts.int8_tile(tm, tn)}: bit-identical; pairs (triangle, "
+                f"(0, 1024), (512, 768), dead (1024, 0)) = {recs}")
+    k = 32768
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sign = torch.randint(0, 2, (256, 1), device=dev, generator=gen)
+    q = (127 * (2 * sign - 1)).to(torch.int8).expand(256, k).contiguous()
+    d = panel_mesh.int8_matmul(q[:128], q)
+    if (not torch.equal(d, panel_mesh.int8_matmul_plain(q[:128], q))
+            or int(d.abs().max()) != 127 * 127 * k):
+        raise AssertionError("kernel 4 is not exact on ±127 rows, K = 32768")
+    aux = torch.stack([torch.full((256,), 1 / 127 / 181.02, device=dev),
+                       torch.ones(256, device=dev),
+                       torch.full((256,), float(k), device=dev)])
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    rec = compare_cross((q, q, aux, aux, zero, zero, (0, 256), 0.5, 256, 256),
+                        None, "±127 rows", timed=False)
+    log(f"phase 1 edges ±127 rows, K = {k}: kernel 4 exact (|D| = "
+        f"{int(d.abs().max())}), kernel 3 bit-identical "
+        f"({rec['pairs_kernel']} pairs)")
+    del q, d
+    for m, n, dd in ((64, 128, 128), (128, 256, 128), (128, 256, 4096),
+                     (192, 384, 256), (8192, 256, 128)):
+        gen = torch.Generator(device=dev).manual_seed(m * n + dd)
+        xi, xj = (torch.randint(-127, 128, (r, dd), dtype=torch.int8,
+                                device=dev, generator=gen) for r in (m, n))
+        if not torch.equal(panel_mesh.int8_matmul(xi, xj),
+                           panel_mesh.int8_matmul_plain(xi, xj)):
+            raise AssertionError(f"kernel 4 differs at {(m, n, dd)}")
+        log(f"phase 1 edges kernel 4 [{m}, {dd}] x [{n}, {dd}]^T, thread-"
+            f"block tile {ts.int8_tile(m, n)}: exact")
+
+
 def compare_rows_shard(eng: MeshEngine, s: int) -> dict:
     """The cross-panel kernel vs its plain version on shard ``s``'s launch
     of the rows mesh join: the all-gathered int8 index and aux, the shard's
@@ -430,6 +503,10 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
+            if "spill" in line and (
+                    "0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"a kernel spills registers: {line}")
+    edge_phase(dev)
 
     # ---- phase 2: kernel vs plain, 4,096 rows with padding rows
     small = Engine(AllPairsConfig(row_bucket=5120), dev)

@@ -192,3 +192,81 @@ def test_mesh_rows_on_cuda_equals_cpu(card, mesh_csr):
         launched = ts.LAUNCHES["panel_score_bits_int8"] - before
         assert launched == (4 if dev.type == "cuda" else 0)
     assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+def _int8_rows(card, rows: int, k: int, seed: int):
+    """int8 operands and aux of ``rows`` random unit rows of width ``k``,
+    every fourth row a copy of the one before (hits at tau = 0.8)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((rows, k), device=card, generator=gen)
+    x[1::4] = x[0::4]
+    x /= x.norm(dim=1, keepdim=True)
+    return ts.quantize_rows(x)
+
+
+@pytest.mark.parametrize("k", [128, 4096])
+@pytest.mark.parametrize("tiles", [(1024, 512), (512, 512), (256, 256),
+                                   (64, 128)])
+def test_int8_score_kernel_edges(card, tiles, k):
+    """Kernels 1 and 3 on both thread-block tiles (128 x 256 and 64 x 128),
+    one ring stage (K = 128) and 32 (K = 4,096): the dense triangle, a
+    cross-panel rectangle with offsets and valid = 0 blocks, and a block
+    list whose every sub-tile is dead (all zero bytes); gb, g64 and cnt
+    bit-identical to the plain versions."""
+    tm, tn = tiles
+    q, aux = _int8_rows(card, 2048, k, tm + k)
+    tau = 0.8
+    bi, bj = (torch.from_numpy(a).to(card)
+              for a in ts.upper_blocks_rect(2048, tm, tn))
+    k1 = ts.score_bits_int8(q, aux, bi, bj, tau, tm, tn)
+    p1 = ts.score_bits_int8_plain(q, aux, bi, bj, tau, tm, tn)
+    assert all(torch.equal(a, b) for a, b in zip(k1, p1))
+    assert int(k1[2][:, 0].sum()) > 0
+    xi, xj = q[:1024], q[1024:]
+    ai, aj = aux[:, :1024].contiguous(), aux[:, 1024:].contiguous()
+    bi, bj = (torch.from_numpy(a).to(card)
+              for a in panel_ops.full_grid(1024, 1024, tm, tn))
+    valid = torch.ones_like(bi)
+    valid[::3] = 0
+    for off in ((0, 1024), (512, 768), (1024, 0)):
+        args = (xi, xj, ai, aj, bi, bj, off, tau, tm, tn)
+        k3 = panel_ops.panel_score_bits_int8(*args, valid=valid)
+        p3 = panel_ops.panel_score_bits_int8_plain(*args, valid=valid)
+        assert all(torch.equal(a, b) for a, b in zip(k3, p3))
+        assert not k3[0][::3].any() and not k3[2][::3].any()
+    # (1024, 0): every global row lies at or below every column: all dead
+    assert not k3[0].any() and not k3[1].any() and not k3[2].any()
+
+
+def test_int8_kernels_saturated_rows(card):
+    """±127 operands at K = 32,768: the largest dot the int32 gate allows
+    (127^2 * 32,768 ~ 5.3e8), exact in kernel 4 and kernel 3."""
+    k = 32768
+    gen = torch.Generator(device=card).manual_seed(7)
+    sign = torch.randint(0, 2, (256, 1), device=card, generator=gen)
+    q = (127 * (2 * sign - 1)).to(torch.int8).expand(256, k).contiguous()
+    d = panel_mesh.int8_matmul(q[:128], q)
+    assert torch.equal(d, panel_mesh.int8_matmul_plain(q[:128], q))
+    assert int(d.abs().max()) == 127 * 127 * k
+    aux = torch.stack([torch.full((256,), 1 / 127 / 181.02, device=card),
+                       torch.full((256,), 1.0, device=card),
+                       torch.full((256,), float(k), device=card)])
+    bi = torch.zeros(1, dtype=torch.int32, device=card)
+    args = (q, q, aux, aux, bi, bi, (0, 256), 0.5, 256, 256)
+    kk = panel_ops.panel_score_bits_int8(*args)
+    pp = panel_ops.panel_score_bits_int8_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(kk, pp))
+
+
+@pytest.mark.parametrize("shape", [(128, 256, 128), (128, 256, 4096),
+                                   (192, 384, 256), (8192, 256, 128)])
+def test_int8_matmul_tile_variants(card, shape):
+    """Kernel 4 at both thread-block tiles (128 x 256 where it divides
+    (m, n), else 64 x 128), one ring stage and many, fewer tiles than SMs
+    (blocks without a tile) and a tall operand."""
+    m, n, d = shape
+    gen = torch.Generator(device=card).manual_seed(m * n + d)
+    xi, xj = (torch.randint(-127, 128, (r, d), dtype=torch.int8,
+                            device=card, generator=gen) for r in (m, n))
+    assert torch.equal(panel_mesh.int8_matmul(xi, xj),
+                       panel_mesh.int8_matmul_plain(xi, xj))
