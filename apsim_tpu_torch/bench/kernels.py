@@ -11,19 +11,32 @@ checkout that holds this file; another, e.g. the parent commit unpacked with
 (parent, change, change, parent) in one call.
 Shapes: kernel 1 (int8) over the 1,056-block upper triangle of
 ``synthetic_corpus(32768, seed=0)``'s index at tiles (1024, 512); kernel 2
-(bf16) over ``synthetic_corpus(8586, seed=0)``'s; kernel 3 on the cross
+(bf16) over ``synthetic_corpus(8586, seed=0)``'s (90 blocks of the
+9,216-row index: the bf16 join of ``chip_smoke.py``) and over the same
+32,768-row triangle as kernel 1 (the shape an engine runs after its int8
+path is gated off or demoted), and there once more on the first 16,384
+columns (``score_bits_bf16_32768_k16384``: rows as many bytes wide as
+kernel 1's, so the two rates tell how much of the difference to kernel 1
+is the operand bytes the thread blocks share through L2); kernel 3 on the cross
 pair rows [0, 8192) x [8192, 16384) of the 32,768-row int8 index (128
 blocks of 1024 x 512, K = 32,768: the shape of the out-of-core join's
 off-diagonal pair); kernel 4 (int8 matmul) at the mesh join's per-shard
 shapes, ``[8192, K] . [8192, K]^T`` on rows [0, 8192) and [8192, 16384)
 of the same index, K = 32,768 (one shard) and its first 4,096 columns (8
 shards), beside ``torch._int_mm`` on the same operands (a yardstick only).
+Beside kernel 2 it times one ``torch.matmul`` of the 9,216-row bf16 index
+against its transpose (``bf16_matmul_9216_*``): a yardstick of the bf16
+mainloop only.  It computes the whole square, not the upper triangle, and
+no threshold, bit-pack or counts, so it is not a library call for kernel
+2's function (there is none), and the port never calls it.
 Times: CUDA events, median of ``REPS`` launches.  Prints one JSON object
 with the card, the package and kernel library it loaded (both checked to
-lie under the tree), each kernel's median ms, its int8 TOPS (operations:
-2 per strict-upper cell per K byte for kernels 1 and 3, 2 m n K for kernel
-4) and the int8 thread-block tile it ran (``tri_score.int8_tile``; a tree
-without it ran 64 x 128 on ``mma.sync``).
+lie under the tree), each kernel's median ms, its TOPS (operations: 2 per
+strict-upper cell per K element for kernels 1, 2 and 3, 2 m n K for kernel
+4 and the yardsticks) and the thread-block tile it ran
+(``tri_score.thread_block_tile``, ``int8_tile`` in an older tree; a kernel
+of a tree that predates its move onto the TMA ring ran 64 x 128 sub-tiles
+of the first design, whatever this records).
 """
 
 from __future__ import annotations
@@ -92,7 +105,8 @@ def main(argv=None) -> None:
     eng.build(synthetic_corpus(32768, seed=0))
     q, aux = ts.quantize_rows(eng.x)
     tau = eng._tau_eff(0.8)
-    tile = getattr(ts, "int8_tile", lambda m, n: (64, 128))
+    tile = (getattr(ts, "thread_block_tile", None)
+            or getattr(ts, "int8_tile", lambda m, n: (64, 128)))
 
     def record(name, fn, ops, shape):
         ms = median_ms(fn)
@@ -100,15 +114,28 @@ def main(argv=None) -> None:
         out[f"{name}_tops"] = ops / ms / 1e9
         out[f"{name}_tile"] = list(tile(*shape))
 
+    def upper_cells(grid, tm, tn) -> int:
+        rows = grid[0].astype(np.int64)[:, None] * tm + np.arange(tm)
+        return int(np.clip(grid[1].astype(np.int64)[:, None] * tn + tn
+                           - (rows + 1), 0, tn).sum())
+
     k = q.shape[1]
     grid = ts.upper_blocks_rect(eng.row_cap, 1024, 512)
-    rows = grid[0].astype(np.int64)[:, None] * 1024 + np.arange(1024)
-    cells = np.clip(grid[1].astype(np.int64)[:, None] * 512 + 512
-                    - (rows + 1), 0, 512).sum()
+    cells = upper_cells(grid, 1024, 512)
     bi, bj = blocks(grid)
     record("score_bits_int8",
            lambda: ts.score_bits_int8(q, aux, bi, bj, tau, 1024, 512),
-           2 * int(cells) * k, (1024, 512))
+           2 * cells * k, (1024, 512))
+    xb = eng.x.to(torch.bfloat16)
+    record("score_bits_bf16_32768",
+           lambda: ts.score_bits_bf16(xb, bi, bj, tau, 1024, 512),
+           2 * cells * k, (1024, 512))
+    xh = xb[:, :k // 2].contiguous()
+    del xb
+    record("score_bits_bf16_32768_k16384",
+           lambda: ts.score_bits_bf16(xh, bi, bj, tau, 1024, 512),
+           2 * cells * (k // 2), (1024, 512))
+    del xh
     xi, xj = q[:8192].contiguous(), q[8192:16384].contiguous()
     ai, aj = aux[:, :8192].contiguous(), aux[:, 8192:16384].contiguous()
     bi, bj = blocks(panel_ops.full_grid(8192, 8192, 1024, 512))
@@ -129,9 +156,15 @@ def main(argv=None) -> None:
     eng.build(synthetic_corpus(8586, seed=0))
     xb = eng.x.to(torch.bfloat16)
     tm, tn = eng._tiles()
-    bi, bj = blocks(ts.upper_blocks_rect(eng.row_cap, tm, tn))
-    out["score_bits_bf16_ms"] = median_ms(
-        lambda: ts.score_bits_bf16(xb, bi, bj, eng._tau_eff(0.8), tm, tn))
+    grid = ts.upper_blocks_rect(eng.row_cap, tm, tn)
+    bi, bj = blocks(grid)
+    record("score_bits_bf16",
+           lambda: ts.score_bits_bf16(xb, bi, bj, eng._tau_eff(0.8), tm, tn),
+           2 * upper_cells(grid, tm, tn) * xb.shape[1], (tm, tn))
+    ms = median_ms(lambda: torch.matmul(xb, xb.t()))
+    out[f"bf16_matmul_{eng.row_cap}_ms"] = ms
+    out[f"bf16_matmul_{eng.row_cap}_tops"] = (
+        2 * eng.row_cap ** 2 * xb.shape[1] / ms / 1e9)
     out["library"] = under_tree(_build.build_info()["library"])
     print(json.dumps(out), flush=True)
 

@@ -47,11 +47,11 @@ def join_ops(geom) -> int:
     return blocks * tm * tn * d_cap * 2
 
 
-def profile_join(eng: ChunkedAllPairs, tau: float) -> Dict:
-    """One join under ``torch.profiler``: device busy time (the union of
-    the device activity intervals), its idle share of the join's wall time
-    (profiler overhead included), and the five kernels with the most
-    device time."""
+def profile_join(eng, tau: float) -> Dict:
+    """One join of an engine (dense or chunked) under ``torch.profiler``:
+    device busy time (the union of the device activity intervals), its idle
+    share of the join's wall time (profiler overhead included), and the
+    five kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,

@@ -32,33 +32,40 @@
 // plain PyTorch version.  The int32 accumulator is neither widened nor
 // saturated; the engines only take this path while 127^2 * max_nnz < 2^30.
 //
+// bf16 epilogue (pallas_score.py:_kernel): hit <=> acc >= tau_eff, acc the
+// fp32 sum of the bf16 products.  The tensor cores sum in their own order,
+// so a cell whose score lies at tau_eff may differ from the plain version;
+// the engine's margin (tau_eff = tau - margin) is orders of magnitude wider.
+//
 // int8_matmul (kernel 4) is the per-shard partial dot of the mesh panel
 // join: out = xi . xj^T in int32 over the full m x n grid, no block list,
 // no epilogue but the int32 stores.
 //
-// What bounds the int8 kernels (1, 3, 4).  At the main paths' shapes (K =
-// 32,768 bytes per row for kernels 1 and 3 and for kernel 4 on one shard,
-// 4,096 on eight) they do 2 * rows * cols * K ops on (rows + cols) * K
-// operand bytes plus their outputs: 1,600-5,500 ops per byte of HBM
-// traffic, far above the card's ~590 (1,979 TOPS over 3.35 TB/s), so
-// tensor-core operations bound them (kernel 4 at m = n = 8192, K = 32,768:
-// 2.2 ms of operations against 0.24 ms of bytes).  What stands between a
-// kernel and that bound is how fast operands reach the tensor cores: the
-// first design (64 x 128 tiles, one shared stage, mma.sync) streamed 85
-// ops per byte from L2 and ran at 22 % of peak.  The int8 design now:
+// What bounds the kernels.  At the main paths' shapes (32,768 int8 or bf16
+// elements of K per row; 4,096 for kernel 4 on eight shards) they do
+// 2 * rows * cols * K operations on (rows + cols) * K operand elements plus
+// their outputs: 1,600-5,500 operations per byte of HBM traffic in int8
+// and half that in bf16, far above the card's ~590 and ~295 (1,979 TOPS
+// and 989 TFLOP/s over 3.35 TB/s), so tensor-core operations bound all
+// four.  What stands between a kernel and that bound is how fast operands
+// reach the tensor cores, so one design serves both operand types (a row
+// is a string of bytes to the loads; 128 bytes of K are 128 int8 or 64
+// bf16 elements, and both wgmma forms eat 32 bytes of K per instruction):
 //   - thread-block tiles of 128 x 256 (two consumer warpgroups of 64 x 256
-//     each, 171 ops per byte of L2 traffic), or 64 x 128 (one consumer
-//     warpgroup) for block tiles the large one does not divide (chosen by
-//     shape: tm % 128 == 0 and tn % 256 == 0, or m and n for kernel 4);
+//     each, 171 cells per operand byte of L2 traffic), or 64 x 128 (one
+//     consumer warpgroup) for block tiles the large one does not divide
+//     (chosen by shape: tm % 128 == 0 and tn % 256 == 0, or m and n for
+//     kernel 4);
 //   - one producer thread (its warpgroup gives up its registers) streams
 //     one 128-byte K slice of both operand panels per stage with TMA
-//     (128-byte swizzle) into a ring of stages
-//     (4 of 48 KB, or 8 of 24 KB) with full / empty mbarriers, so loads run
+//     (byte tensor maps, 128-byte swizzle) into a ring of stages (4 of
+//     48 KB, or 8 of 24 KB) with full / empty mbarriers, so loads run
 //     ahead of the multiplies and no __syncthreads sits in the loop;
-//   - wgmma.mma_async m64n256k32 (m64n128k32) s8.s8 -> s32, both operands
-//     read from shared-memory descriptors, one wgmma group in flight while
-//     the next stage's is issued; setmaxnreg gives the consumers 232
-//     registers (the 128 accumulators of n = 256) and the producer 40;
+//   - wgmma.mma_async m64n256k32 (m64n128k32) s8.s8 -> s32, or m64n256k16
+//     (m64n128k16) bf16.bf16 -> f32, both operands K-major from
+//     shared-memory descriptors, one wgmma group in flight while the next
+//     stage's is issued; setmaxnreg gives the consumers 232 registers (the
+//     128 accumulators of n = 256) and the producer 40;
 //   - persistent: one thread block per SM draws tiles from a global
 //     counter (atomicAdd), the ring's phase carried from tile to tile, so
 //     one tile's epilogue overlaps the next tile's loads and the tiles in
@@ -66,29 +73,26 @@
 //     are shared in L2.  (A static round-robin let blocks drift apart over
 //     the 128 tiles each has in the 32,768-row triangle, and kernel 1
 //     varied from 25 to 47 ms between launches on an H100 80GB HBM3 at
-//     700 W.)  Score kernels walk their
-//     sub-tiles in block-list order (row panel major), the live sub-tiles
-//     first (the wrapper's list); kernel 4 walks its grid in groups of 8
-//     row tiles.
-// The wgmma accumulator of each warp (rows 16w+g and 16w+g+8, columns
-// 8j+2t and 8j+2t+1) is the mma.sync m16n8 layout, so the bit-pack
-// epilogue is warp shuffles into a shared [8][cols] byte tile per
+//     700 W.)  Score kernels walk their sub-tiles in block-list order (row
+//     panel major), the live sub-tiles first (the wrapper's list), so a
+//     sub-tile below the diagonal costs its zero bytes and no loads; kernel
+//     4 walks its grid in groups of 8 row tiles.
+// The wgmma accumulator fragment is the same for s32 and f32: warp w of a
+// warpgroup, lane 4g+t, holds rows 16w+g and 16w+g+8, columns 8j+2t and
+// 8j+2t+1 of every 8-column block j.  So one bit-pack epilogue serves both:
+// warp shuffles into a shared [8][cols] byte tile per
 // warpgroup (64 rows: one super-group), which its 128 threads write out
-// column-coalesced with the counts.  The aux rows it thresholds with are
-// loaded into registers before the K loop and staged in shared memory
-// after it: read from global memory inside the epilogue, their latency
-// stalled both warpgroups and cost kernel 3 a fifth of its time on the
-// same card.
+// column-coalesced with the counts.  The aux rows the int8 epilogue
+// thresholds with are loaded into registers before the K loop and staged in
+// shared memory after it: read from global memory inside the epilogue,
+// their latency stalled both warpgroups and cost kernel 3 a fifth of its
+// time on the same card.  The bf16 epilogue has no aux rows.
 // What still separates the kernels from the operations bound (H100 80GB
 // HBM3, 700 W; PERF.md): kernel 4 at 1 shard runs at 80-90 % of peak;
-// kernel 1 computes whole 128 x 256 tiles across the diagonal, where the
-// bound counts only strict-upper cells; the score epilogue and the
+// kernels 1 and 2 compute whole 128 x 256 tiles across the diagonal, where
+// the bound counts only strict-upper cells; the score epilogue and the
 // per-tile ring drain are not overlapped with the next tile's multiplies
 // (one accumulator set per warpgroup).
-//
-// Kernel 2 (bf16) keeps the first design's mma.sync mainloop (below,
-// `mainloop`): one thread block per 64 x 128 sub-tile, eight warps of
-// 32 x 32 cells, one shared stage plus a register prefetch of the next.
 
 #include <cstdint>
 #include <climits>
@@ -112,244 +116,7 @@ __device__ __forceinline__ bool int8_hit(int acc, float ai, float bi,
   return __fadd_rn(s_hat, bound) >= tau;
 }
 
-// ------------------------------------------------ kernel 2: bf16, mma.sync
-
-constexpr int BM = 64;            // rows per thread block (one super-group)
-constexpr int BN = 128;           // columns per thread block
-constexpr int KB = 128;           // bytes of K per row per stage
-constexpr int KW = KB / 4;        // 32-bit words of K per row per stage
-constexpr int LDS = KW + 4;       // padded shared row stride (words):
-                                  // fragment reads hit 32 distinct banks
-constexpr int THREADS = 256;      // 8 warps: 2 along rows x 4 along cols
-constexpr int A_VECS = BM * KB / 16 / THREADS;  // uint4 loads per thread
-constexpr int B_VECS = BN * KB / 16 / THREADS;
-
-struct Bf16Op {
-  using Acc = float;
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ bool hit(float acc, const float*, const float*,
-                                             float tau) {
-    return acc >= tau;
-  }
-};
-
-// The bf16 mainloop: acc += xa[0:64, :] . xb[0:128, :]^T over all of K
-// (row_bytes bytes per row, a multiple of KB), for the fragments this
-// thread owns.  xa / xb point at the sub-tile's first operand row.  One
-// shared stage of each panel, the next stage prefetched into registers
-// while the MMAs of the current one run.
-template <class Op>
-__device__ __forceinline__ void mainloop(const uint8_t* __restrict__ xa,
-                                         const uint8_t* __restrict__ xb,
-                                         long long row_bytes, uint32_t* sA,
-                                         uint32_t* sB,
-                                         typename Op::Acc (&acc)[2][4][4]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n_stages = (int)(row_bytes / KB);
-  uint4 ra[A_VECS], rb[B_VECS];
-  auto load = [&](int s) {
-#pragma unroll
-    for (int v = 0; v < A_VECS; ++v) {
-      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-      ra[v] = __ldg(reinterpret_cast<const uint4*>(
-          xa + r * row_bytes + (long long)s * KB + c * 16));
-    }
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-      rb[v] = __ldg(reinterpret_cast<const uint4*>(
-          xb + r * row_bytes + (long long)s * KB + c * 16));
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int v = 0; v < A_VECS; ++v) {
-      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-      *reinterpret_cast<uint4*>(&sA[r * LDS + c * 4]) = ra[v];
-    }
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int u = tid + v * THREADS, r = u / (KB / 16), c = u % (KB / 16);
-      *reinterpret_cast<uint4*>(&sB[r * LDS + c * 4]) = rb[v];
-    }
-  };
-  load(0);
-  store();
-  __syncthreads();
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) load(s + 1);  // in flight during the MMAs
-#pragma unroll
-    for (int ks = 0; ks < KW / 8; ++ks) {
-      const int kw = ks * 8;
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t* ra0 = &sA[(wm * 32 + mt * 16 + g) * LDS + kw + t];
-        a[mt][0] = ra0[0];
-        a[mt][1] = ra0[8 * LDS];
-        a[mt][2] = ra0[4];
-        a[mt][3] = ra0[8 * LDS + 4];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t* rb0 = &sB[(wn * 32 + nt * 8 + g) * LDS + kw + t];
-        b[nt][0] = rb0[0];
-        b[nt][1] = rb0[4];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) Op::mma(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
-    if (s + 1 < n_stages) {
-      store();
-      __syncthreads();
-    }
-  }
-}
-
-// xi: [rows_i, row_bytes], xj: [rows_j, row_bytes] operand rows (bf16
-// pairs: kernel 2, Bf16Op without aux, is the one instantiation; the aux,
-// valid and offset arguments are the first design's int8 ones, kept so
-// kernel 2's code is unchanged); one thread block per 64 x 128 sub-tile,
-// p-major, then row, then column sub-tile.
-template <class Op, bool kAux>
-__global__ void __launch_bounds__(THREADS)
-score_bits_kernel(const uint8_t* __restrict__ xi,
-                  const uint8_t* __restrict__ xj, long long row_bytes,
-                  const float* __restrict__ aux_i, int rows_i,
-                  const float* __restrict__ aux_j, int rows_j,
-                  const int* __restrict__ bi, const int* __restrict__ bj,
-                  const int* __restrict__ valid, int off_row, int off_col,
-                  float tau, int tm, int tn, uint8_t* __restrict__ gb,
-                  uint8_t* __restrict__ g64, int* __restrict__ cnt) {
-  __shared__ __align__(16) uint32_t sA[BM * LDS];
-  __shared__ __align__(16) uint32_t sB[BN * LDS];
-  __shared__ float sAuxI[BM][3];
-  __shared__ float sAuxJ[BN][3];
-  __shared__ uint8_t sBits[BM / 8][BN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;   // mma groupID / thread-in-group
-  const int wm = warp >> 2, wn = warp & 3; // warp's 32 x 32 cell block
-
-  // which sub-tile of which block: p-major, then row, then column sub-tile
-  const int sub_m = tm / BM, sub_n = tn / BN;
-  long long bid = blockIdx.x;
-  const int cn = (int)(bid % sub_n);
-  bid /= sub_n;
-  const int cm = (int)(bid % sub_m);
-  const long long p = bid / sub_m;
-  const int lrow0 = bi[p] * tm + cm * BM;  // operand row of local row 0
-  const int lcol0 = bj[p] * tn + cn * BN;  // operand row of local column 0
-  const int row0 = off_row + lrow0;        // global row of local row 0
-  const int col0 = off_col + lcol0;        // global column of local col 0
-  const bool ok = valid == nullptr || valid[p] != 0;
-
-  if (kAux) {
-    for (int i = tid; i < BM + BN; i += THREADS) {
-      const bool is_i = i < BM;
-      const float* src = is_i ? aux_i : aux_j;
-      const long long n = is_i ? rows_i : rows_j;
-      const int r = is_i ? lrow0 + i : lcol0 + (i - BM);
-      float* dst = is_i ? sAuxI[i] : sAuxJ[i - BM];
-      dst[0] = src[r];
-      dst[1] = src[n + r];
-      dst[2] = src[2 * n + r];
-    }
-  }
-
-  typename Op::Acc acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-  // no cell with row < col when the smallest global row is >= the largest
-  // global column; an invalid block has no cell at all
-  const bool live = ok && row0 < col0 + BN - 1;
-  if (live) {
-    mainloop<Op>(xi + (long long)lrow0 * row_bytes,
-                 xj + (long long)lcol0 * row_bytes, row_bytes, sA, sB, acc);
-  } else if (kAux) {
-    __syncthreads();  // the aux tiles are read below either way
-  }
-
-  // epilogue: threshold + triangle, bit-pack 8 rows per byte.  Fragment
-  // element i of tile (mt, nt) sits at local row wm*32 + mt*16 + g + 8*(i/2),
-  // column wn*32 + nt*8 + 2t + (i%2); its bit in the group byte is g.
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      uint32_t w = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int lr = wm * 32 + mt * 16 + g + 8 * (i >> 1);
-        const int lc = wn * 32 + nt * 8 + 2 * t + (i & 1);
-        const bool h = ok && (row0 + lr < col0 + lc) &&
-                       Op::hit(acc[mt][nt][i], sAuxI[lr], sAuxJ[lc], tau);
-        w |= (uint32_t)h << (8 * i + g);
-      }
-      w |= __shfl_xor_sync(0xffffffffu, w, 4);
-      w |= __shfl_xor_sync(0xffffffffu, w, 8);
-      w |= __shfl_xor_sync(0xffffffffu, w, 16);
-      if (g == 0) {
-        const int grp = wm * 4 + mt * 2, lc = wn * 32 + nt * 8 + 2 * t;
-        sBits[grp][lc] = (uint8_t)(w);
-        sBits[grp][lc + 1] = (uint8_t)(w >> 8);
-        sBits[grp + 1][lc] = (uint8_t)(w >> 16);
-        sBits[grp + 1][lc + 1] = (uint8_t)(w >> 24);
-      }
-    }
-  }
-  __syncthreads();
-
-  if (tid < BN) {
-    const int c = tid;
-    int pairs = 0, groups = 0;
-    uint8_t any = 0;
-    uint8_t* gbp = gb + ((p * (tm / 8) + cm * (BM / 8)) * (long long)tn) +
-                   cn * BN + c;
-#pragma unroll
-    for (int grp = 0; grp < BM / 8; ++grp) {
-      const uint8_t byte = sBits[grp][c];
-      gbp[grp * (long long)tn] = byte;
-      pairs += __popc(byte);
-      groups += byte != 0;
-      any |= byte;
-    }
-    g64[(p * (tm / BM) + cm) * (long long)tn + cn * BN + c] = any != 0;
-    int supers = any != 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      pairs += __shfl_xor_sync(0xffffffffu, pairs, off);
-      groups += __shfl_xor_sync(0xffffffffu, groups, off);
-      supers += __shfl_xor_sync(0xffffffffu, supers, off);
-    }
-    if (lane == 0 && supers) {
-      atomicAdd(&cnt[3 * p + 0], pairs);
-      atomicAdd(&cnt[3 * p + 1], groups);
-      atomicAdd(&cnt[3 * p + 2], supers);
-    }
-  }
-}
-
-// ------------------------------- kernels 1, 3, 4: int8, TMA ring + wgmma
+// ------------------------------------------- TMA ring + wgmma mainloop
 
 constexpr int KSTAGE = 128;        // bytes of K per ring stage (one
                                    // 128-byte swizzle row per operand row)
@@ -411,7 +178,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// one box [rows, 128 bytes] of a 2-D int8 tensor map into shared memory
+// one box [rows, 128 bytes] of a 2-D byte tensor map into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int k, int row) {
   asm volatile(
@@ -428,7 +195,8 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // Shared-memory matrix descriptor of a K-major operand tile written by TMA
 // with 128-byte swizzle: rows of 128 bytes, 8-row atoms 1,024 bytes apart
 // (SBO), layout type 1 (128B swizzle); the leading offset is unused for
-// this layout.  Adding 2 advances the start by 32 bytes, one k32 step.
+// this layout.  Adding 2 advances the start by 32 bytes: one k32 step of
+// int8, one k16 step of bf16.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
@@ -451,90 +219,90 @@ __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
-// d += A[64 x 32 bytes] . B[N x 32 bytes]^T, s8 x s8 -> s32, both from
-// shared-memory descriptors; d is the m64nN accumulator of this thread.
-__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da,
-                                         uint64_t db) {
+// The accumulator registers of one wgmma, as the asm template names them
+// and as operands with constraint C ("+r" for s32, "+f" for f32).
+#define REGS_0_63 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define REGS_64_127 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define ACC8(C, d, i) \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), \
+  C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define ACC64(C, d, i) \
+  ACC8(C, d, i), ACC8(C, d, i + 8), ACC8(C, d, i + 16), ACC8(C, d, i + 24), \
+  ACC8(C, d, i + 32), ACC8(C, d, i + 40), ACC8(C, d, i + 48), \
+  ACC8(C, d, i + 56)
+
+// d += A[64 x 32 bytes] . B[N x 32 bytes]^T, both K-major from
+// shared-memory descriptors; d is the m64nN accumulator of this thread
+// (N = 2 x its length).  32 bytes of K are one k32 step of s8 x s8 -> s32
+// or one k16 step of bf16 x bf16 -> f32.  The bf16 form also takes the
+// immediates scale-a, scale-b (1: no negation) and trans-a, trans-b (0:
+// K-major; a wrong bit gives plausible, wrong sums, not a fault).
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t da,
+                                      uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
+      REGS_0_63 ", " REGS_64_127
       "}, %128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
-        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
-        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
-        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
-        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
-        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
-        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
-        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
-        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
-        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : ACC64("+r", d, 0), ACC64("+r", d, 64)
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
-                                         uint64_t db) {
+__device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da,
+                                      uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
+      REGS_0_63
       "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : ACC64("+r", d, 0)
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The persistent warp-specialized mainloop of kernels 1, 3 and 4.  Tiles
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      REGS_0_63 ", " REGS_64_127
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : ACC64("+f", d, 0), ACC64("+f", d, 64)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      REGS_0_63
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64("+f", d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The persistent warp-specialized mainloop of all four kernels.  Tiles
 // are handed out dynamically: the producer takes the next tile index from
 // *next_tile (zero on entry) with atomicAdd and passes it to the consumers
 // through two shared slots with their own full / empty barriers, so the
 // tiles in flight on the card stay a contiguous window of the list (their
 // operand panels shared in L2) however far one block falls behind.  Job
-// gives the tile list: n_tiles, tile(t, ar, br) -> live (operand rows of
+// gives the accumulator type Acc (int: s8 operands, float: bf16) and the
+// tile list: n_tiles, tile(t, ar, br) -> live (operand rows of
 // the tile's row 0 and column 0; a dead tile is not loaded); prefetch(t,
 // live, ar, br, wg, tid, pre) issues the epilogue's global loads into
 // registers before the K loop, so their latency hides behind it; and
@@ -542,9 +310,9 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
 // wg_smem is the warpgroup's own WG_BYTES of shared memory.
 template <class T, class Job>
 __global__ void __launch_bounds__(T::THREADS, 1)
-int8_ring_kernel(const __grid_constant__ CUtensorMap map_a,
-                 const __grid_constant__ CUtensorMap map_b, int k_stages,
-                 int* __restrict__ next_tile, const Job job) {
+ring_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_b, int k_stages,
+            int* __restrict__ next_tile, const Job job) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -618,7 +386,7 @@ int8_ring_kernel(const __grid_constant__ CUtensorMap map_a,
       const bool live = job.tile(t, ar, br);
       typename Job::Pre pre;
       job.prefetch(t, live, ar, br, wg, threadIdx.x & 127, pre);
-      int acc[T::BN / 2];
+      typename Job::Acc acc[T::BN / 2];
 #pragma unroll
       for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0;
       fence_acc(acc);
@@ -632,7 +400,7 @@ int8_ring_kernel(const __grid_constant__ CUtensorMap map_a,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < KSTAGE / 32; ++kk)
-            wgmma_s8(acc, da + 2 * kk, db + 2 * kk);
+            wgmma(acc, da + 2 * kk, db + 2 * kk);
           wgmma_commit();
           // the previous stage's group is done: release its slot
           wgmma_wait<1>();
@@ -653,9 +421,34 @@ int8_ring_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// Kernels 1 and 3: the sub-tiles of the block list, threshold + bit-pack.
-template <class T>
+// The admit test of a score kernel: the accumulator type, whether the test
+// reads aux rows, and hit(acc, saux, ri, cj, tau) for the cell of row entry
+// ri and column entry cj of the warpgroup's staged aux rows saux [3][AUX].
+struct Int8Op {
+  using Acc = int;
+  static constexpr bool kAux = true;
+  template <int AUX>
+  static __device__ __forceinline__ bool hit(int acc, const float* saux,
+                                             int ri, int cj, float tau) {
+    return int8_hit(acc, saux[ri], saux[AUX + ri], saux[2 * AUX + ri],
+                    saux[cj], saux[AUX + cj], saux[2 * AUX + cj], tau);
+  }
+};
+struct Bf16Op {
+  using Acc = float;
+  static constexpr bool kAux = false;
+  template <int AUX>
+  static __device__ __forceinline__ bool hit(float acc, const float*, int,
+                                             int, float tau) {
+    return acc >= tau;
+  }
+};
+
+// Kernels 1, 2 and 3: the sub-tiles of the block list, threshold +
+// bit-pack.
+template <class T, class Op>
 struct ScoreJob {
+  using Acc = typename Op::Acc;
   int n_tiles;
   const int* tiles;  // sub-tile ids (p * sub_m + cm) * sub_n + cn
   const int* bi;
@@ -692,7 +485,8 @@ struct ScoreJob {
 
   // the aux rows (alpha, alpha * L1(q), nnz) of the warpgroup's 64 rows
   // and the tile's BN columns: entry i < 64 is row ar + 64 wg + i, entry
-  // 64 + c column br + c; thread tid loads entries tid + 128 k
+  // 64 + c column br + c; thread tid loads entries tid + 128 k (no entries
+  // without Op::kAux: Pre is then never touched and costs no register)
   static constexpr int NPRE = (T::AUX + 127) / 128;
   struct Pre {
     float v[3][NPRE];
@@ -703,7 +497,7 @@ struct ScoreJob {
 #pragma unroll
     for (int k = 0; k < NPRE; ++k) {
       const int i = tid + 128 * k;
-      if (live && i < T::AUX) {
+      if (Op::kAux && live && i < T::AUX) {
         const bool row = i < 64;
         const float* src = row ? aux_i : aux_j;
         const long long n = row ? rows_i : rows_j;
@@ -717,23 +511,25 @@ struct ScoreJob {
   template <int R>
   __device__ __forceinline__ void epilogue(int t, bool live, int ar, int br,
                                            int wg, int warp, int lane,
-                                           const int (&acc)[R],
+                                           const Acc (&acc)[R],
                                            const Pre& pre,
                                            uint8_t* wg_smem) const {
     uint8_t* sbits = wg_smem;  // [8][BN] hit bytes
     float* saux = reinterpret_cast<float*>(wg_smem + T::BITS_BYTES);
     const int tid = warp * 32 + lane;
-    if (live) {
+    if constexpr (Op::kAux) {
+      if (live) {
 #pragma unroll
-      for (int k = 0; k < NPRE; ++k) {
-        const int i = tid + 128 * k;
-        if (i < T::AUX) {
+        for (int k = 0; k < NPRE; ++k) {
+          const int i = tid + 128 * k;
+          if (i < T::AUX) {
 #pragma unroll
-          for (int a = 0; a < 3; ++a) saux[a * T::AUX + i] = pre.v[a][k];
+            for (int a = 0; a < 3; ++a) saux[a * T::AUX + i] = pre.v[a][k];
+          }
         }
       }
+      named_sync(1 + wg, 128);
     }
-    named_sync(1 + wg, 128);
     int p, cm, cn;
     decode(t, p, cm, cn);
     const int g = lane >> 2, q = lane & 3;
@@ -751,9 +547,7 @@ struct ScoreJob {
           const int ri = lr + 8 * (e >> 1), cj = 64 + lc + (e & 1);
           const bool hit =
               (row0 + ri < col0 + lc + (e & 1)) &&
-              int8_hit(acc[4 * j + e], saux[ri], saux[T::AUX + ri],
-                       saux[2 * T::AUX + ri], saux[cj], saux[T::AUX + cj],
-                       saux[2 * T::AUX + cj], tau);
+              Op::template hit<T::AUX>(acc[4 * j + e], saux, ri, cj, tau);
           w |= (uint32_t)hit << (8 * e + g);
         }
       }
@@ -814,6 +608,7 @@ struct MatmulJob {
   static constexpr int GROUP = 8;
   int n_tiles, tiles_m, tiles_n, n;
   int* out;
+  using Acc = int;
   struct Pre {};
 
   __device__ __forceinline__ void prefetch(int, bool, int, int, int, int,
@@ -875,7 +670,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [rows, row_bytes] int8, boxes of box_rows x 128 bytes, 128-byte swizzle.
+// [rows, row_bytes] bytes (int8, or bf16 pairs: the bytes land where a
+// K-major 128-byte-swizzled tile of either type wants them), boxes of
+// box_rows x 128 bytes, 128-byte swizzle.
 // TMA needs a 16-byte-aligned base; row_bytes % 128 == 0 gives the stride.
 bool make_map(CUtensorMap* map, const void* base, long long rows,
               long long row_bytes, int box_rows) {
@@ -909,17 +706,17 @@ int launch_ring(const void* xa, long long rows_a, const void* xb,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(int8_ring_kernel<T, Job>,
+    e = cudaFuncSetAttribute(ring_kernel<T, Job>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  int8_ring_kernel<T, Job><<<sms, T::THREADS, T::SMEM,
+  ring_kernel<T, Job><<<sms, T::THREADS, T::SMEM,
                              (cudaStream_t)stream>>>(
       ma, mb, (int)(row_bytes / KSTAGE), (int*)next_tile, job);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, class Op>
 int launch_score(const void* xi, const void* xj, long long row_bytes,
                  const void* aux_i, int rows_i, const void* aux_j, int rows_j,
                  const void* tiles, const void* bi, const void* bj,
@@ -933,7 +730,7 @@ int launch_score(const void* xi, const void* xj, long long row_bytes,
       (long long)n_blocks * (tm / T::BM) * (tn / T::BN);
   if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaSuccess;
-  ScoreJob<T> job{(int)n_tiles, (const int*)tiles, (const int*)bi,
+  ScoreJob<T, Op> job{(int)n_tiles, (const int*)tiles, (const int*)bi,
                   (const int*)bj, (const int*)valid, tm / T::BM, tn / T::BN,
                   tm, tn, off_row, off_col, (const float*)aux_i,
                   (const float*)aux_j, rows_i, rows_j, tau, (uint8_t*)gb,
@@ -943,16 +740,19 @@ int launch_score(const void* xi, const void* xj, long long row_bytes,
 }
 
 // the thread-block tile is chosen by shape: 128 x 256 where it divides the
-// block tile, else 64 x 128 (the wrappers' int8_tile makes the same choice
-// for the sub-tile list)
-int score_int8(const void* xi, const void* xj, long long row_bytes,
+// block tile, else 64 x 128 (the wrappers' thread_block_tile makes the same
+// choice for the sub-tile list); row_bytes = K elements x the operand size,
+// aux null for Bf16Op
+template <class Op>
+int score(const void* xi, const void* xj, long long row_bytes,
                const void* aux_i, int rows_i, const void* aux_j, int rows_j,
                const void* tiles, const void* bi, const void* bj,
                const void* valid, int off_row, int off_col, float tau,
                int n_blocks, int tm, int tn, void* gb, void* g64, void* cnt,
                void* next_tile, void* stream) {
-  auto* f = (tm % Big::BM == 0 && tn % Big::BN == 0) ? launch_score<Big>
-                                                     : launch_score<Small>;
+  auto* f = (tm % Big::BM == 0 && tn % Big::BN == 0)
+                ? launch_score<Big, Op>
+                : launch_score<Small, Op>;
   return f(xi, xj, row_bytes, aux_i, rows_i, aux_j, rows_j, tiles, bi, bj,
            valid, off_row, off_col, tau, n_blocks, tm, tn, gb, g64, cnt,
            next_tile, stream);
@@ -982,29 +782,20 @@ int score_bits_int8(const void* xq, const void* aux, const void* tiles,
                     int row_cap, int dim_cap, int n_blocks, int tm, int tn,
                     void* gb, void* g64, void* cnt, void* next_tile,
                     void* stream) {
-  return score_int8(xq, xq, dim_cap, aux, row_cap, aux, row_cap, tiles, bi,
+  return score<Int8Op>(xq, xq, dim_cap, aux, row_cap, aux, row_cap, tiles, bi,
                     bj, nullptr, 0, 0, tau_eff, n_blocks, tm, tn, gb, g64,
                     cnt, next_tile, stream);
 }
 
-// x bf16 [row_cap, dim_cap]; the rest as score_bits_int8, without tiles
-// and next_tile.
-int score_bits_bf16(const void* x, const void* bi, const void* bj,
-                    float tau_eff, int row_cap, int dim_cap, int n_blocks,
-                    int tm, int tn, void* gb, void* g64, void* cnt,
-                    void* stream) {
-  const long long row_bytes = 2LL * dim_cap;
-  if (tm % BM || tn % BN || row_bytes % KB || row_cap % tm || row_cap % tn)
-    return (int)cudaErrorInvalidValue;
-  const long long grid = (long long)n_blocks * (tm / BM) * (tn / BN);
-  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (grid == 0) return (int)cudaSuccess;
-  score_bits_kernel<Bf16Op, false><<<(unsigned)grid, THREADS, 0,
-                                     (cudaStream_t)stream>>>(
-      (const uint8_t*)x, (const uint8_t*)x, row_bytes, nullptr, row_cap,
-      nullptr, row_cap, (const int*)bi, (const int*)bj, nullptr, 0, 0,
-      tau_eff, tm, tn, (uint8_t*)gb, (uint8_t*)g64, (int*)cnt);
-  return (int)cudaGetLastError();
+// x bf16 [row_cap, dim_cap] (a row is 2 * dim_cap bytes, so dim_cap % 64
+// must be 0); no aux; the rest as score_bits_int8.
+int score_bits_bf16(const void* x, const void* tiles, const void* bi,
+                    const void* bj, float tau_eff, int row_cap, int dim_cap,
+                    int n_blocks, int tm, int tn, void* gb, void* g64,
+                    void* cnt, void* next_tile, void* stream) {
+  return score<Bf16Op>(x, x, 2LL * dim_cap, nullptr, row_cap, nullptr,
+                       row_cap, tiles, bi, bj, nullptr, 0, 0, tau_eff,
+                       n_blocks, tm, tn, gb, g64, cnt, next_tile, stream);
 }
 
 // One cross-panel rectangle.  xi int8 [rows_i, dim_cap], xj int8
@@ -1019,7 +810,7 @@ int panel_score_bits_int8(const void* xi, const void* xj, const void* auxi,
                           int dim_cap, int n_blocks, int tm, int tn, void* gb,
                           void* g64, void* cnt, void* next_tile,
                           void* stream) {
-  return score_int8(xi, xj, dim_cap, auxi, rows_i, auxj, rows_j, tiles, bi,
+  return score<Int8Op>(xi, xj, dim_cap, auxi, rows_i, auxj, rows_j, tiles, bi,
                     bj, valid, off_row, off_col, tau_eff, n_blocks, tm, tn,
                     gb, g64, cnt, next_tile, stream);
 }

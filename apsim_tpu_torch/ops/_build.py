@@ -36,6 +36,19 @@ _info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+
+# argument types of the C entries (all return int): the arguments each
+# wrapper passes, then the stream
+ARGTYPES = {
+    "score_bits_int8": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P],
+    "score_bits_bf16": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P],
+    "panel_score_bits_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                              _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "int8_matmul": [_P, _P, _I, _I, _I, _P, _P, _P],
+}
 
 
 def _nvcc() -> str:
@@ -60,23 +73,10 @@ def kernels() -> ctypes.CDLL:
             t0 = time.perf_counter()
             so, log = build_shared_lib(SRC, [_nvcc()] + FLAGS)
             lib = ctypes.CDLL(so)
-            lib.score_bits_int8.restype = _I
-            lib.score_bits_int8.argtypes = [
-                _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P, _P,
-            ]
-            lib.score_bits_bf16.restype = _I
-            lib.score_bits_bf16.argtypes = [
-                _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P,
-            ]
-            lib.panel_score_bits_int8.restype = _I
-            lib.panel_score_bits_int8.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-            ]
-            lib.int8_matmul.restype = _I
-            lib.int8_matmul.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+            for name, argtypes in ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.restype = _I
+                fn.argtypes = argtypes
             _info.update(
                 library=so, seconds=time.perf_counter() - t0, log=log
             )

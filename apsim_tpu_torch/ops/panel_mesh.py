@@ -36,7 +36,7 @@ __all__ = [
     "slab_width",
 ]
 
-MM_TM, MM_TN = ts.INT8_TILES[-1]  # kernel 4's smallest thread-block tile
+MM_TM, MM_TN = ts.THREAD_BLOCK_TILES[-1]  # kernel 4's smallest thread-block tile
 EPILOGUE_CELLS = 1 << 23  # rectangle cells per epilogue chunk
 
 
@@ -61,7 +61,7 @@ def int8_matmul(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     and operands that start on a 16-byte boundary (TMA loads them);
     anything else is refused on either device.  It runs 128 x 256
     thread-block tiles where they divide ``(m, n)``, else 64 x 128
-    (``tri_score.int8_tile``)."""
+    (``tri_score.thread_block_tile``)."""
     _check_mm(xi, xj)
     m, d = xi.shape
     n = xj.shape[0]

@@ -21,6 +21,11 @@ beside it for a CPU tensor — never one in place of the other:
   ``score_bits_int8``  int8 rows, per-pair quantization bound (the default)
   ``score_bits_bf16``  bf16 rows, fp32 accumulation
 
+Both kernels (and the cross-panel kernel and the int8 matmul of
+``ops/panel.py`` and ``ops/panel_mesh.py``) are one design: a TMA ring and
+``wgmma`` over thread-block tiles chosen by shape (``thread_block_tile``),
+walked through a live-first sub-tile list (``tile_list``).
+
 ``LAUNCHES`` counts the kernel launches of each wrapper.
 """
 
@@ -35,7 +40,7 @@ from ._build import kernels
 
 __all__ = [
     "GROUP", "SUPER", "SUPER2", "LAUNCHES", "check_tiles", "upper_blocks_rect",
-    "quantize_rows", "int8_tile", "live_subtiles", "tile_list",
+    "quantize_rows", "thread_block_tile", "live_subtiles", "tile_list",
     "check_aligned", "next_tile_counter",
     "score_bits_int8", "score_bits_bf16",
     "score_bits_int8_plain", "score_bits_bf16_plain", "int8_bound_value",
@@ -49,7 +54,7 @@ SUPER = 64  # rows per level-0 super-group (8 group bytes)
 SUPER2 = 512  # rows per pre-level cell (reduced from g64 at compaction time)
 K_QUANTUM = 128  # the kernels stream K in 128-byte stages per row
 COL_QUANTUM = 128  # columns of the smallest CUDA thread-block tile
-INT8_TILES = ((128, 256), (64, 128))  # the int8 kernels' thread-block tiles
+THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of all four kernels
 
 # kernel launches per wrapper (only a launch of the CUDA kernel counts);
 # ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
@@ -122,31 +127,32 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, torch.stack([alpha, alpha * l1q, nnz])
 
 
-def int8_tile(rows: int, cols: int) -> tuple[int, int]:
-    """The int8 kernels' thread-block tile for block tiles ``(rows, cols)``
-    (``(tm, tn)`` of kernels 1 and 3, ``(m, n)`` of kernel 4): 128 x 256
-    (two consumer warpgroups) where it divides them, else 64 x 128 (one).
-    ``csrc/score_bits.cu`` makes the same choice from the same shapes."""
-    for bm, bn in INT8_TILES:
+def thread_block_tile(rows: int, cols: int) -> tuple[int, int]:
+    """The kernels' thread-block tile for block tiles ``(rows, cols)``
+    (``(tm, tn)`` of the score kernels 1-3, int8 and bf16 alike; ``(m, n)``
+    of kernel 4): 128 x 256 (two consumer warpgroups) where it divides
+    them, else 64 x 128 (one).  ``csrc/score_bits.cu`` makes the same
+    choice from the same shapes."""
+    for bm, bn in THREAD_BLOCK_TILES:
         if rows % bm == 0 and cols % bn == 0:
             return bm, bn
     raise ValueError(
-        f"no int8 thread-block tile divides ({rows}, {cols}): rows must be "
+        f"no thread-block tile divides ({rows}, {cols}): rows must be "
         f"a multiple of 64 and columns of 128"
     )
 
 
 def live_subtiles(bi, bj, tm: int, tn: int, off=(0, 0), valid=None):
-    """The int8 score kernels' tile list: int32 ids ``(p * tm/BM + cm) *
+    """The score kernels' tile list: int32 ids ``(p * tm/BM + cm) *
     tn/BN + cn`` of every thread-block sub-tile of the block list, for the
-    ``int8_tile(tm, tn)`` thread-block tile ``(BM, BN)``, the live ones
+    ``thread_block_tile(tm, tn)`` thread-block tile ``(BM, BN)``, the live ones
     first and each part in block-list order.  A sub-tile is live when its
     block is valid and its smallest global row (local plus ``off[0]``) lies
     below its largest global column (local plus ``off[1]``).  The kernel's
-    persistent thread blocks take the list round-robin, so the live tiles
+    persistent thread blocks draw from the list in order, so the live tiles
     spread evenly over them; a dead tile only writes its zero bytes.  Built
     with torch ops on the block list's device, no host round trip."""
-    bm, bn = int8_tile(tm, tn)
+    bm, bn = thread_block_tile(tm, tn)
     sub_m, sub_n = tm // bm, tn // bn
     ids = torch.arange(bi.numel() * sub_m * sub_n, device=bi.device)
     p = ids // (sub_m * sub_n)
@@ -186,7 +192,7 @@ def tile_list(bi, bj, tm: int, tn: int, off, valid, rows_i: int,
 
 
 def check_aligned(*ops) -> None:
-    """The int8 kernels load their operands with TMA, which needs a
+    """The kernels load their operands with TMA, which needs a
     16-byte-aligned base (the row stride, a multiple of 128 bytes, is
     aligned by the K quantum): refuse a view that starts elsewhere."""
     for op in ops:
@@ -235,7 +241,7 @@ def _outputs(n: int, tm: int, tn: int, device):
 
 
 def next_tile_counter(device) -> torch.Tensor:
-    """The int8 kernels' dynamic tile counter: one int32, zero."""
+    """The kernels' dynamic tile counter: one int32, zero."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -272,14 +278,17 @@ def score_bits_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024, tn: int = 512):
 def score_bits_bf16(x, bi, bj, tau_eff, tm: int = 1024, tn: int = 512):
     """(gb, g64, cnt) of the bf16 scorer over the block list (bi, bj)."""
     _check_operands(x, bi, bj, tm, tn, torch.bfloat16, 2 * x.shape[1])
+    check_aligned(x)
     if x.device.type == "cpu":
         return score_bits_bf16_plain(x, bi, bj, tau_eff, tm, tn)
     gb, g64, cnt = _outputs(bi.numel(), tm, tn, x.device)
     row_cap, dim_cap = x.shape
+    tiles = tile_list(bi, bj, tm, tn, (0, 0), None, row_cap, row_cap)
+    nxt = next_tile_counter(x.device)
     _launch("score_bits_bf16", x, (
-        x.data_ptr(), bi.data_ptr(), bj.data_ptr(), float(tau_eff),
-        row_cap, dim_cap, bi.numel(), tm, tn,
-        gb.data_ptr(), g64.data_ptr(), cnt.data_ptr(),
+        x.data_ptr(), tiles.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+        float(tau_eff), row_cap, dim_cap, bi.numel(), tm, tn,
+        gb.data_ptr(), g64.data_ptr(), cnt.data_ptr(), nxt.data_ptr(),
     ))
     return gb, g64, cnt
 

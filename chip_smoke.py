@@ -3,7 +3,11 @@
 
 Run from the repository root, with one NVIDIA H100 visible:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+
+``--profile`` adds one more join of each dense engine under
+``torch.profiler`` after phase 3 (device busy time and idle share; the
+profiler's start-up costs about 7 s on an H100 machine).
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -19,6 +23,18 @@ result line):
    rectangle with offsets and valid = 0 blocks, one with every sub-tile
    dead; ±127 operands at K = 32,768 (the int32 gate's largest dot);
    kernel 4 at both thread-block tiles with fewer tiles than SMs.
+   Then the bf16 kernel at the same edges against its plain version: K = 64
+   elements (one ring stage) and K = 2,048 (32 stages) at the same four
+   block tiles, on 1,900 random unit rows and 148 padding rows, with a
+   threshold inside the bulk of the scores, and a block list with fewer
+   tiles than SMs: every cell whose bit differs has a plain fp32 score
+   within 1e-5 of the threshold.  A dense stress (2,048 rows of 32,768
+   positive elements each, threshold at the scores' median): the tensor
+   cores' fp32 sums of 32,768 positive products drift further from the plain
+   version's than any sparse row's can, so there the cells that differ are
+   held within (K + 2) * 2^-24, the engine's own bound on fp32 accumulation
+   over K nonzeros (``Engine._margin_rel``; its bf16 margin, 2e-2, is ten
+   times wider), and the worst distance found is printed.
 2. Each kernel against its plain PyTorch version on the index of an engine
    built from ``synthetic_corpus(4096)`` with padding rows, at tiles
    (1024, 512) and (256, 256), tau_eff of tau = 0.8.  int8: gb, g64 and cnt
@@ -81,7 +97,7 @@ import torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
                              make_mesh)
-from apsim_tpu_torch.bench.ooc import join_ops
+from apsim_tpu_torch.bench.ooc import join_ops, profile_join
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
 from apsim_tpu_torch.ops import mesh_pallas, panel_mesh
@@ -174,8 +190,10 @@ def check_packing(out, step: int = 8) -> None:
 
 
 def compare(kind: str, ops, bi, bj, tau_eff, tm: int, tn: int,
-            timed: bool) -> dict:
-    """Kernel vs plain version on the same operands; returns the record."""
+            timed: bool, band: float = BF16_BAND) -> dict:
+    """Kernel vs plain version on the same operands; returns the record.
+    ``band``: how far from tau_eff the plain fp32 score of a cell may lie
+    when the bf16 kernel's bit differs."""
     if kind == "int8":
         kern = lambda: ts.score_bits_int8(*ops, bi, bj, tau_eff, tm, tn)
         plain = lambda: ts.score_bits_int8_plain(*ops, bi, bj, tau_eff, tm, tn)
@@ -205,11 +223,10 @@ def compare(kind: str, ops, bi, bj, tau_eff, tm: int, tn: int,
             if bool(d.any()):
                 n_diff += int(d.sum())
                 worst = max(worst, float((v[d] - float(tau_eff)).abs().max()))
-        if worst > BF16_BAND:
+        if worst > band:
             raise AssertionError(
                 f"bf16 kernel differs from plain at tiles {(tm, tn)} on "
-                f"{n_diff} cells; worst |score - tau_eff| = {worst} > "
-                f"{BF16_BAND}"
+                f"{n_diff} cells; worst |score - tau_eff| = {worst} > {band}"
             )
         rec.update(max_abs_err=worst, cells_differing=n_diff)
     del k, p
@@ -344,6 +361,56 @@ def int8_rows(dev, rows: int, k: int, seed: int):
     return ts.quantize_rows(x)
 
 
+def bf16_rows(dev, rows: int, pad: int, k: int, seed: int,
+              positive: bool = False):
+    """bf16 operand of ``rows`` random unit rows of width ``k`` (every
+    fourth a copy of the one before; all elements positive on request) and
+    ``pad`` zero rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, k), device=dev, generator=gen)
+    if positive:
+        x.abs_()
+    x[1::4] = x[0:-1:4]
+    x /= x.norm(dim=1, keepdim=True)
+    return torch.cat([x, torch.zeros((pad, k), device=dev)]).to(torch.bfloat16)
+
+
+def bf16_edge_phase(dev) -> None:
+    """The bf16 kernel at the edges of its tiling and ring (phase 1)."""
+    for k in (64, 2048):
+        tau = 2.4 / k ** 0.5  # 2.4 sigma of a random pair's score
+        for tm, tn in ((1024, 512), (512, 512), (256, 256), (64, 128)):
+            x = bf16_rows(dev, 1900, 148, k, tm + k)
+            bi, bj = blocks(2048, tm, tn, dev)
+            rec = compare("bf16", x, bi, bj, tau, tm, tn, timed=False)
+            few = compare("bf16", x, bi[:1], bj[:1], tau, tm, tn,
+                          timed=False)
+            if rec["pairs_kernel"] < 1000 or few["pairs_kernel"] < 1:
+                raise AssertionError(
+                    f"bf16 edge K={k} tiles {(tm, tn)}: too few hits to "
+                    f"tell: {rec['pairs_kernel']}, {few['pairs_kernel']}")
+            log(f"phase 1 bf16 edges K={k} tiles {(tm, tn)} thread-block "
+                f"tile {ts.thread_block_tile(tm, tn)}: {rec['pairs_kernel']} "
+                f"pairs ({rec['cells_differing']} cells differ from plain, "
+                f"worst |score - tau| {rec['max_abs_err']:.3g} <= "
+                f"{BF16_BAND}); one block: {few['pairs_kernel']} pairs "
+                f"({few['cells_differing']} differ)")
+    k = 32768
+    band = (k + 2) * 2.0 ** -24
+    x = bf16_rows(dev, 2048, 0, k, 11, positive=True)
+    bi, bj = blocks(2048, 1024, 512, dev)
+    tau = float(next(ts.bf16_scores(x, bi[:1], bj[1:2], 1024, 512))[2]
+                .median())
+    rec = compare("bf16", x, bi, bj, tau, 1024, 512, timed=False, band=band)
+    if not 0.2 < rec["pairs_kernel"] / upper_cells(bi, bj, 1024, 512) < 0.8:
+        raise AssertionError(f"dense stress: threshold off the bulk: {rec}")
+    log(f"phase 1 bf16 dense stress, 2048 rows of {k} positive elements, "
+        f"tau {tau:.6f}: {rec['pairs_kernel']} pairs, "
+        f"{rec['cells_differing']} cells differ from plain, worst "
+        f"|score - tau| {rec['max_abs_err']:.3g} <= {band:.3g} "
+        f"((K + 2) * 2^-24)")
+
+
 def edge_phase(dev) -> None:
     """The int8 kernels at the edges of their tiling and ring (phase 1)."""
     for k in (128, 4096):
@@ -366,7 +433,7 @@ def edge_phase(dev) -> None:
                     f"edge K={k} tiles {(tm, tn)}: expected hits in the "
                     f"triangle and none in the dead rectangle, got {recs}")
             log(f"phase 1 edges K={k} tiles {(tm, tn)} thread-block tile "
-                f"{ts.int8_tile(tm, tn)}: bit-identical; pairs (triangle, "
+                f"{ts.thread_block_tile(tm, tn)}: bit-identical; pairs (triangle, "
                 f"(0, 1024), (512, 768), dead (1024, 0)) = {recs}")
     k = 32768
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -395,7 +462,7 @@ def edge_phase(dev) -> None:
                            panel_mesh.int8_matmul_plain(xi, xj)):
             raise AssertionError(f"kernel 4 differs at {(m, n, dd)}")
         log(f"phase 1 edges kernel 4 [{m}, {dd}] x [{n}, {dd}]^T, thread-"
-            f"block tile {ts.int8_tile(m, n)}: exact")
+            f"block tile {ts.thread_block_tile(m, n)}: exact")
 
 
 def compare_rows_shard(eng: MeshEngine, s: int) -> dict:
@@ -507,6 +574,7 @@ def main() -> int:
                     "0 bytes spill stores, 0 bytes spill loads" not in line):
                 raise AssertionError(f"a kernel spills registers: {line}")
     edge_phase(dev)
+    bf16_edge_phase(dev)
 
     # ---- phase 2: kernel vs plain, 4,096 rows with padding rows
     small = Engine(AllPairsConfig(row_bucket=5120), dev)
@@ -535,6 +603,14 @@ def main() -> int:
     log(f"build bf16 engine: {json.dumps(eng16.build(enron_csr))}")
     j16 = timed_join(eng16, "main path bf16, 8586 rows")
     launches = dict(ts.LAUNCHES)
+    if "--profile" in sys.argv[1:]:
+        for label, eng in (("int8, 32768 rows", eng8),
+                           ("bf16, 8586 rows", eng16)):
+            t0 = time.perf_counter()
+            prof = profile_join(eng, TAU)
+            prof["profiling_seconds"] = time.perf_counter() - t0
+            log(f"main path {label}, one more join under torch.profiler: "
+                f"{json.dumps(prof)}")
     log(f"kernel launches on the main path: {launches}")
     for k in ("score_bits_int8", "score_bits_bf16"):
         if launches[k] < 1:
@@ -555,6 +631,9 @@ def main() -> int:
         rec.update(score_bound(
             ops[:1], ops[1].numel() * 4 if kind == "int8" else 0, bi, bj,
             tm, tn, (0, 0), PEAK_INT8 if kind == "int8" else PEAK_BF16))
+        rec["tops"] = (2 * upper_cells(bi, bj, tm, tn) * eng.dim_cap
+                       / rec["ms"] / 1e9)
+        rec["thread_block_tile"] = list(ts.thread_block_tile(tm, tn))
         log(f"phase 4 {kind} row_cap={eng.row_cap} dim_cap={eng.dim_cap}: "
             f"{json.dumps(rec)}")
         kernels.append({

@@ -8,7 +8,9 @@ without them:
 
 Tolerances: int8 (gb, g64, cnt) bit-identical, the dense and the
 cross-panel kernel alike; bf16 hit cells may differ only where the plain
-fp32 score lies within 1e-5 of tau_eff; the int8 matmul (kernel 4) equal
+fp32 score lies within 1e-5 of tau_eff (within (K + 2) * 2^-24, the
+engine's bound on fp32 accumulation over K nonzeros, on the dense stress
+of 32,768 positive elements per row); the int8 matmul (kernel 4) equal
 to its plain version in every int32; the mesh joins over four shards of
 the card give the pair sets of the same joins over four CPU shards.
 """
@@ -55,12 +57,23 @@ def test_kernel_matches_plain(engines, kind, tiles):
         for a, b in zip(k, p):
             assert torch.equal(a, b)
         return
-    xb = eng.x.to(torch.bfloat16)
+    _bf16_matches_plain(eng.x.to(torch.bfloat16), bi, bj, tau_eff, tm, tn)
+
+
+def _bf16_matches_plain(xb, bi, bj, tau_eff, tm, tn, band=1e-5):
+    """Kernel 2 against its plain version: one launch counted; g64 and cnt
+    are what its own gb implies; a cell whose bit differs has a plain fp32
+    score within ``band`` of tau_eff.  Returns the kernel's pair count."""
+    before = ts.LAUNCHES["score_bits_bf16"]
     k = ts.score_bits_bf16(xb, bi, bj, tau_eff, tm, tn)
+    assert ts.LAUNCHES["score_bits_bf16"] == before + 1
     p = ts.score_bits_bf16_plain(xb, bi, bj, tau_eff, tm, tn)
     for s, e, v in ts.bf16_scores(xb, bi, bj, tm, tn):
+        _, r64, rcnt = ts.bitpack_mask(ts.unpack_bits(k[0][s:e]))
+        assert torch.equal(r64, k[1][s:e]) and torch.equal(rcnt, k[2][s:e])
         d = ts.unpack_bits(k[0][s:e]) != ts.unpack_bits(p[0][s:e])
-        assert bool(((v[d] - float(tau_eff)).abs() <= 1e-5).all())
+        assert bool(((v[d] - float(tau_eff)).abs() <= band).all())
+    return int(k[2][:, 0].sum())
 
 
 @pytest.mark.parametrize("int8", [True, False])
@@ -270,3 +283,63 @@ def test_int8_matmul_tile_variants(card, shape):
                             device=card, generator=gen) for r in (m, n))
     assert torch.equal(panel_mesh.int8_matmul(xi, xj),
                        panel_mesh.int8_matmul_plain(xi, xj))
+
+
+def _bf16_rows(card, rows: int, pad: int, k: int, seed: int,
+               positive: bool = False):
+    """bf16 operand of ``rows`` random unit rows of width ``k`` (every
+    fourth a copy of the one before) and ``pad`` zero rows."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((rows, k), device=card, generator=gen)
+    if positive:
+        x.abs_()
+    x[1::4] = x[0:-1:4]
+    x /= x.norm(dim=1, keepdim=True)
+    return torch.cat([x, torch.zeros((pad, k), device=card)]).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("k", [64, 2048])
+@pytest.mark.parametrize("tiles", [(1024, 512), (512, 512), (256, 256),
+                                   (64, 128)])
+def test_bf16_score_kernel_edges(card, tiles, k):
+    """Kernel 2 on both thread-block tiles (128 x 256 and 64 x 128), one
+    ring stage (K = 64 elements) and 32 (K = 2,048), with padding rows, a
+    threshold inside the bulk of the scores (2.4 sigma of a random pair's),
+    and a one-block list (fewer tiles than SMs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tm, tn = tiles
+    x = _bf16_rows(card, 1900, 148, k, tm + k)
+    tau = 2.4 / k ** 0.5
+    bi, bj = (torch.from_numpy(a).to(card)
+              for a in ts.upper_blocks_rect(2048, tm, tn))
+    assert _bf16_matches_plain(x, bi, bj, tau, tm, tn) > 1000
+    assert _bf16_matches_plain(x, bi[:1], bj[:1], tau, tm, tn) > 0
+
+
+def test_bf16_score_kernel_dense_stress(card):
+    """Rows of 32,768 positive elements, threshold at the scores' median:
+    cells that differ from the plain version lie within the engine's bound
+    on fp32 accumulation over K nonzeros, (K + 2) * 2^-24."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = 32768
+    x = _bf16_rows(card, 2048, 0, k, 11, positive=True)
+    bi, bj = (torch.from_numpy(a).to(card)
+              for a in ts.upper_blocks_rect(2048, 1024, 512))
+    tau = float(next(ts.bf16_scores(x, bi[:1], bj[1:2], 1024, 512))[2]
+                .median())
+    n = _bf16_matches_plain(x, bi, bj, tau, 1024, 512,
+                            band=(k + 2) * 2.0 ** -24)
+    assert 400_000 < n < 1_700_000  # of 2,096,128 strict-upper cells
+
+
+def test_bf16_wrapper_refuses_misaligned_on_card(card):
+    """A view that starts off a 16-byte boundary is refused before any
+    launch (TMA could not load it)."""
+    buf = torch.zeros(256 * 64 + 8, dtype=torch.bfloat16, device=card)
+    x = buf[1:1 + 256 * 64].view(256, 64)
+    b = torch.zeros(1, dtype=torch.int32, device=card)
+    before = ts.LAUNCHES["score_bits_bf16"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ts.score_bits_bf16(x, b, b, 0.5, 64, 128)
+    assert ts.LAUNCHES["score_bits_bf16"] == before

@@ -109,18 +109,45 @@ def test_int8_plain_matches_pallas(engine, tiles, tau):
     )
 
 
-@pytest.mark.parametrize("tiles", [(256, 256), (512, 256)])
+def bf16_rows(rows: int, pad: int, k: int, seed: int) -> np.ndarray:
+    """``rows`` unit fp32 rows of width ``k`` (every fourth a copy of the one
+    before, so some scores sit far above any tau) and ``pad`` zero rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    x[1::4] = x[0:-1:4]
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return np.concatenate([x, np.zeros((pad, k), np.float32)])
+
+
+# (tm, tn): the engine fixture's index.  (tm, tn, K): the shapes of the
+# card's bf16 edge legs, 1,900 seeded rows + 148 padding rows of width K:
+# one 128-byte stage of the CUDA ring (K = 64) and several (K = 1,024), at
+# the smallest and the largest block tiles of ``Engine._tiles``.
+@pytest.mark.parametrize("tiles", [
+    (256, 256), (512, 256), (256, 256, 64), (1024, 512, 64),
+    (256, 256, 1024), (1024, 512, 1024),
+])
 def test_bf16_plain_matches_pallas(engine, tiles):
-    tm, tn = tiles
-    tau_eff = engine._tau_eff(0.5)
-    xb = engine.x.to(torch.bfloat16)
-    bi, bj, tbi, tbj = blocks(engine.row_cap, tm, tn)
+    tm, tn = tiles[:2]
+    if len(tiles) == 2:
+        x32, tau_eff = engine.x.numpy(), engine._tau_eff(0.5)
+    else:
+        x32 = bf16_rows(1900, 148, tiles[2], seed=sum(tiles))
+        tau_eff = np.float32(0.78)
+    row_cap, dim_cap = x32.shape
+    xb = torch.from_numpy(x32).to(torch.bfloat16)
+    bi, bj, tbi, tbj = blocks(row_cap, tm, tn)
     ref = jax_bits(ps.pallas_score_bits(
-        jnp.asarray(engine.x.numpy()).astype(jnp.bfloat16), jnp.asarray(bi),
-        jnp.asarray(bj), tau_eff, tm, tn, engine.dim_cap, interpret=True,
+        jnp.asarray(x32).astype(jnp.bfloat16), jnp.asarray(bi),
+        jnp.asarray(bj), tau_eff, tm, tn, dim_cap, interpret=True,
     ))
     got = [a.numpy() for a in ts.score_bits_bf16(xb, tbi, tbj, tau_eff,
                                                  tm, tn)]
+    assert int(got[2][:, 0].sum()) > 0
+    if len(tiles) == 3:  # no hit touches a padding row
+        rows_hit = ts.unpack_bits(torch.from_numpy(got[0])).any(dim=2)
+        for p, i in enumerate(bi.tolist()):
+            assert not rows_hit[p][max(0, 1900 - i * tm):].any()
     assert_bits_match(
         ref, got, ts.bf16_scores(xb, tbi, tbj, tm, tn), tau_eff, 1e-5,
         f"bf16 tiles={tiles}",

@@ -1,6 +1,8 @@
 """The port and its chip script stay lint-clean under tools/lint.py (the
-repo's zero-dependency ruff subset), which does not list them by default."""
+repo's zero-dependency ruff subset), which does not list them by default,
+and import neither JAX nor the JAX package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -18,3 +20,29 @@ def test_port_lint_clean(target):
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "apsim_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_port_imports_no_jax():
+    """Every import statement of the port's sources, at any depth: no
+    ``jax`` (or ``jaxlib``, ``flax``), and nothing of ``apsim_tpu``."""
+    banned = {"jax", "jaxlib", "flax", "apsim_tpu"}
+    sources = port_sources()
+    assert len(sources) > 20
+    bad = []
+    for path in sources:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            bad += [(os.path.relpath(path, REPO), n) for n in names
+                    if n.split(".")[0] in banned]
+    assert not bad, bad
