@@ -4,12 +4,14 @@ The port of the JAX package ``apsim_tpu`` (which stays as its reference) to
 PyTorch with hand-written Hopper kernels.  This package imports ``torch``
 and never ``jax`` or ``apsim_tpu``: the host-only modules it shares with the
 JAX package are copies.  Ported so far: ``Engine.build`` and the exact
-thresholded ``Engine.all_pairs`` join, the out-of-core
-``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join), their
-single-host mesh variants ``MeshChunkedAllPairs`` (chunk axis sharded) and
-``MeshEngine`` (rows-sharded), and loading each engine from the JAX
-package's checkpoints.  Entry points run on the card (``"cuda"``, or a mesh
-over the cards) unless the caller names the CPU.
+thresholded ``Engine.all_pairs`` join (the upper-triangle kernels, and the
+full-rectangle join for every configuration they refuse), the out-of-core
+``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join, and the stripe
+join behind it), their single-host mesh variants ``MeshChunkedAllPairs``
+(chunk axis sharded) and ``MeshEngine`` (rows, dims or a 2-D mesh), and
+loading each engine from the JAX package's checkpoints.  Entry points run
+on the card (``"cuda"``, or a mesh over the cards) unless the caller names
+the CPU.
 """
 
 from .config import AllPairsConfig, load_config

@@ -4,7 +4,7 @@ the join part of ``apsim_tpu/bench/ooc.py``).
 
 Usage, on a machine with one CUDA card:
 
-    python -m apsim_tpu_torch.bench.ooc [n_rows ...] [--profile]
+    python -m apsim_tpu_torch.bench.ooc [n_rows ...] [--profile] [--stripes]
 
 Each size builds the engine on ``synthetic_corpus(n_rows, seed=0)``, runs
 ``all_pairs(0.8)`` three times and reports the third: wall seconds, decided
@@ -12,9 +12,12 @@ pairs per second, the stage split, the panel geometry and sweep mode, the
 int8 work and the rate it reached in the kernel stage, and device memory.
 ``--profile`` runs one more join under
 ``torch.profiler`` and reports the device's busy time, its idle share of
-the join's wall time, and device time by kernel.  One JSON object per size
-goes to stderr as it finishes, all of them to stdout at the end.  ``--stripes`` (the XLA
-stripe join) and ``--stream`` (streaming inserts) are not ported yet.
+the join's wall time, and device time by kernel.  ``--stripes``
+builds a second engine with ``pallas_int8=False`` (the stripe join, bf16
+slabs), times its third join with its stage split and reports
+``stripe_parity``: whether its pair set equals the panel join's.  One JSON
+object per size goes to stderr as it finishes, all of them to stdout at the
+end.  ``--stream`` (streaming inserts) is not ported yet.
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ def run_ooc(
     device: torch.device | str = "cuda",
     chunk_dim: int = 2048,
     profile: bool = False,
+    compare_stripes: bool = False,
 ) -> Dict:
     device = torch.device(device)
     t0 = time.perf_counter()
@@ -149,22 +153,58 @@ def run_ooc(
     report["sims_finite"] = bool(np.all(np.isfinite(res.sims)))
     if profile:
         report["profile"] = profile_join(eng, tau)
+    if compare_stripes:
+        del eng
+        report["stripes"] = _stripe_join(csr, tau, device, chunk_dim, res)
+        report["stripe_join_seconds"] = report["stripes"]["join_seconds"]
+        report["stripe_parity"] = report["stripes"]["parity"]
     return report
+
+
+def _stripe_join(csr, tau: float, device, chunk_dim: int, panel_res) -> Dict:
+    """The same corpus through the stripe join (a second engine with
+    ``pallas_int8=False``): the third join's seconds and stage split, the
+    stripe geometry, and parity with the panel join's pair set."""
+    eng = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), device,
+                          chunk_dim=chunk_dim)
+    eng.build(csr)
+    eng.all_pairs(tau)
+    eng.all_pairs(tau)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = dict(eng.timer.totals)
+    counts0 = dict(eng.timer.counts)
+    t0 = time.perf_counter()
+    res = eng.all_pairs(tau)
+    join_s = time.perf_counter() - t0
+    st = eng._q_super()
+    return {
+        "join_seconds": join_s,
+        "pairs": res.n_pairs,
+        "parity": res.pair_set() == panel_res.pair_set(),
+        "super_tile": st,
+        "stripes": -(-eng.n_rows // st),
+        "densify_passes": eng.timer.counts.get("slabs", 0)
+        - counts0.get("slabs", 0),
+        "stages_s": {k: v - before.get(k, 0.0)
+                     for k, v in eng.timer.totals.items() if k != "all_pairs"},
+        "memory": _memory(device),
+    }
 
 
 def main(argv=None) -> None:
     args = list(sys.argv[1:] if argv is None else argv)
-    if "--stripes" in args:
-        raise _not_ported("--stripes (the XLA stripe join)", "item A")
     if "--stream" in args or "--stream-only" in args:
         raise _not_ported("--stream (chunked streaming inserts)", "item B")
     if not torch.cuda.is_available():
         raise SystemExit("apsim_tpu_torch.bench.ooc needs a CUDA device")
     prof = "--profile" in args
+    stripes = "--stripes" in args
     sizes = [int(a) for a in args if not a.startswith("-")] or [100_000]
     out = {}
     for n in sizes:
-        out[str(n)] = run_ooc(n, device="cuda", profile=prof)
+        out[str(n)] = run_ooc(n, device="cuda", profile=prof,
+                              compare_stripes=stripes)
         json.dump(out[str(n)], sys.stderr, indent=1)
         print(file=sys.stderr, flush=True)
     json.dump(out, sys.stdout, indent=2)

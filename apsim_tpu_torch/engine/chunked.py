@@ -21,10 +21,17 @@ panel pairs.  In-flight slabs are bounded by dropping references: torch's
 stream-ordered allocator reuses a slab's memory only after the kernels
 queued on it.
 
+A configuration the panel kernels refuse (``pallas_int8=False``,
+``use_pallas="off"``, a ``panel_rows`` they do not tile, a tripped int32
+gate) takes the stripe join (``ops/chunked.chunked_stripe_extract``): one
+``super_tile``-wide query stripe at a time against per-chunk slabs, bf16 by
+default, fp32 at ``matmul_precision="highest"``, int8 through kernel 4 when
+``_int8_stripes`` is set.
+
 ``load`` reads the JAX package's checkpoints: a chunked-flavor checkpoint's
 ``chunk_*`` arrays are placed as they are, any other is rebuilt from its CSR
-shadow.  The XLA stripe join, ``insert``, ``topk``, ``freeze`` and ``save``
-are not ported yet and raise ``NotImplementedError``.
+shadow.  ``insert``, ``topk``, ``freeze`` and ``save`` are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ INT8_NNZ_GATE = (1 << 30) // (127 * 127)
 class ChunkedAllPairs:
     def __init__(self, config: AllPairsConfig | None = None,
                  device: torch.device | str = "cuda", chunk_dim: int = 2048,
+                 super_tile: int | None = None,
                  panel_rows: int | None = None):
         self.cfg = config or AllPairsConfig()
         self.device = torch.device(device)
@@ -69,6 +77,11 @@ class ChunkedAllPairs:
         self.chunk_dim = int(chunk_dim)
         # panel-join row-block override (tests / tuning); None = cost model
         self.panel_rows = None if panel_rows is None else int(panel_rows)
+        # query-stripe width of the stripe join: wide stripes amortize the
+        # per-chunk slab densify over more query columns; sized by
+        # ``_q_super`` unless overridden here
+        self.super_tile = None if super_tile is None else int(super_tile)
+        self._q8_cache = None  # (key, (q2d, aux)) of the int8 stripes
         self._ent = None  # device (rows2d, cols2d, vals2d) [n_chunks, cap]
         self._ent_host = None  # host mirror of _ent (checkpoint layout)
         self._counts = None  # np int64 [n_chunks]
@@ -215,6 +228,105 @@ class ChunkedAllPairs:
         self._panel_geom_cache = None
         self._panel_state_cache = None
         self._compact_rescore_cache = None
+        self._q8_cache = None
+
+    # ------------------------------------------------------------ stripe join
+    # accumulator budget of the automatic stripe width (bytes): carried
+    # over from the JAX package, where it was sized for a TPU v5e; still
+    # to recalibrate on the H100
+    _stripe_acc_budget = 6 << 30
+    # int8 stripes (int8 slabs, kernel 4, int32 accumulator): opt-in; set
+    # the attribute True.  Times on the H100 in PERF.md.  An instance also
+    # demotes itself when the int32-accumulator gate trips.
+    _int8_stripes = False
+
+    def _q_super(self) -> int:
+        """Stripe width: the widest power of two, from 1,024 to 8,192,
+        whose fp32 accumulator (row_cap x stripe) stays under
+        ``_stripe_acc_budget``, clamped to the row capacity (a power of two
+        at most 8,192 always divides ``row_cap``), from the current row
+        count at every call."""
+        if self.super_tile is not None:
+            # round DOWN to a power of two that DIVIDES row_cap.  Above
+            # 8,192 rows row_cap is a multiple of 8,192 but not a power of
+            # two, so a wider power of two (16,384 at row_cap 24,576) may
+            # not divide it, and a non-divisor width would score the last
+            # stripe against query rows past the slab's end while the
+            # epilogue still labels its columns q0 + i: the pairs of those
+            # rows would be lost silently
+            st = 1
+            while st * 2 <= self.super_tile:
+                st *= 2
+            st = min(st, self.row_cap)
+            while self.row_cap % st:
+                st //= 2
+            return st
+        padded = round_up(max(self.n_rows, 1), 8192)
+        budget = self._stripe_acc_budget // (4 * padded)
+        st = 1024
+        while st * 2 <= min(budget, 8192):
+            st *= 2
+        return min(st, self.row_cap)
+
+    def _quantize_entries(self):
+        """``(q2d, aux, max_nnz)`` of the current entry buffers (the mesh
+        subclass assembles the per-row maxima and sums across shards)."""
+        return chunked_ops.quantize_chunk_entries(
+            self._ent[0], self._ent[2], self.row_cap
+        )
+
+    def _ent_key(self):
+        """Identity and version of the values buffer the int8 cache was
+        quantized from (a tensor updated in place keeps its identity)."""
+        v = self._ent[2]
+        return (id(v), v._version)
+
+    def _int8_slabs(self):
+        """Cached ``(q2d int8, aux)`` for the int8 stripes, quantized on
+        the device from the current entry buffers; None when int8 stripes
+        are off or the int32-accumulator gate refuses them."""
+        if not (self._int8_stripes and self.cfg.pallas_int8):
+            return None
+        key = self._ent_key()
+        cached = self._q8_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        q2d, aux, max_nnz = self._quantize_entries()
+        if max_nnz >= INT8_NNZ_GATE:
+            self._int8_stripes = False  # shadow the class flag
+            self._q8_cache = None
+            return None
+        self._q8_cache = (key, (q2d, aux))
+        return self._q8_cache[1]
+
+    def _op_stripe(self, q0: int, tau_eff, super_tile: int):
+        """Device candidates ``(rows, cols)`` of the query stripe at
+        ``q0``."""
+        q8 = self._int8_slabs()
+        if q8 is not None:
+            q2d, aux = q8
+            return chunked_ops.chunked_stripe_extract_int8(
+                self._ent[0], self._ent[1], q2d, self._counts, aux, q0,
+                tau_eff, self.row_cap, self._chunk_width, super_tile,
+                timer=self.timer,
+            )
+        return chunked_ops.chunked_stripe_extract(
+            *self._ent, self._counts, q0, tau_eff, self.row_cap,
+            self._chunk_width, super_tile, self.cfg.matmul_precision,
+            timer=self.timer,
+        )
+
+    def _all_pairs_stripes(self, tau_eff):
+        """The stripe join: host (rows, cols) candidate arrays.  A host
+        loop over the query stripes; each stripe's lists have exact length,
+        so there are no caps to grow and nothing to retry."""
+        super_tile = self._q_super()
+        found = [self._op_stripe(q0, tau_eff, super_tile)
+                 for q0 in range(0, self.n_rows, super_tile)]
+        ts.check_pair_count(sum(int(r.numel()) for r, _ in found))
+        with self._stage("d2h"):
+            return (torch.cat([r for r, _ in found]).cpu().numpy(),
+                    torch.cat([c for _, c in found]).cpu().numpy())
 
     # ------------------------------------------------------------- panel join
     # cost-model calibration, carried over from the JAX package (measured
@@ -450,13 +562,8 @@ class ChunkedAllPairs:
         with self.timer.section("all_pairs"):
             tau_eff = self._tau_eff(tau)
             pairs = self._all_pairs_panel(tau_eff) if self._panel_ok() else None
-            if pairs is None:
-                raise _not_ported(
-                    "the XLA stripe join of the chunked engine "
-                    "(use_pallas='off', pallas_int8=False, a panel geometry "
-                    "the kernel does not tile, or max row nnz at the int8 "
-                    "gate)", "item A",
-                )
+            if pairs is None:  # refused by configuration, geometry or gate
+                pairs = self._all_pairs_stripes(tau_eff)
             return self._rescore_pairs(pairs[0], pairs[1], tau)
 
     def _rescore_pairs(self, i, j, tau: float) -> PairResult:

@@ -12,9 +12,12 @@ One object holds:
 ``build`` fills the index; ``all_pairs`` is the exact thresholded cosine
 join: a kernel pass over the upper-triangle blocks keeps a proven candidate
 superset at ``tau_eff`` and the host fp64 rescore makes the emitted pair set
-equal the fp64 brute-force oracle.  ``load`` reads the JAX package's
-``index.npz`` checkpoints.  Streaming ``insert``, ``topk``, ``freeze`` and
-``save`` are not ported yet and raise ``NotImplementedError``.
+equal the fp64 brute-force oracle.  An index the kernels refuse
+(``use_pallas="off"``, ``matmul_precision="highest"``, capacities they do
+not tile) takes the full-rectangle join of ``ops/score.allpairs_extract``.
+``load`` reads the JAX package's ``index.npz`` checkpoints.  Streaming
+``insert``, ``topk``, ``freeze`` and ``save`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -275,10 +278,12 @@ class Engine:
 
     @staticmethod
     def _scatter_rows(x: torch.Tensor, compact_csr: CSRMatrix,
-                      row0: int = 0) -> None:
-        """Chunked flat-COO scatter of compact CSR rows ``[row0, row0 +
-        len(x))`` into the fresh device matrix ``x``: one O(nnz) packed H2D
-        copy and one in-place scatter per ~4M-entry chunk."""
+                      row0: int = 0, col0: int = 0) -> None:
+        """Chunked flat-COO scatter of the block of the compact CSR that
+        starts at ``(row0, col0)`` and has ``x``'s shape into the fresh
+        device matrix ``x``: one O(nnz) packed H2D copy and one in-place
+        scatter per ~4M-entry chunk.  (The mesh engine's blocks; the whole
+        index is the block at (0, 0).)"""
         ip = compact_csr.indptr
         r0 = min(row0, compact_csr.n_rows)
         r1 = min(row0 + x.shape[0], compact_csr.n_rows)
@@ -287,14 +292,18 @@ class Engine:
             np.arange(r1 - r0, dtype=np.int64), np.diff(ip[r0:r1 + 1])
         )
         nnz = rows_all.size
+        whole_width = col0 == 0 and x.shape[1] >= compact_csr.n_cols
         chunk = 1 << 22  # ~48 MB of packed COO per copy
         for s in range(0, nnz, chunk):
             e = min(s + chunk, nnz)
-            coo = pack_coo_i32(
-                rows_all[s:e], compact_csr.indices[base + s:base + e],
-                compact_csr.data[base + s:base + e], x.shape[0],
-            )
-            score_ops.scatter_coo(x, coo)
+            rows = rows_all[s:e]
+            cols = compact_csr.indices[base + s:base + e]
+            vals = compact_csr.data[base + s:base + e]
+            if not whole_width:
+                own = (cols >= col0) & (cols < col0 + x.shape[1])
+                rows, cols, vals = rows[own], cols[own] - col0, vals[own]
+            score_ops.scatter_coo(x, pack_coo_i32(rows, cols, vals,
+                                                  x.shape[0]))
 
     def _append_shadow(self, csr: CSRMatrix) -> None:
         nnz = int(csr.indptr[-1])
@@ -379,14 +388,13 @@ class Engine:
 
     def _all_pairs_timed(self, tau: float) -> PairResult:
         tau_eff = self._tau_eff(tau)
-        if not self._kernel_ok():
-            raise _not_ported(
-                "the XLA-style full-rectangle join (use_pallas='off', "
-                "matmul_precision='highest', or an index the kernels do not "
-                "tile)", "item A",
-            )
         with self.timer.section("score_extract"):
-            i, j = self._all_pairs_kernel(tau_eff)
+            if self._kernel_ok():
+                i, j = self._all_pairs_kernel(tau_eff)
+            else:
+                # full rectangle: the demotion check must not act on it
+                self._used_int8 = False
+                i, j = self._all_pairs_rect(tau_eff)
         self.stats["candidates_scored"] += self.n_rows * self.n_rows
         self.stats["candidate_pairs"] += len(i)
         with self.timer.section("rescore"):
@@ -471,6 +479,27 @@ class Engine:
             rows, cols = tri_score.allpairs_extract_bf16(
                 ops, bi, bj, tau_eff, tm, tn, timer=self.timer
             )
+        with self.timer.section("d2h"):
+            return rows.cpu().numpy(), cols.cpu().numpy()
+
+    def _rect_operand(self) -> torch.Tensor:
+        """The index as the rectangle multiplies it: the cached bf16 copy
+        on the card at the default precision, else the index itself
+        (``score.score_operand``'s rule, cached per index state)."""
+        if score_ops.rounds_to_bf16(self.x, self.cfg.matmul_precision):
+            return self._operands(False)
+        return self.x
+
+    def _all_pairs_rect(self, tau_eff) -> Tuple[np.ndarray, np.ndarray]:
+        """Candidates of the full-rectangle join (``score.allpairs_extract``,
+        ``mode="upper"``): every index the kernels refuse."""
+        with self.timer.section("operands"):
+            xo = self._rect_operand()
+            self._sync()
+        rows, cols = score_ops.allpairs_extract(
+            xo, tau_eff, self._tile(), "upper", self.cfg.matmul_precision,
+            int(self.cfg.extract_group), timer=self.timer,
+        )
         with self.timer.section("d2h"):
             return rows.cpu().numpy(), cols.cpu().numpy()
 

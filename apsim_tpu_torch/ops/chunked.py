@@ -11,8 +11,16 @@ the pad row ``2^30``, which no slab reaches.
 The host bucketing (``split_chunks``, ``bucket_entries``,
 ``bucket_split_entries``) is a copy of the JAX package's; the per-row int8
 quantization of the entries (``quantize_chunk_entries``) is torch and runs on
-the buffers' device.  The stripe, match and top-k ops of the JAX module serve
-paths that are not ported yet.
+the buffers' device.
+
+The stripe join (``chunked_stripe_extract``, ``chunked_stripe_extract_int8``)
+is the fallback of every configuration the panel kernels refuse: one
+``super_tile``-wide query stripe at a time, each chunk densified into a
+``[row_cap, chunk_dim]`` slab (``densify_chunk``) and multiplied with its own
+query rows into a ``[row_cap, super_tile]`` accumulator, then one
+threshold + bit-pack epilogue in row chunks and the exact-length compaction
+of ``tri_score.compact_bits``.  The match and top-k ops of the JAX module
+serve paths that are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,11 +28,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import panel as panel_ops
+from . import score as score_ops
+from . import tri_score as ts
+
 __all__ = [
     "split_chunks",
     "bucket_entries",
     "bucket_split_entries",
     "quantize_chunk_entries",
+    "densify_chunk",
+    "stripe_query_rows",
+    "stripe_scores",
+    "stripe_dots_int8",
+    "join_epilogue_bits",
+    "int8_join_epilogue",
+    "chunked_stripe_extract",
+    "chunked_stripe_extract_int8",
 ]
 
 
@@ -115,3 +135,200 @@ def quantize_chunk_entries(rows2d: torch.Tensor, vals2d: torch.Tensor,
     aux = torch.stack([alpha, alpha * l1q, nnz])
     max_nnz = int(nnz.max()) if row_cap else 0
     return q.reshape(rows2d.shape), aux, max_nnz
+
+
+# ------------------------------------------------------------- stripe join
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:  # each stage of the split holds its own device time
+        torch.cuda.synchronize(t.device)
+
+
+def densify_chunk(rows2d, cols2d, vals2d, counts, c: int, cap_rows: int,
+                  chunk_dim: int, dtype=torch.float32):
+    """One ``[cap_rows, chunk_dim]`` slab of ``dtype`` from chunk ``c``'s
+    entry buffer (``apsim_tpu/ops/chunked.py:_densify_chunk``).
+
+    A scatter **set**: the entries of a chunk are unique (one per (row,
+    external dim), and the interleaved local mapping is injective within a
+    chunk), so an assignment into zeros in the target dtype rounds each
+    value once and equals the JAX scatter.  Slots at ``pos >= counts[c]``
+    and pad rows (``row >= cap_rows``) are filtered first, since
+    ``index_put_`` has no drop mode.  ``counts`` may be a host array (no
+    device read) or a tensor.  ``chunk_dim`` may exceed the largest local
+    dim (the int8 stripes pad it to the kernel's K quantum)."""
+    k = int(counts[c])
+    r = rows2d[c, :k]
+    ok = r < cap_rows
+    slab = torch.zeros((cap_rows, chunk_dim), dtype=dtype,
+                       device=rows2d.device)
+    slab.index_put_(
+        (r[ok].long(), cols2d[c, :k][ok].long()), vals2d[c, :k][ok].to(dtype)
+    )
+    return slab
+
+
+def stripe_query_rows(slab, q0: int, super_tile: int, quantum: int = 1):
+    """The stripe's query rows ``slab[q0:q0 + super_tile]``: a view, or,
+    where ``super_tile`` is not a multiple of ``quantum``, a zero-padded
+    copy of the next multiple (zero rows add zero dots, which the caller
+    slices away)."""
+    q = slab[q0:q0 + super_tile]
+    pad = -super_tile % quantum
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, slab.shape[1]))])
+    return q
+
+
+def stripe_scores(rows2d, cols2d, vals2d, counts, q0: int, row_cap: int,
+                  chunk_dim: int, super_tile: int, precision: str = "default",
+                  timer=None):
+    """fp32 scores ``[row_cap, super_tile]`` of one query stripe: the sum
+    over the buffers' chunks of ``slab @ slab[q0:q0 + super_tile]^T``.
+
+    Slabs are bf16 unless ``precision == "highest"`` (fp32), on either
+    device: the values round to bf16 once, as in the JAX package.  Every
+    product is ``score.score_tile``: fp32 accumulation and an fp32 result
+    (a true fp32 product at ``"highest"``), so only operand rounding enters
+    the 2e-2 margin.  Stages "slabs" (densify) and "kernel" (product and
+    accumulate)."""
+    sdt = torch.float32 if precision == "highest" else torch.bfloat16
+    acc = None
+    for c in range(rows2d.shape[0]):
+        with ts._section(timer, "slabs"):
+            slab = densify_chunk(rows2d, cols2d, vals2d, counts, c, row_cap,
+                                 chunk_dim, sdt)
+            _sync(slab)
+        with ts._section(timer, "kernel"):
+            part = score_ops.score_tile(
+                slab, stripe_query_rows(slab, q0, super_tile), precision)
+            acc = part if acc is None else acc.add_(part)
+            del part, slab
+            _sync(acc)
+    if acc is None:
+        acc = torch.zeros((row_cap, super_tile), dtype=torch.float32,
+                          device=rows2d.device)
+    return acc
+
+
+def stripe_dots_int8(rows2d, cols2d, q2d, counts, q0: int, row_cap: int,
+                     chunk_dim: int, super_tile: int, timer=None):
+    """Exact int32 dots ``[row_cap, super_tile]`` of one query stripe over
+    int8 slabs: per chunk one ``panel_mesh.int8_matmul`` (kernel 4 on the
+    card, its plain version on the CPU), summed in int32.
+
+    Kernel 4 takes ``m % 64``, ``n % 128``, ``d % 128`` and 16-byte-aligned
+    operands, met here by a stated rule: the slab's width is padded with
+    zero columns to a multiple of 128 (they add nothing to an integer
+    dot, and row starts stay 16-byte aligned), the query rows are a row
+    slice of the slab, zero-padded to a multiple of 128 rows where
+    ``super_tile`` is not one (the extra columns of the product are sliced
+    away), and a ``row_cap`` that is not a multiple of 64 is refused."""
+    # ops/panel_mesh.py imports the mesh collectives, and through them the
+    # engines that import this module: bind kernel 4 at call time
+    from .panel_mesh import MM_TM, MM_TN, int8_matmul
+
+    if row_cap % MM_TM:
+        raise ValueError(
+            f"int8 stripes need row_cap % {MM_TM} == 0 (kernel 4's row "
+            f"quantum), got {row_cap}"
+        )
+    width = -(-chunk_dim // ts.K_QUANTUM) * ts.K_QUANTUM
+    acc = None
+    for c in range(rows2d.shape[0]):
+        with ts._section(timer, "slabs"):
+            slab = densify_chunk(rows2d, cols2d, q2d, counts, c, row_cap,
+                                 width, torch.int8)
+            _sync(slab)
+        with ts._section(timer, "kernel"):
+            part = int8_matmul(
+                slab, stripe_query_rows(slab, q0, super_tile, MM_TN)
+            )[:, :super_tile]
+            acc = part if acc is None else acc.add_(part)
+            del part, slab
+            _sync(acc)
+    if acc is None:
+        acc = torch.zeros((row_cap, super_tile), dtype=torch.int32,
+                          device=rows2d.device)
+    return acc
+
+
+def _epilogue_bits(mask_of, row_cap: int, tile: int, q0: int, device,
+                   timer=None):
+    """Shared single-block tail of the stripe epilogues: bit-pack the hit
+    mask ``row_cap / 8`` x ``tile`` in row chunks (``mask_of(r0, r1)``
+    makes rows ``[r0, r1)``, so no temporary spans the stripe), then the
+    exact-length ``tri_score.compact_bits`` on one ``(row_cap, tile)``
+    block with ``bi = [0]`` and ``bj = [q0 // tile]`` (rows are global,
+    stripes are tile-aligned).  Counts are int64: a stripe may pass 2^31
+    cells.  Stages "epilogue" and "compact"."""
+    with ts._section(timer, "epilogue"):
+        gb, g64, cnt = ts.bitpack_row_chunks(
+            mask_of, row_cap, tile, ts.epilogue_rows(row_cap, tile), device)
+        _sync(gb)
+    with ts._section(timer, "compact"):
+        bi = torch.zeros(1, dtype=torch.int32, device=device)
+        bj = torch.full((1,), q0 // tile, dtype=torch.int32, device=device)
+        return ts.compact_bits(gb, g64, cnt, bi, bj, row_cap, tile)
+
+
+def join_epilogue_bits(s, q0: int, tau_eff, timer=None):
+    """Candidates ``(rows, cols)`` (device int64, exact length) of one fp32
+    score stripe ``s [row_cap, tile]``: ``s >= tau_eff`` in the strict
+    upper triangle (``row < q0 + col``)."""
+    row_cap, tile = s.shape
+    tau_eff = float(tau_eff)
+    cols = q0 + torch.arange(tile, device=s.device)
+
+    def mask_of(r0: int, r1: int):
+        rows = torch.arange(r0, r1, device=s.device)
+        return (s[r0:r1] >= tau_eff) & (rows[:, None] < cols[None, :])
+
+    return _epilogue_bits(mask_of, row_cap, tile, q0, s.device, timer)
+
+
+def int8_join_epilogue(d, aux, q0: int, tau_eff, timer=None):
+    """Candidates of one exact int32 dot stripe ``d [row_cap, tile]``: the
+    per-pair quantization bound and the strict-upper mask on global rows
+    and columns, ONE definition (``panel.int8_bound_mask``), with ``aux``
+    the f32 ``[3, row_cap]`` table and its columns ``[q0, q0 + tile)`` for
+    the query side.  Used by the single-device int8 stripes and by the
+    mesh's (where ``d`` is the exact sum of the shards' partial dots)."""
+    row_cap, tile = d.shape
+    tau_eff = float(tau_eff)
+    aux_j = aux[:, q0:q0 + tile]
+    cols = q0 + torch.arange(tile, device=d.device)
+
+    def mask_of(r0: int, r1: int):
+        rows = torch.arange(r0, r1, device=d.device)
+        return panel_ops.int8_bound_mask(
+            d[r0:r1], aux[:, r0:r1], aux_j, rows[:, None], cols[None, :],
+            tau_eff,
+        )
+
+    return _epilogue_bits(mask_of, row_cap, tile, q0, d.device, timer)
+
+
+def chunked_stripe_extract(rows2d, cols2d, vals2d, counts, q0: int, tau_eff,
+                           row_cap: int, chunk_dim: int, super_tile: int,
+                           precision: str = "default", timer=None):
+    """Candidates of one ``super_tile``-wide query stripe of the
+    upper-triangle join over chunked COO entries
+    (``apsim_tpu/ops/chunked.py:chunked_stripe_extract`` without caps and
+    head): ``stripe_scores`` then ``join_epilogue_bits``."""
+    s = stripe_scores(rows2d, cols2d, vals2d, counts, q0, row_cap, chunk_dim,
+                      super_tile, precision, timer)
+    return join_epilogue_bits(s, q0, tau_eff, timer)
+
+
+def chunked_stripe_extract_int8(rows2d, cols2d, q2d, counts, aux, q0: int,
+                                tau_eff, row_cap: int, chunk_dim: int,
+                                super_tile: int, timer=None):
+    """int8 variant: int8 slabs from ``quantize_chunk_entries``' ``q2d``,
+    exact int32 accumulation through kernel 4 (``stripe_dots_int8``), the
+    per-pair quantization bound in the epilogue (``int8_join_epilogue``;
+    the dense int8 kernel's proof)."""
+    d = stripe_dots_int8(rows2d, cols2d, q2d, counts, q0, row_cap, chunk_dim,
+                         super_tile, timer)
+    return int8_join_epilogue(d, aux, q0, tau_eff, timer)

@@ -30,6 +30,7 @@ from . import tri_score as ts
 __all__ = [
     "int8_matmul",
     "int8_matmul_plain",
+    "mesh_quantize_entries",
     "mesh_panel_state",
     "mesh_build_panel_slab",
     "mesh_panel_pair",
@@ -37,7 +38,7 @@ __all__ = [
 ]
 
 MM_TM, MM_TN = ts.THREAD_BLOCK_TILES[-1]  # kernel 4's smallest thread-block tile
-EPILOGUE_CELLS = 1 << 23  # rectangle cells per epilogue chunk
+EPILOGUE_CELLS = ts.EPILOGUE_CELLS  # rectangle cells per epilogue chunk
 
 
 def _check_mm(xi: torch.Tensor, xj: torch.Tensor) -> None:
@@ -99,45 +100,31 @@ def int8_matmul_plain(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
-                     cols2d, vals2d, counts):
-    """Per-shard join state from the per-shard entry buffers (lists of
-    ``[n_local, cap]`` tensors and ``[n_local]`` counts, one per shard).
+def mesh_quantize_entries(mesh, flat_r, flat_v, row_cap: int):
+    """Per-row symmetric int8 quantization of SHARDED entries
+    (``apsim_tpu/ops/chunked_mesh.py:mesh_quantize_chunk_entries``):
+    ``flat_r`` / ``flat_v`` hold each shard's flat row ids and fp32 values
+    on its device; unused slots carry a row ``>= row_cap``.
 
-    Returns ``(r_s, c_s, q_s, pcounts, aux, max_nnz)``: per shard the
-    entries sorted by row (stable), their SLAB-LOCAL columns
-    (``local_dim · n_local + local_chunk``, a bijection onto
-    ``[0, d_cap / n_shards)``), their int8 values and the int32 per-panel
-    counts (last bucket: unused slots); ``aux`` the global f32
-    ``[3, row_cap]`` (α, α·L1(q), nnz) on the lead device; ``max_nnz`` an
-    int.  A row's entries are split over the shards, so its maximum comes
-    from ``pmax`` and its L1 and nnz from ``psum``.  Bit-identical to the
-    JAX function: the pad row 2^30 is filtered out of the scatters (torch
-    has no drop mode), and ``mx / 127.0`` is a multiply by the fp32
-    reciprocal, as XLA compiles it."""
+    Returns ``(q, aux, max_nnz)``: per shard the int8 values in the same
+    order, ``aux`` the global f32 ``[3, row_cap]`` (α, α·L1(q), nnz) on the
+    lead device, ``max_nnz`` an int.  A row's entries are split over the
+    shards, so its maximum comes from ``pmax`` and its L1 and nnz from
+    ``psum``.  Bit-identical to the JAX function: rows out of range are
+    filtered out of the scatters (torch has no drop mode), and
+    ``mx / 127.0`` is a multiply by the fp32 reciprocal, as XLA compiles
+    it.  All-zero rows get α = 0."""
     lead = mesh.devices[0]
-    n_sh = len(rows2d)
-    flat_r, flat_v, live = [], [], []
+    live = [r < row_cap for r in flat_r]
     mxs = []
-    for s in range(n_sh):
-        dev = rows2d[s].device
-        cap = rows2d[s].shape[1]
-        pos = torch.arange(cap, dtype=torch.int32, device=dev)
-        valid = pos[None, :] < counts[s].to(torch.int32)[:, None]
-        r = torch.where(valid, rows2d[s], panel_ops.PAD_ROW).reshape(-1)
-        v = torch.where(valid, vals2d[s], 0.0).reshape(-1)
-        ok = r < row_cap
-        mx = torch.zeros(row_cap, dtype=torch.float32, device=dev)
+    for r, v, ok in zip(flat_r, flat_v, live):
+        mx = torch.zeros(row_cap, dtype=torch.float32, device=r.device)
         mx.scatter_reduce_(0, r[ok].long(), v[ok].abs(), reduce="amax")
-        flat_r.append(r)
-        flat_v.append(v)
-        live.append(ok)
         mxs.append(mx)
     mx = pmax(mxs, lead)
     alpha = torch.where(mx > 0, mx * (1.0 / 127.0), 0.0).to(torch.float32)
-    r_s, c_s, q_s, pcounts, l1qs, nnzs = [], [], [], [], [], []
-    for s in range(n_sh):
-        r, v, ok = flat_r[s], flat_v[s], live[s]
+    qs, l1qs, nnzs = [], [], []
+    for r, v, ok in zip(flat_r, flat_v, live):
         dev = r.device
         a_e = alpha.to(dev)[r.clamp(max=row_cap - 1).long()]
         div = torch.where(a_e > 0, a_e, 1.0)
@@ -147,6 +134,40 @@ def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
                     .index_add_(0, r_live, q[ok].abs().to(torch.float32)))
         nnzs.append(torch.zeros(row_cap, dtype=torch.float32, device=dev)
                     .index_add_(0, r_live, (v[ok] != 0).to(torch.float32)))
+        qs.append(q)
+    l1q = psum(l1qs, lead)
+    nnz = psum(nnzs, lead)
+    aux = torch.stack([alpha, alpha * l1q, nnz])
+    max_nnz = int(nnz.max()) if row_cap else 0
+    return qs, aux, max_nnz
+
+
+def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
+                     cols2d, vals2d, counts):
+    """Per-shard join state from the per-shard entry buffers (lists of
+    ``[n_local, cap]`` tensors and ``[n_local]`` counts, one per shard).
+
+    Returns ``(r_s, c_s, q_s, pcounts, aux, max_nnz)``: per shard the
+    entries sorted by row (stable), their SLAB-LOCAL columns
+    (``local_dim · n_local + local_chunk``, a bijection onto
+    ``[0, d_cap / n_shards)``), their int8 values and the int32 per-panel
+    counts (last bucket: unused slots); ``aux`` and ``max_nnz`` from
+    ``mesh_quantize_entries`` over the slots below each chunk's count."""
+    n_sh = len(rows2d)
+    flat_r, flat_v = [], []
+    for s in range(n_sh):
+        dev = rows2d[s].device
+        cap = rows2d[s].shape[1]
+        pos = torch.arange(cap, dtype=torch.int32, device=dev)
+        valid = pos[None, :] < counts[s].to(torch.int32)[:, None]
+        flat_r.append(
+            torch.where(valid, rows2d[s], panel_ops.PAD_ROW).reshape(-1))
+        flat_v.append(torch.where(valid, vals2d[s], 0.0).reshape(-1))
+    qs, aux, max_nnz = mesh_quantize_entries(mesh, flat_r, flat_v, row_cap)
+    r_s, c_s, q_s, pcounts = [], [], [], []
+    for s in range(n_sh):
+        r, q = flat_r[s], qs[s]
+        dev = r.device
         n_local = rows2d[s].shape[0]
         chunk_of = torch.arange(n_local, dtype=torch.int32, device=dev)
         c_slab = (cols2d[s] * n_local + chunk_of[:, None]).reshape(-1)
@@ -158,10 +179,6 @@ def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
         pan = torch.clamp(rs // rb, max=n_panels).long()
         pcounts.append(
             torch.bincount(pan, minlength=n_panels + 1).to(torch.int32))
-    l1q = psum(l1qs, lead)
-    nnz = psum(nnzs, lead)
-    aux = torch.stack([alpha, alpha * l1q, nnz])
-    max_nnz = int(nnz.max()) if row_cap else 0
     return r_s, c_s, q_s, pcounts, aux, max_nnz
 
 
@@ -182,8 +199,7 @@ def mesh_build_panel_slab(r_s, c_s, q_s, starts, p: int, rb: int,
 def _epilogue_rows(rb: int) -> int:
     """Rows per epilogue chunk: a multiple of 64 (whole super-groups) that
     keeps the chunk's f32 temporaries near ``EPILOGUE_CELLS`` cells."""
-    rows = max(ts.SUPER, EPILOGUE_CELLS // max(rb, 1) // ts.SUPER * ts.SUPER)
-    return min(rows, rb)
+    return ts.epilogue_rows(rb, rb, EPILOGUE_CELLS)
 
 
 def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
@@ -212,25 +228,18 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
         del parts
         sync([lead])
     with ts._section(timer, "epilogue"):
-        gb = torch.empty((1, rb // ts.GROUP, rb), dtype=torch.uint8,
-                         device=lead)
-        g64 = torch.empty((1, rb // ts.SUPER, rb), dtype=torch.uint8,
-                          device=lead)
-        cnt = torch.zeros((1, 3), dtype=torch.int64, device=lead)
         cols = col0 + torch.arange(rb, dtype=torch.int64, device=lead)
-        step = _epilogue_rows(rb)
-        for r0 in range(0, rb, step):
-            r1 = min(r0 + step, rb)
+
+        def mask_of(r0: int, r1: int):
             rows = row0 + torch.arange(r0, r1, dtype=torch.int64,
                                        device=lead)
-            mi = panel_ops.int8_bound_mask(
+            return panel_ops.int8_bound_mask(
                 d[r0:r1], aux_i[:, r0:r1], aux_j, rows[:, None],
                 cols[None, :], tau_eff,
             )
-            b, b64, c = ts.bitpack_mask(mi[None])
-            gb[:, r0 // ts.GROUP:r1 // ts.GROUP] = b
-            g64[:, r0 // ts.SUPER:r1 // ts.SUPER] = b64
-            cnt += c
+
+        gb, g64, cnt = ts.bitpack_row_chunks(
+            mask_of, rb, rb, _epilogue_rows(rb), lead)
         del d
         sync([lead])
     with ts._section(timer, "compact"):

@@ -4,14 +4,29 @@
 The index is a dense ``[row_cap, dim_cap]`` matrix over compact columns (see
 ``index/compact.py``) that lives on an explicit device.  Sparse rows reach it
 as the flat packed COO of ``vector.batch.pack_coo_i32``.
+
+``allpairs_extract`` is the full-rectangle join: the path of every index
+the upper-triangle kernels refuse (``use_pallas="off"``,
+``matmul_precision="highest"``, an untiled or oversized index).  Its score
+tiles are **fp32** whatever the operands (``score_tile``): the engine's
+margins (``Engine._margin_rel``) count operand rounding and fp32
+accumulation, never a rounded score.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["new_index_matrix", "scatter_coo", "capb_for", "MIN_TAU_EFF"]
+from . import tri_score as ts
+
+__all__ = [
+    "new_index_matrix", "scatter_coo", "capb_for", "MIN_TAU_EFF",
+    "true_fp32_matmul", "rounds_to_bf16", "score_operand", "score_tile",
+    "upper_buckets", "allpairs_extract",
+]
 
 # floor for the device threshold: keeps all-zero (padded/invalid) rows out of
 # the candidate set without any index arithmetic in the score epilogue
@@ -48,3 +63,145 @@ def scatter_coo(x: torch.Tensor, coo: np.ndarray) -> torch.Tensor:
     vals = c[2][keep].view(torch.float32).to(x.dtype)
     x.index_put_((rows, cols), vals)
     return x
+
+
+# ------------------------------------------------------ full-rectangle join
+
+
+@contextlib.contextmanager
+def true_fp32_matmul():
+    """fp32 CUDA matmuls inside this block are true fp32 products: TF32 is
+    switched off through ``torch.backends.cuda.matmul.allow_tf32`` and the
+    process-wide setting is put back as it was found, also when the block
+    raises.  (TF32 rounds the operands to 10 mantissa bits; the ``highest``
+    margin, ``(max_nnz + 2) * 2^-24``, is a proof only for fp32 operands.)
+
+    ``torch.set_float32_matmul_precision`` drives the same flag with three
+    levels, so where TF32 was on the level is read first and set again at
+    the end ("medium" would otherwise come back as "high").  torch refuses
+    to report the level to a process that has mixed its two precision APIs;
+    there only the flag is restored."""
+    mm = torch.backends.cuda.matmul
+    was = bool(mm.allow_tf32)
+    level = None
+    if was:
+        try:
+            level = torch.get_float32_matmul_precision()
+        except RuntimeError:
+            level = None
+        mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if was and level is not None:
+            torch.set_float32_matmul_precision(level)
+        elif was:
+            mm.allow_tf32 = True
+
+
+def rounds_to_bf16(x: torch.Tensor, precision: str) -> bool:
+    """Does ``score_tile`` multiply a bf16 copy of ``x``?  Only an fp32
+    tensor on a CUDA device at ``"default"``/``"high"`` precision: one
+    rounding of each operand, what the 2e-2 margin allows."""
+    return x.is_cuda and precision != "highest" and x.dtype == torch.float32
+
+
+def score_operand(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """The form in which ``score_tile`` multiplies ``x``: its bf16 copy
+    where ``rounds_to_bf16``, else ``x`` itself.  Callers that score many
+    tiles of one index convert once and cache the result."""
+    return x.to(torch.bfloat16) if rounds_to_bf16(x, precision) else x
+
+
+def score_tile(a: torch.Tensor, q: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a [m, d] @ q [n, d]^T`` as **fp32** scores ``[m, n]``.
+
+    - CPU tensors: the operands upcast to fp32 (exact for bf16) and an fp32
+      product.
+    - CUDA, bf16 operands (a bf16 index, or ``score_operand``'s copy): a
+      bf16 tensor-core product with fp32 accumulation and an fp32 result
+      (``out_dtype``); a plain bf16 ``matmul`` would round the scores to
+      bf16 too (2^-9 relative), which no margin counts.
+    - CUDA, fp32 operands: ``"highest"`` is a true fp32 product
+      (``true_fp32_matmul``); any other precision rounds the operands to
+      bf16 first (``score_operand``)."""
+    if not a.is_cuda:
+        return a.float() @ q.float().T
+    if a.dtype == torch.float32 and precision == "highest":
+        with true_fp32_matmul():
+            return a @ q.T
+    a, q = score_operand(a, precision), score_operand(q, precision)
+    return torch.mm(a, q.T, out_dtype=torch.float32)
+
+
+def upper_buckets(n_tiles: int) -> list[tuple[int, int]]:
+    """``mode="upper"``'s tile buckets ``(first tile, end tile)``: at most
+    16, near-even, the last takes the remainder; bucket ``b`` scores only
+    the rows below its end tile (the JAX package's static prefixes)."""
+    n_buckets = min(n_tiles, 16)
+    bounds = [n_tiles * b // n_buckets for b in range(n_buckets + 1)]
+    return [(bounds[b], bounds[b + 1]) for b in range(n_buckets)
+            if bounds[b] < bounds[b + 1]]
+
+
+def allpairs_extract(x: torch.Tensor, tau_eff, tile: int, mode: str = "upper",
+                     precision: str = "highest", group: int = 8, timer=None):
+    """All-pairs join over the whole index ``x [row_cap, dim_cap]``: device
+    int64 ``(rows, cols)`` of every cell with ``score >= tau_eff``, exact
+    length (``apsim_tpu/ops/score.py:allpairs_extract`` without its caps,
+    cursor and packed head).
+
+    One query tile ``x[q0:q0 + tile]`` at a time is scored against the
+    index (``score_tile``: fp32 scores) and thresholded.
+
+    mode="upper": strict upper triangle (``row < q0 + col``).  Tiles fall
+    into at most 16 buckets (``upper_buckets``); a bucket's tiles score only
+    the rows below the bucket's end, which halves the multiplies.
+    mode="all": every thresholded (row, col), self and symmetric pairs too,
+    one bucket over ``row_cap``.
+
+    Compaction is ``torch.nonzero`` on each tile's mask, which sizes itself
+    (no capacity, no retry): one host synchronization per query tile,
+    ``row_cap / tile`` a join.  ``group`` is the JAX extraction's group
+    height; exact-length compaction does not use it, but the argument and
+    its ``tile % group`` check stay so call sites read like their
+    counterparts.  ``x`` may be ``score_operand``'s cached copy.  With a
+    ``Timer`` the products are timed as "kernel", mask and ``nonzero`` as
+    "compact"."""
+    row_cap = x.shape[0]
+    if row_cap % tile:
+        # a silent floor here would drop the trailing rows as query columns
+        # — every pair involving them would vanish from a "lossless" join
+        raise ValueError(f"row_cap {row_cap} not a multiple of tile {tile}")
+    if tile % group:
+        raise ValueError(f"tile {tile} not a multiple of group {group}")
+    if mode not in ("upper", "all"):
+        raise ValueError(f"unknown mode: {mode}")
+    n_tiles = row_cap // tile
+    xo = score_operand(x, precision)
+    buckets = upper_buckets(n_tiles) if mode == "upper" else [(0, n_tiles)]
+    tau_eff = float(tau_eff)
+    col_ids = torch.arange(tile, device=x.device)
+    found, total = [], 0
+    for tb0, tb1 in buckets:
+        prefix = tb1 * tile if mode == "upper" else row_cap
+        row_ids = torch.arange(prefix, device=x.device)[:, None]
+        for t in range(tb0, tb1):
+            q0 = t * tile
+            with ts._section(timer, "kernel"):
+                s = score_tile(xo[:prefix], xo[q0:q0 + tile], precision)
+                if x.is_cuda:  # bill the product to its own stage
+                    torch.cuda.synchronize(x.device)
+            with ts._section(timer, "compact"):
+                m = s >= tau_eff
+                if mode == "upper":
+                    m &= row_ids < q0 + col_ids
+                hit = torch.nonzero(m)
+                del s, m
+            total += hit.shape[0]
+            ts.check_pair_count(total)
+            found.append((hit[:, 0], hit[:, 1] + q0))
+    if not found:
+        empty = torch.empty(0, dtype=torch.int64, device=x.device)
+        return empty, empty.clone()
+    return (torch.cat([r for r, _ in found]), torch.cat([c for _, c in found]))

@@ -45,7 +45,9 @@ __all__ = [
     "score_bits_int8", "score_bits_bf16",
     "score_bits_int8_plain", "score_bits_bf16_plain", "int8_bound_value",
     "int8_scores",
-    "bf16_scores", "bitpack_mask", "unpack_bits", "compact_bits",
+    "bf16_scores", "bitpack_mask", "epilogue_rows", "bitpack_row_chunks",
+    "unpack_bits",
+    "check_pair_count", "compact_bits",
     "allpairs_extract_int8", "allpairs_extract_bf16",
 ]
 
@@ -370,6 +372,42 @@ def bitpack_mask(mi: torch.Tensor):
     return gbi.to(torch.uint8), g64.to(torch.uint8), cnt.to(torch.int32)
 
 
+EPILOGUE_CELLS = 1 << 23  # rectangle cells per eager epilogue chunk
+
+
+def epilogue_rows(n_rows: int, n_cols: int, cells: int = EPILOGUE_CELLS) -> int:
+    """Rows per eager epilogue chunk of an ``[n_rows, n_cols]`` rectangle:
+    a multiple of 64 (whole super-groups) that keeps the chunk's f32 and
+    int32 temporaries near ``cells`` cells."""
+    rows = max(SUPER, cells // max(n_cols, 1) // SUPER * SUPER)
+    return min(rows, n_rows)
+
+
+def bitpack_row_chunks(mask_of, n_rows: int, n_cols: int, step: int, device):
+    """``bitpack_mask`` of one ``[n_rows, n_cols]`` rectangle whose hit mask
+    is made ``step`` rows at a time: ``mask_of(r0, r1)`` returns the bool
+    mask of rows ``[r0, r1)``, so neither the mask nor ``bitpack_mask``'s
+    int32 temporary ever spans the rectangle.  ``step`` and ``n_rows`` are
+    multiples of 64 (whole super-groups).  Returns ``(gb, g64, cnt)`` as one
+    block, the counts summed in int64: a rectangle of 2^31 cells cannot
+    wrap them."""
+    if step % SUPER or n_rows % SUPER:
+        raise ValueError(
+            f"rows {n_rows} and step {step} must be multiples of {SUPER}")
+    gb = torch.empty((1, n_rows // GROUP, n_cols), dtype=torch.uint8,
+                     device=device)
+    g64 = torch.empty((1, n_rows // SUPER, n_cols), dtype=torch.uint8,
+                      device=device)
+    cnt = torch.zeros((1, 3), dtype=torch.int64, device=device)
+    for r0 in range(0, n_rows, step):
+        r1 = min(r0 + step, n_rows)
+        b, b64, c = bitpack_mask(mask_of(r0, r1)[None])
+        gb[:, r0 // GROUP:r1 // GROUP] = b
+        g64[:, r0 // SUPER:r1 // SUPER] = b64
+        cnt += c
+    return gb, g64, cnt
+
+
 def _plain_bits(chunks, bi, bj, tau_eff, tm: int, tn: int, device,
                 off=(0, 0), valid=None):
     """Threshold, strict global upper triangle (local coordinates plus the
@@ -415,6 +453,17 @@ def unpack_bits(gb: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------------- compaction
 
 
+def check_pair_count(total: int) -> None:
+    """Refuse a join with 2^31 - 1 or more candidates (``total`` is a
+    Python int from int64 sums, so it cannot have wrapped)."""
+    if total >= 2**31 - 1:
+        raise ValueError(
+            "join produced >= 2^31 candidate pairs; raise the threshold — "
+            "fetching/rescoring that many pairs is beyond the engine's "
+            "design envelope"
+        )
+
+
 def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int):
     """Exact (row, col) int64 lists of every hit in the bit-packed structure.
 
@@ -427,12 +476,7 @@ def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int):
     total, and a mismatch raises."""
     n_blocks = bi.shape[0]
     total, groups, supers = cnt.sum(dim=0, dtype=torch.int64).tolist()
-    if total >= 2**31 - 1:
-        raise ValueError(
-            "join produced >= 2^31 candidate pairs; raise the threshold — "
-            "fetching/rescoring that many pairs is beyond the engine's "
-            "design envelope"
-        )
+    check_pair_count(total)
     if (tm // SUPER) % (SUPER2 // SUPER) == 0:
         # pre-level: scan the 8x smaller 512-row any-hit domain, then
         # gather the g64 bytes under its hits

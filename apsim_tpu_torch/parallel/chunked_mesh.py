@@ -12,8 +12,10 @@ compaction run once.  The host side (compact space, shadow CSR, rescore,
 the sweeps, checkpoints) is inherited; only placement, the panel geometry
 and the panel ops are rerouted.
 
-The XLA stripe join (``pallas_int8=False``, ``use_pallas="off"``, a tripped
-int32 gate, item A), ``insert``, ``topk`` and ``freeze`` (item B) and
+The stripe join (``pallas_int8=False``, ``use_pallas="off"``, a tripped
+int32 gate) runs sharded too (``ops/chunked_mesh.py``): every shard scores
+the stripe over its own chunks and the partial accumulators are summed
+before the one epilogue.  ``insert``, ``topk`` and ``freeze`` (item B) and
 ``save`` (item C) raise ``NotImplementedError`` as in the single-device
 engine.  The single-slab tier never applies: slabs are shard-split.
 """
@@ -25,6 +27,7 @@ import torch
 
 from ..config import AllPairsConfig
 from ..engine.chunked import INT8_NNZ_GATE, ChunkedAllPairs
+from ..ops import chunked_mesh as cm_ops
 from ..ops import panel_mesh
 from ..vector.batch import round_up
 from .collectives import sync
@@ -48,13 +51,19 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
 
     def __init__(self, config: AllPairsConfig | None = None,
                  mesh: Mesh | None = None, chunk_dim: int = 2048,
+                 super_tile: int | None = None,
                  panel_rows: int | None = None):
         config = config or AllPairsConfig()
         if mesh is None:
             mesh = make_mesh(config.mesh_shape or None)
+        if len(mesh.shape) != 1:
+            raise ValueError(
+                "MeshChunkedAllPairs shards the chunk axis: needs a 1-D mesh"
+            )
         self.mesh = mesh
         self.n_shards = mesh.size
-        super().__init__(config, mesh.devices[0], chunk_dim, panel_rows)
+        super().__init__(config, mesh.devices[0], chunk_dim, super_tile,
+                         panel_rows)
 
     def _sync(self) -> None:
         sync(self.mesh.devices)
@@ -82,6 +91,42 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         self._panel_geom_cache = None
         self._panel_state_cache = None
         self._compact_rescore_cache = None
+        self._q8_cache = None
+
+    # ----------------------------------------------------- mesh stripe join
+    def _local_counts(self) -> list:
+        """Each shard's chunk counts as a host array (no device read)."""
+        n_local = self._n_chunks // self.n_shards
+        return [self._counts[s * n_local:(s + 1) * n_local]
+                for s in range(self.n_shards)]
+
+    def _quantize_entries(self):
+        """Per-shard ``q2d`` (chunk-sharded like the entries), the global
+        ``aux`` on the lead device, ``max_nnz``."""
+        qs, aux, max_nnz = panel_mesh.mesh_quantize_entries(
+            self.mesh, [r.reshape(-1) for r in self._ent[0]],
+            [v.reshape(-1) for v in self._ent[2]], self.row_cap,
+        )
+        return ([q.reshape(r.shape) for q, r in zip(qs, self._ent[0])], aux,
+                max_nnz)
+
+    def _ent_key(self):
+        return tuple((id(v), v._version) for v in self._ent[2])
+
+    def _op_stripe(self, q0: int, tau_eff, super_tile: int):
+        q8 = self._int8_slabs()
+        if q8 is not None:
+            q2d, aux = q8
+            return cm_ops.mesh_stripe_extract_int8(
+                self.mesh, self._ent[0], self._ent[1], q2d,
+                self._local_counts(), aux, q0, tau_eff, self.row_cap,
+                self._chunk_width, super_tile, timer=self.timer,
+            )
+        return cm_ops.mesh_stripe_extract(
+            self.mesh, *self._ent, self._local_counts(), q0, tau_eff,
+            self.row_cap, self._chunk_width, super_tile,
+            self.cfg.matmul_precision, timer=self.timer,
+        )
 
     # ------------------------------------------------------ mesh panel join
     def _panel_geom(self):

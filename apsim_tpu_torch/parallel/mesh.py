@@ -1,24 +1,34 @@
-"""The device mesh and the rows-sharded engine: the counterpart of
+"""The device mesh and the mesh-sharded dense engine: the counterpart of
 ``apsim_tpu/parallel/mesh.py``.
 
 The mesh is single-controller, as under JAX: one process holds one tensor
 per shard, each on its shard's device, and the collectives of
-``parallel/collectives.py`` move data between them.  A ``Mesh`` is a 1-D
-tuple of ``torch.device``s under the axis name ``AXIS``.  The list may name
-one device more than once: ``make_mesh(8, devices=["cpu"] * 8)`` is the CPU
-tests' counterpart of JAX's 8 virtual devices, and
+``parallel/collectives.py`` move data between them.  A ``Mesh`` is a tuple
+of ``torch.device``s with a shape: 1-D ``(shards,)`` under the axis name
+``AXIS``, or 2-D ``(rows, dims)``, row-major.  The list may name one device
+more than once: ``make_mesh(8, devices=["cpu"] * 8)`` is the CPU tests'
+counterpart of JAX's 8 virtual devices, and
 ``make_mesh(4, devices=["cuda:0"] * 4)`` runs four shards, with their
 per-shard kernel launches and their sums, on one card.
 
 ``MeshEngine`` is the dense :class:`~apsim_tpu_torch.engine.engine.Engine`
-with its index split into contiguous row blocks over the mesh
-(``shard_axis="rows"``).  Its join is the rows-sharded kernel path
+with its index split into a grid of blocks over the mesh:
+
+  - ``shard_axis="dims"`` (the default, the reference's posting partition):
+    contiguous column blocks ``[row_cap, dim_cap / n]``;
+  - ``shard_axis="rows"``: contiguous row blocks ``[row_cap / n, dim_cap]``;
+  - a 2-D mesh sets ``"both"``: block ``(r, d)`` holds rows block ``r`` and
+    columns block ``d``.
+
+The rows layout joins through the rows-sharded kernel path
 (``ops/mesh_pallas.py``): every shard quantizes its own rows, the int8 rows
 are all-gathered, and each shard runs the cross-panel kernel over its
-striped share of the global upper-triangle block schedule.  With one shard
-it is ``Engine``, kernel path and all.  The ``"dims"`` and 2-D layouts,
-whose multi-device join is the XLA rectangle, are ROADMAP item A and raise
-``NotImplementedError``.
+striped share of the global upper-triangle block schedule.  Every other
+case (the dims and 2-D layouts, and a rows mesh whose kernel path is
+refused: demoted, gated, ``matmul_precision="highest"``,
+``use_pallas="off"``, ``pallas_int8=False``) joins through the rectangle
+over the mesh (``ops/mesh_score.py``).  With one shard it is ``Engine``,
+kernel path and all.
 """
 
 from __future__ import annotations
@@ -30,11 +40,12 @@ import numpy as np
 import torch
 
 from ..config import AllPairsConfig
-from ..engine.engine import Engine, _not_ported
+from ..engine.engine import Engine
 from ..engine.chunked import INT8_NNZ_GATE
 from ..ops import mesh_pallas
+from ..ops import mesh_score
 from ..ops import tri_score as ts
-from ..ops.score import new_index_matrix
+from ..ops.score import new_index_matrix, score_operand
 from ..vector.batch import round_up
 from .collectives import sync
 
@@ -45,11 +56,21 @@ AXIS = "shards"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: one device per shard, in shard order (a device may
-    repeat).  ``devices[0]`` is the lead device, where the collectives
-    deliver their results."""
+    """A mesh: one device per shard, in shard order (a device may repeat),
+    and its shape, ``(shards,)`` or ``(rows, dims)`` row-major (default:
+    1-D over all devices).  ``devices[0]`` is the lead device, where the
+    collectives deliver their results."""
 
     devices: Tuple[torch.device, ...]
+    shape: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        shape = tuple(self.shape) or (len(self.devices),)
+        if len(shape) not in (1, 2) or int(np.prod(shape)) != len(self.devices):
+            raise ValueError(
+                f"mesh shape {shape} does not hold {len(self.devices)} devices"
+            )
+        object.__setattr__(self, "shape", shape)
 
     @property
     def size(self) -> int:
@@ -58,8 +79,9 @@ class Mesh:
 
 def make_mesh(shape: Sequence[int] | int | None = None,
               devices: Sequence[torch.device | str] | None = None) -> Mesh:
-    """Mesh of ``shape`` shards over ``devices`` (default: every visible
-    CUDA device; with no CUDA this raises, it never falls back to the CPU).
+    """Mesh of ``shape`` over ``devices`` (default: every visible CUDA
+    device; with no CUDA this raises, it never falls back to the CPU): 1-D
+    ``(shards,)`` for one shard axis, 2-D ``(rows, dims)`` given two sizes.
     ``shape`` None or ``()`` takes every device; a mesh larger than the
     device list raises.  An explicit list may repeat a device, which puts
     several shards on it (see the module docstring)."""
@@ -80,25 +102,25 @@ def make_mesh(shape: Sequence[int] | int | None = None,
         dims = (shape,)
     else:
         dims = tuple(int(s) for s in shape)
-    if len(dims) == 2:
-        raise _not_ported("a 2-D (rows x dims) mesh", "item A")
-    if len(dims) != 1:
-        raise ValueError(f"mesh shape must be 1-D, got {dims}")
-    n = dims[0]
-    if n < 1 or n > len(devices):
+    if len(dims) not in (1, 2):
+        raise ValueError(f"mesh shape must be 1-D or 2-D, got {dims}")
+    n = int(np.prod(dims))
+    if min(dims) < 1 or n > len(devices):
         raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
-    return Mesh(tuple(devices[:n]))
+    return Mesh(tuple(devices[:n]), dims)
 
 
 class MeshEngine(Engine):
-    """Dense engine whose index is split into row blocks over a mesh.
+    """Dense engine whose index is split into blocks over a mesh.
 
     Same public API as :class:`Engine`; construction takes the mesh
     (default: one over the visible cards, ``config.mesh_shape`` may pin a
     smaller one).  With more than one shard the index exists only as
-    ``x_blocks``, each row block built on its shard's device (JAX's
-    ``P(AXIS, None)``): ``x`` stays None and the capacities come from the
-    blocks.  With one shard ``x`` is the index and ``x_blocks == [x]``."""
+    ``x_blocks``, the row-major ``grid = (row blocks, dim blocks)`` of
+    blocks, each built on its shard's device (JAX's ``P(AXIS, None)``,
+    ``P(None, AXIS)`` and ``P("rows", "dims")``): ``x`` stays None and the
+    capacities come from the blocks.  With one shard ``x`` is the index and
+    ``x_blocks == [x]``."""
 
     def __init__(self, config: AllPairsConfig | None = None,
                  mesh: Mesh | None = None):
@@ -107,7 +129,28 @@ class MeshEngine(Engine):
             mesh = make_mesh(config.mesh_shape or None)
         self.mesh = mesh
         self.n_shards = mesh.size
-        if config.shard_axis == "rows":
+        if len(mesh.shape) == 2:
+            # 2-D mesh: rows x dims jointly sharded
+            n_row_shards, n_dim_shards = mesh.shape
+            self.grid = (n_row_shards, n_dim_shards)
+            config = config.replace(
+                shard_axis="both",
+                dim_bucket=round_up(config.dim_bucket,
+                                    ts.K_QUANTUM * n_dim_shards),
+                row_bucket=round_up(
+                    max(config.row_bucket, config.query_tile),
+                    8 * n_row_shards,
+                ),
+            )
+        elif config.shard_axis == "dims":
+            self.grid = (1, self.n_shards)
+            # column blocks must tile evenly across shards
+            config = config.replace(
+                dim_bucket=round_up(config.dim_bucket,
+                                    ts.K_QUANTUM * self.n_shards)
+            )
+        elif config.shard_axis == "rows":
+            self.grid = (self.n_shards, 1)
             config = config.replace(
                 row_bucket=round_up(
                     max(config.row_bucket, config.query_tile),
@@ -117,16 +160,10 @@ class MeshEngine(Engine):
                 # add nothing, so the index width rounds up to them
                 dim_bucket=round_up(config.dim_bucket, ts.K_QUANTUM),
             )
-        elif config.shard_axis == "both" or (
-                config.shard_axis == "dims" and self.n_shards > 1):
-            raise _not_ported(
-                f"MeshEngine(shard_axis={config.shard_axis!r}) over "
-                f"{self.n_shards} shards (its join is the XLA rectangle)",
-                "item A",
-            )
-        elif config.shard_axis != "dims":
+        else:
             raise ValueError(f"unknown shard_axis: {config.shard_axis}")
         self.x_blocks: list = []
+        self._block_operands = None  # (key, per-block rectangle operands)
         super().__init__(config, mesh.devices[0])
 
     def _sync(self) -> None:
@@ -134,29 +171,59 @@ class MeshEngine(Engine):
 
     @property
     def row_cap(self) -> int:
-        return sum(int(b.shape[0]) for b in self.x_blocks)
+        return sum(int(b.shape[0]) for b in self.x_blocks[::self.grid[1]])
 
     @property
     def dim_cap(self) -> int:
-        return int(self.x_blocks[0].shape[1]) if self.x_blocks else 0
+        return sum(int(b.shape[1]) for b in self.x_blocks[:self.grid[1]])
 
     def _new_index(self, compact_csr, row_cap: int, dim_cap: int):
+        self._block_operands = None
         if self.n_shards == 1:
             x = super()._new_index(compact_csr, row_cap, dim_cap)
             self.x_blocks = [x]
             return x
-        if row_cap % self.n_shards:
+        nr, nd = self.grid
+        if row_cap % nr or dim_cap % nd:
             raise ValueError(
-                f"row_cap {row_cap} does not split over "
-                f"{self.n_shards} shards"
+                f"index [{row_cap}, {dim_cap}] does not split over a "
+                f"{nr} x {nd} grid of shards"
             )
-        b = row_cap // self.n_shards
+        hb, wb = row_cap // nr, dim_cap // nd
         self.x_blocks = []
         for s, dev in enumerate(self.mesh.devices):
-            blk = new_index_matrix(b, dim_cap, self.cfg.dtype, dev)
-            self._scatter_rows(blk, compact_csr, s * b)
+            r, d = divmod(s, nd)
+            blk = new_index_matrix(hb, wb, self.cfg.dtype, dev)
+            self._scatter_rows(blk, compact_csr, r * hb, d * wb)
             self.x_blocks.append(blk)
         return None
+
+    # ------------------------------------------------ rectangle over the mesh
+    def _rect_blocks(self) -> list:
+        """Every block as the rectangle multiplies it
+        (``score.score_operand``), cached per index state."""
+        key = tuple((id(b), b._version) for b in self.x_blocks)
+        if self._block_operands is None or self._block_operands[0] != key:
+            self._block_operands = (key, [
+                score_operand(b, self.cfg.matmul_precision)
+                for b in self.x_blocks
+            ])
+        return self._block_operands[1]
+
+    def _all_pairs_rect(self, tau_eff):
+        if self.n_shards == 1:
+            return super()._all_pairs_rect(tau_eff)
+        with self.timer.section("operands"):
+            blocks = self._rect_blocks()
+            self._sync()
+        found = mesh_score.mesh_allpairs_extract(
+            blocks, self.grid, self.mesh.devices, tau_eff, self._tile(),
+            self.cfg.matmul_precision, int(self.cfg.extract_group),
+            timer=self.timer,
+        )
+        with self.timer.section("d2h"):
+            return (np.concatenate([r.cpu().numpy() for r, _ in found]),
+                    np.concatenate([c.cpu().numpy() for _, c in found]))
 
     # ----------------------------------------------- rows-sharded kernel path
     def _mesh_rows_geom(self):
@@ -222,15 +289,18 @@ class MeshEngine(Engine):
                     np.concatenate([c.cpu().numpy() for _, c in found]))
 
     def shard_layout(self) -> dict:
-        """Which row block (or, with one ``"dims"`` shard, dim block) each
-        shard owns, keyed by (shard, device): with repeated devices a
-        device alone does not name a shard."""
-        if self.cfg.shard_axis == "rows":
-            key, cap = "row_block", self.row_cap
-        else:
-            key, cap = "dim_block", self.dim_cap
-        block = cap // self.n_shards
-        return {
-            (i, str(d)): {key: (i * block, (i + 1) * block)}
-            for i, d in enumerate(self.mesh.devices)
-        }
+        """Which row block and/or dim block each shard owns, keyed by
+        (shard, device): with repeated devices a device alone does not
+        name a shard."""
+        nr, nd = self.grid
+        hb, wb = self.row_cap // nr, self.dim_cap // nd
+        out = {}
+        for s, dev in enumerate(self.mesh.devices):
+            r, d = divmod(s, nd)
+            own = {}
+            if self.cfg.shard_axis != "dims":
+                own["row_block"] = (r * hb, (r + 1) * hb)
+            if self.cfg.shard_axis != "rows":
+                own["dim_block"] = (d * wb, (d + 1) * wb)
+            out[s, str(dev)] = own
+        return out

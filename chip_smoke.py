@@ -76,6 +76,26 @@ result line):
    join's pair set equals the fp64 oracle and its candidate set that of the
    single-device join on the same corpus.
 
+7. The full-rectangle join and everything that reaches it, each join
+   gated on exact parity with the fp64 oracle of its corpus.
+   ``Engine(use_pallas="off")`` on phase 3's 32,768 rows (bf16 operands,
+   fp32 scores) and ``Engine(matmul_precision="highest")`` (a true fp32
+   product) on the 8,586 rows and once at 32,768: build, three joins, the
+   third timed with its stage split; the candidate set must contain the
+   oracle's pairs; ``torch.backends.cuda.matmul.allow_tf32`` is printed
+   before and after and must be unchanged, also when it was on.
+   ``ChunkedAllPairs(pallas_int8=False)`` on phase 5's 100,000 rows: the
+   bf16 stripes, three joins, pair set equal to phase 5's panel join
+   (``stripe_parity``); stripe width, stripes, densify passes, stage split,
+   peak memory.  Then one join with ``_int8_stripes = True``: kernel 4
+   launched once per (stripe, chunk) between zeroed counters, and one
+   (stripe, chunk) product compared bit for bit with its plain version and
+   timed beside ``torch._int_mm``.  The meshes on the one card:
+   ``MeshEngine(shard_axis="dims")`` over 4 shards and a ``(2, 2)`` mesh on
+   the 32,768 rows, phase 6's rows mesh joined once more after
+   ``_int8_off = True``, and ``MeshChunkedAllPairs(pallas_int8=False)``
+   over 8 shards on the 100,000 rows (one join).
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -100,7 +120,9 @@ from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
 from apsim_tpu_torch.bench.ooc import join_ops, profile_join
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
+from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import mesh_pallas, panel_mesh
+from apsim_tpu_torch.ops import score as score_ops
 from apsim_tpu_torch.parallel.collectives import all_gather
 
 TAU = 0.8
@@ -547,8 +569,96 @@ def compare_mm(xi, xj, label: str) -> dict:
            "library_ms": median_ms(lambda: torch._int_mm(xi, xj.t()))}
     rec["tops"] = ops / rec["ms"] / 1e9
     rec.update(bound(ops, (m + n) * d + 4 * m * n, PEAK_INT8))
-    log(f"phase 6 kernel 4: {json.dumps(rec)}")
+    log(f"kernel 4: {json.dumps(rec)}")
     return rec
+
+
+def rect_flops(row_cap: int, tile: int, dim_cap: int) -> int:
+    """Multiply-adds x 2 of one upper rectangle join: every tile against
+    its bucket's row prefix."""
+    return sum(2 * (b1 * tile) * tile * dim_cap * (b1 - b0)
+               for b0, b1 in score_ops.upper_buckets(row_cap // tile))
+
+
+def rect_phase(cfg: AllPairsConfig, csr, want: set, label: str, dev,
+               make=None) -> dict:
+    """Build an engine whose join is the full rectangle, join three times
+    (the third timed), hold the pair set against the oracle ``want`` and
+    the candidate set against it as a superset; TF32 must be as found."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    eng = make(cfg) if make else Engine(cfg, dev)
+    log(f"build {label}: {json.dumps(eng.build(csr))}")
+    if eng._kernel_ok():
+        raise AssertionError(f"{label}: the kernel path was not refused")
+    before = dict(ts.LAUNCHES)
+    j = timed_join(eng, label)
+    flops = rect_flops(eng.row_cap, eng.cfg.query_tile, eng.dim_cap)
+    log(f"{label}: {flops:.3e} FLOP a join, "
+        f"{flops / j['rec']['stages_s']['kernel'] / 1e12:.1f} TFLOP/s in "
+        f"the kernel stage; allow_tf32 {tf32} before, "
+        f"{torch.backends.cuda.matmul.allow_tf32} after")
+    if torch.backends.cuda.matmul.allow_tf32 != tf32:
+        raise AssertionError(f"{label}: the join changed allow_tf32")
+    if dict(ts.LAUNCHES) != before or eng._used_int8:
+        raise AssertionError(f"{label}: the rectangle launched a kernel")
+    check_parity(j["res"], want, label)
+    cand = pair_set(eng._all_pairs_rect(eng._tau_eff(TAU)))
+    if not cand >= want:
+        raise AssertionError(f"{label}: {len(want - cand)} oracle pairs are "
+                             f"missing from the candidate set")
+    log(f"{label}: {len(cand)} candidates contain the oracle's {len(want)}")
+    if not np.all(np.isfinite(j["res"].sims)):
+        raise AssertionError(f"{label}: non-finite sims")
+    return j
+
+
+def stripe_join(eng: ChunkedAllPairs, label: str, reps: int) -> dict:
+    """``reps`` stripe joins at TAU; the last is timed with its stage
+    split, stripe geometry and peak memory."""
+    if eng._panel_ok() and eng._panel_state() is not None:
+        raise AssertionError(f"{label}: the panel path was not refused")
+    for _ in range(reps - 1):
+        eng.all_pairs(TAU)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(eng.timer.totals)
+    counts0 = dict(eng.timer.counts)
+    cand0 = eng.stats["candidates_scored"]
+    t0 = time.perf_counter()
+    res = eng.all_pairs(TAU)
+    secs = time.perf_counter() - t0
+    st = eng._q_super()
+    n = eng.n_rows
+    n_stripes = -(-n // st)
+    width = eng._chunk_width
+    rec = {
+        "rows": n, "row_cap": eng.row_cap, "super_tile": st,
+        "stripes": n_stripes, "n_chunks": eng._n_chunks, "chunk_width": width,
+        "densify_passes": eng.timer.counts["slabs"] - counts0.get("slabs", 0),
+        "seconds": secs, "decided_pairs_per_s": n * (n - 1) / 2 / secs,
+        "candidates": eng.stats["candidates_scored"] - cand0,
+        "pairs": res.n_pairs,
+        "stages_s": {k: v - before.get(k, 0.0)
+                     for k, v in eng.timer.totals.items() if k != "all_pairs"},
+        "ops": n_stripes * eng._n_chunks * 2 * eng.row_cap * st * width,
+        "int8": eng._int8_slabs() is not None,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    log(f"{label}: {json.dumps(rec)}")
+    return {"rec": rec, "res": res}
+
+
+def compare_stripe_mm(eng: ChunkedAllPairs, q0: int, c: int) -> dict:
+    """Kernel 4 at one (stripe, chunk) product of the int8 stripes, bit for
+    bit against its plain version, timed beside ``torch._int_mm``."""
+    q2d, _ = eng._int8_slabs()
+    slab = chunked_ops.densify_chunk(
+        eng._ent[0], eng._ent[1], q2d, eng._counts, c, eng.row_cap,
+        eng._chunk_width, torch.int8)
+    xj = chunked_ops.stripe_query_rows(slab, q0, eng._q_super(),
+                                       panel_mesh.MM_TN)
+    if int((slab != 0).sum()) != int(eng._counts[c]):
+        raise AssertionError("the slab does not hold the chunk's entries")
+    return compare_mm(slab, xj, f"int8 stripe q0={q0}, chunk {c}")
 
 
 def main() -> int:
@@ -647,8 +757,8 @@ def main() -> int:
         })
     want32 = oracle_pairs(big_csr, TAU, dev)
     check_parity(j8["res"], want32, "int8 join, 32768 rows")
-    check_parity(j16["res"], oracle_pairs(enron_csr, TAU, dev),
-                 "bf16 join, 8586 rows")
+    want8586 = oracle_pairs(enron_csr, TAU, dev)
+    check_parity(j16["res"], want8586, "bf16 join, 8586 rows")
     for j in (j8, j16):
         if not j["res"].n_pairs or not np.all(np.isfinite(j["res"].sims)):
             raise AssertionError("join produced no pairs or non-finite sims")
@@ -706,6 +816,7 @@ def main() -> int:
     jroll = ooc_join(eng, f"out-of-core path, rolling sweep, {OOC_ROWS} rows",
                      reps=1)
     cand100k = pair_set(eng._all_pairs_panel(eng._tau_eff(TAU)))
+    panel_pairs = jr["res"].pair_set()
     del eng
     torch.cuda.empty_cache()
     want = oracle_pairs(ooc_csr, TAU, dev)
@@ -795,7 +906,89 @@ def main() -> int:
         rec = compare_rows_shard(reng, shard)
         log(f"phase 6 panel kernel at the rows path's operands: "
             f"{json.dumps(rec)}")
-    del reng
+
+    # ---- phase 7: the full-rectangle join, the stripes, the mesh layouts
+    # the rows mesh once more, demoted: its join is now the rectangle
+    reng._int8_off = True
+    zero_launches()
+    t0 = time.perf_counter()
+    res = reng.all_pairs(TAU)
+    log(f"mesh rows path after int8 demotion, one join: "
+        f"{time.perf_counter() - t0:.4f} s; launches {dict(ts.LAUNCHES)}")
+    if reng._kernel_ok() or any(ts.LAUNCHES.values()):
+        raise AssertionError("the demoted rows mesh still took a kernel")
+    check_parity(res, want32, "mesh rows path after int8 demotion")
+    del reng, res
+    torch.cuda.empty_cache()
+
+    rect_phase(AllPairsConfig(use_pallas="off"), big_csr, want32,
+               "rectangle, default precision, 32768 rows", dev)
+    torch.cuda.empty_cache()
+    hi = AllPairsConfig(matmul_precision="highest")
+    rect_phase(hi, enron_csr, want8586, "rectangle, highest, 8586 rows", dev)
+    torch.backends.cuda.matmul.allow_tf32 = True  # must be restored as found
+    rect_phase(hi, big_csr, want32, "rectangle, highest, 32768 rows, "
+               "allow_tf32 on beforehand", dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    for shape, axis in ((4, "dims"), ((2, 2), "both")):
+        mesh = make_mesh(shape, devices=[dev] * 4)
+        j = rect_phase(
+            AllPairsConfig(shard_axis="dims"), big_csr, want32,
+            f"mesh rectangle, {axis}, {shape} shards on one card, 32768 rows",
+            dev, make=lambda cfg: MeshEngine(cfg, mesh=mesh))
+        del j
+        torch.cuda.empty_cache()
+
+    seng = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), dev)
+    log(f"build stripe engine: {json.dumps(seng.build(ooc_csr))}")
+    zero_launches()
+    js = stripe_join(seng, f"bf16 stripes, {OOC_ROWS} rows", reps=3)
+    if any(ts.LAUNCHES.values()):
+        raise AssertionError("the bf16 stripes launched a kernel")
+    check_parity(js["res"], want, f"bf16 stripes, {OOC_ROWS} rows")
+    stripe_parity = js["res"].pair_set() == panel_pairs
+    log(f"stripe_parity: {stripe_parity} ({len(panel_pairs)} pairs of the "
+        f"panel join)")
+    if not stripe_parity:
+        raise AssertionError("the stripe join's pair set differs from the "
+                             "panel join's")
+    del seng, js
+    torch.cuda.empty_cache()
+
+    ieng = ChunkedAllPairs(AllPairsConfig(use_pallas="off"), dev)
+    ieng._int8_stripes = True
+    ieng.build(ooc_csr)
+    zero_launches()
+    ji = stripe_join(ieng, f"int8 stripes, {OOC_ROWS} rows", reps=1)
+    stripe_launches = dict(ts.LAUNCHES)
+    log(f"kernel launches on the int8 stripes: {stripe_launches}")
+    expect = {k: 0 for k in stripe_launches}
+    expect["int8_matmul"] = ji["rec"]["stripes"] * ji["rec"]["n_chunks"]
+    if stripe_launches != expect or not ji["rec"]["int8"]:
+        raise AssertionError(f"int8 stripes: launches {stripe_launches}, "
+                             f"expected {expect}")
+    check_parity(ji["res"], want, f"int8 stripes, {OOC_ROWS} rows")
+    mm_stripe = compare_stripe_mm(ieng, ieng._q_super(), 3)
+    kernels[-1].update({
+        "stripe_launches": stripe_launches["int8_matmul"],
+        **{f"stripe_{k}": mm_stripe[k] for k in (
+            "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")},
+    })
+    del ieng, ji
+    torch.cuda.empty_cache()
+
+    meng = MeshChunkedAllPairs(AllPairsConfig(pallas_int8=False),
+                               mesh=make_mesh(8, devices=[dev] * 8))
+    meng.build(ooc_csr)
+    label = f"mesh bf16 stripes, 8 shards on one card, {OOC_ROWS} rows"
+    jm = stripe_join(meng, label, reps=1)
+    check_parity(jm["res"], want, label)
+    if jm["res"].pair_set() != panel_pairs:
+        raise AssertionError(f"{label}: pair set differs from the "
+                             f"single-device panel join's")
+    del meng, jm
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

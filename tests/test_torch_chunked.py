@@ -2,8 +2,9 @@
 against the JAX package's ``ChunkedAllPairs(use_pallas="on")`` (Pallas in
 interpret mode) and the fp64 brute-force oracle, case by case as
 ``tests/test_chunked.py`` runs them: multi-panel sweep, rolling sweep,
-single panel, all-dormant corpus, single-slab tier; then checkpoints saved
-by the JAX package, the cost model, and the paths not ported yet.
+single panel, all-dormant corpus, single-slab tier; then the stripe join
+(every configuration the panel kernels refuse), checkpoints saved by the JAX
+package, the cost model, and the paths not ported yet.
 
 Tolerances: entry buffers equal the JAX ones exactly; pair sets and
 candidate sets are equal; similarities agree to 1e-12 (both are fp64
@@ -25,6 +26,7 @@ import apsim_tpu_torch as pt
 from apsim_tpu.engine import ChunkedAllPairs as JaxChunked
 from apsim_tpu.vector.sparse import Vectors
 from apsim_tpu_torch.bench import ooc as pt_ooc
+from apsim_tpu_torch.engine import chunked as pt_chunked
 from apsim_tpu_torch.ops import tri_score as ts
 
 from oracle import brute_force_pairs, random_sparse_corpus
@@ -215,6 +217,108 @@ def test_cost_model_matches_jax():
     assert picks[100_000] == (8192, 13)
 
 
+# case -> (config overrides, constructor overrides, engine attributes):
+# every way the panel kernels refuse a join, which then takes the stripes
+STRIPE_CASES = {
+    "no_int8": (dict(pallas_int8=False), {}, {}),
+    "use_pallas_off": (dict(use_pallas="off"), {}, {}),
+    "highest": (dict(pallas_int8=False, matmul_precision="highest"), {}, {}),
+    "int8_stripes": (dict(use_pallas="off"), {}, {"_int8_stripes": True}),
+    "odd_panel_rows": ({}, dict(panel_rows=64), {}),
+    "narrow_super_tile": (dict(pallas_int8=False), dict(super_tile=256), {}),
+    # an override that is no power of two and does not divide row_cap
+    "odd_super_tile": (dict(pallas_int8=False), dict(super_tile=400), {}),
+    "int8_narrow_super_tile": (dict(use_pallas="off"), dict(super_tile=64),
+                               {"_int8_stripes": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(STRIPE_CASES))
+def test_stripe_join_equals_jax_and_oracle(corpus, case):
+    cfg, ckw, attrs = STRIPE_CASES[case]
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**cfg)), "cpu",
+                           chunk_dim=128, **ckw)
+    jkw = {k: v for k, v in ckw.items() if k != "panel_rows"}
+    j = JaxChunked(apsim_tpu.AllPairsConfig(**cfg_kw(**cfg)), chunk_dim=128,
+                   **jkw)
+    if case == "odd_panel_rows":
+        j._use_panels = False  # JAX's CPU tiles would accept 64 rows
+    for eng in (p, j):
+        for k, v in attrs.items():
+            setattr(eng, k, v)
+        eng.build(to_pt(corpus) if eng is p else corpus)
+    assert not p._panel_ok()
+    assert p._q_super() == j._q_super() and p.row_cap % p._q_super() == 0
+    n_stripes = -(-p.n_rows // p._q_super())
+    before = dict(ts.LAUNCHES)
+    for tau in (0.3, 0.6):
+        c0 = dict(p.timer.counts)
+        rp, rj = p.all_pairs(tau), j.all_pairs(tau)
+        want = brute_force_pairs(corpus, tau)
+        assert rp.pair_set() == rj.pair_set() == want
+        sj = dict(zip(zip(rj.i.tolist(), rj.j.tolist()), rj.sims.tolist()))
+        assert sj == dict(zip(zip(rp.i.tolist(), rp.j.tolist()),
+                              rp.sims.tolist()))
+        done = {k: p.timer.counts[k] - c0.get(k, 0)
+                for k in ("slabs", "kernel", "epilogue", "compact", "d2h")}
+        assert done == {"slabs": n_stripes * p._n_chunks,
+                        "kernel": n_stripes * p._n_chunks,
+                        "epilogue": n_stripes, "compact": n_stripes,
+                        "d2h": 1}
+    assert ts.LAUNCHES == before  # CPU tensors: kernel 4's plain version
+    assert (p._int8_slabs() is not None) is ("_int8_stripes" in attrs)
+    assert (j._int8_slabs() is not None) is ("_int8_stripes" in attrs)
+    if "_int8_stripes" in attrs:
+        key = p._q8_cache[0]
+        p.all_pairs(0.6)
+        assert p._q8_cache[0] == key  # quantized once per entry state
+        p._ent[2].mul_(1.0)  # an in-place update invalidates the cache
+        assert p._ent_key() != key
+    assert len(brute_force_pairs(corpus, 0.3)) > 100
+
+
+@pytest.mark.parametrize("int8_stripes", [False, True])
+def test_tripped_int32_gate_takes_the_stripes(corpus, monkeypatch,
+                                              int8_stripes):
+    """A row at the int32-accumulator gate refuses the panel kernels and
+    the int8 stripes alike (the instance demotes itself); the bf16 stripes
+    still give the oracle's set."""
+    monkeypatch.setattr(pt_chunked, "INT8_NNZ_GATE", 2)
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()), "cpu",
+                           chunk_dim=128, panel_rows=128)
+    p._int8_stripes = int8_stripes
+    p.build(to_pt(corpus))
+    assert p._panel_ok() and p._panel_state() is None
+    assert p.all_pairs(0.4).pair_set() == brute_force_pairs(corpus, 0.4)
+    assert p.timer.counts["epilogue"] == 1 and "kernel" in p.timer.counts
+    assert p._int8_stripes is False and p._int8_slabs() is None
+    assert pt.ChunkedAllPairs._int8_stripes is False  # class default
+
+
+@pytest.mark.parametrize("n_rows,override", [
+    (20000, 16384), (20000, None), (100000, None), (100000, 5000),
+    (3000, 8192), (3000, None), (300000, None), (1, 7),
+])
+def test_super_tile_rule_equals_jax(n_rows, override):
+    """The stripe width: an override rounds down to a power of two that
+    divides row_cap (above 8,192 rows row_cap is no power of two); the
+    automatic width is the widest power of two under the accumulator
+    budget."""
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu", super_tile=override)
+    j = JaxChunked(apsim_tpu.AllPairsConfig(), super_tile=override)
+    p.n_rows = j.n_rows = n_rows
+    assert p.row_cap == j.row_cap
+    st = p._q_super()
+    assert st == j._q_super() and p.row_cap % st == 0
+    assert st & (st - 1) == 0 and (override is None or st <= override)
+    if (n_rows, override) == (20000, 16384):
+        assert (p.row_cap, st) == (24576, 8192)
+    if (n_rows, override) == (100000, None):
+        assert st == 8192 and 4 * p.row_cap * st <= p._stripe_acc_budget
+    p._stripe_acc_budget = 1 << 20  # a small budget narrows the auto pick
+    assert p._q_super() == (st if override else min(1024, p.row_cap))
+
+
 @pytest.mark.parametrize("what", [
     "insert", "topk", "freeze", "save", "use_pallas_off", "no_int8",
     "profile_dir", "odd_panel_rows",
@@ -224,6 +328,14 @@ def test_unported_paths_raise(corpus, what):
           "no_int8": {"pallas_int8": False},
           "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
     rows = 64 if what == "odd_panel_rows" else None
+    if what in ("use_pallas_off", "no_int8", "odd_panel_rows"):
+        # ported: these configurations join through the stripes
+        e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu",
+                               chunk_dim=128, panel_rows=rows)
+        e.build(to_pt(corpus))
+        assert not e._panel_ok()
+        assert e.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu",
                                chunk_dim=128, panel_rows=rows)
@@ -248,14 +360,24 @@ def test_device_must_be_explicit():
 
 def test_ooc_bench_report_on_cpu():
     """The out-of-core bench's join runs end to end at a small size (its
-    command line refuses a machine without CUDA); --stripes and --stream
-    are not ported."""
-    rep = pt_ooc.run_ooc(600, device="cpu", chunk_dim=1024)
+    command line refuses a machine without CUDA), with the stripe join of
+    ``--stripes`` beside it; --stream is not ported."""
+    rep = pt_ooc.run_ooc(600, device="cpu", chunk_dim=1024,
+                         compare_stripes=True)
     assert rep["device"] == "cpu" and rep["panel_path"]
     assert rep["sweep"] == "resident"
     assert rep["pairs"] > 0 and rep["join_seconds"] > 0
     assert set(rep["stages_s"]) >= {"quantize_sort", "slabs", "kernel",
                                     "compact", "d2h", "rescore"}
-    for flag in ("--stripes", "--stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_ooc.main(["600", flag, "4"])
+    st = rep["stripes"]
+    assert rep["stripe_parity"] is True and st["pairs"] == rep["pairs"]
+    assert rep["stripe_join_seconds"] == st["join_seconds"] > 0
+    assert (st["super_tile"], st["stripes"]) == (1024, 1)
+    assert st["densify_passes"] == rep["n_chunks"]
+    assert set(st["stages_s"]) >= {"slabs", "kernel", "epilogue", "compact",
+                                   "d2h", "rescore"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item B"):
+        pt_ooc.main(["600", "--stream", "4"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA device"):
+            pt_ooc.main(["600", "--stripes"])

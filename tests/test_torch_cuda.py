@@ -12,7 +12,11 @@ fp32 score lies within 1e-5 of tau_eff (within (K + 2) * 2^-24, the
 engine's bound on fp32 accumulation over K nonzeros, on the dense stress
 of 32,768 positive elements per row); the int8 matmul (kernel 4) equal
 to its plain version in every int32; the mesh joins over four shards of
-the card give the pair sets of the same joins over four CPU shards.
+the card give the pair sets of the same joins over four CPU shards.  The
+full-rectangle join on the card gives the CPU engine's pair set (both are
+exact by the fp64 rescore), leaves ``allow_tf32`` as it found it, and its
+score tiles are fp32; the int8 stripes' accumulator equals the plain
+product in every int32.
 """
 
 import pytest
@@ -21,8 +25,10 @@ import torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, Engine,
                              MeshChunkedAllPairs, MeshEngine, make_mesh)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
+from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import panel as panel_ops
 from apsim_tpu_torch.ops import panel_mesh
+from apsim_tpu_torch.ops import score as score_ops
 from apsim_tpu_torch.ops import tri_score as ts
 
 pytestmark = pytest.mark.cuda
@@ -343,3 +349,146 @@ def test_bf16_wrapper_refuses_misaligned_on_card(card):
     with pytest.raises(ValueError, match="16-byte boundary"):
         ts.score_bits_bf16(x, b, b, 0.5, 64, 128)
     assert ts.LAUNCHES["score_bits_bf16"] == before
+
+
+# ------------------------------------------- the full-rectangle join paths
+@pytest.mark.parametrize("tf32_before", [False, True])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_rectangle_join_on_cuda_equals_cpu(card, mesh_csr, precision,
+                                           tf32_before):
+    """The rectangle on the card: the CPU engine's pair set, no kernel
+    launch, and ``allow_tf32`` (and the precision level behind it) left as
+    found, whether it was on or off."""
+    cfg = AllPairsConfig(use_pallas="off", matmul_precision=precision,
+                         row_bucket=1024)
+    want = Engine(cfg, "cpu")
+    want.build(mesh_csr)
+    want = want.all_pairs(0.8).pair_set()
+    eng = Engine(cfg, "cuda")
+    eng.build(mesh_csr)
+    before = dict(ts.LAUNCHES)
+    torch.set_float32_matmul_precision("medium" if tf32_before else "highest")
+    try:
+        got = eng.all_pairs(0.8)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32_before
+        assert torch.get_float32_matmul_precision() == (
+            "medium" if tf32_before else "highest")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert got.pair_set() == want and len(want) > 0
+    assert ts.LAUNCHES == before and eng._used_int8 is False
+    assert eng._rect_operand().dtype == (
+        torch.float32 if precision == "highest" else torch.bfloat16)
+
+
+def test_score_tile_is_fp32_on_the_card(card):
+    """bf16 operands multiply on the tensor cores into fp32 scores: far
+    closer to the fp64 product of the same bf16 values than a bf16 matmul's
+    rounded output (up to 2^-9 of a score near 0.8: every second row lies
+    at cosine 0.8 from the one before); ``highest`` is a true fp32 product
+    even with TF32 allowed around it."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn((2048, 4096), device="cuda", generator=gen)
+    a /= a.norm(dim=1, keepdim=True)
+    a[1::2] = 0.8 * a[0::2] + 0.6 * a[1::2]
+    a /= a.norm(dim=1, keepdim=True)
+    ab = score_ops.score_operand(a, "default")
+    assert ab.dtype == torch.bfloat16
+    assert score_ops.score_operand(a, "highest") is a
+    s = score_ops.score_tile(ab, ab[:256], "default")
+    assert s.dtype == torch.float32 and s.is_cuda
+    ref = ab.double() @ ab[:256].double().T
+    err = float((s.double() - ref).abs().max())
+    rounded = float(((ab @ ab[:256].T).double() - ref).abs().max())
+    assert err <= 4096 * 2.0 ** -24 and rounded > 1e-3 > 20 * err
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        hi = score_ops.score_tile(a, a[:256], "highest")
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref32 = a.double() @ a[:256].double().T
+    assert hi.dtype == torch.float32
+    assert float((hi.double() - ref32).abs().max()) <= 4098 * 2.0 ** -24
+
+
+@pytest.mark.parametrize("super_tile", [1024, 96])
+def test_int8_stripe_accumulator_matches_plain(card, mesh_csr, super_tile):
+    """Kernel 4 under the int8 stripes: one launch per chunk, the summed
+    int32 accumulator equal to the plain products' sum in every cell (also
+    with query rows padded to the kernel's 128-row quantum)."""
+    eng = ChunkedAllPairs(AllPairsConfig(use_pallas="off"), "cuda")
+    eng._int8_stripes = True
+    eng.build(mesh_csr)
+    q2d, aux = eng._int8_slabs()
+    args = (eng._ent[0], eng._ent[1], q2d, eng._counts)
+    before = ts.LAUNCHES["int8_matmul"]
+    d = chunked_ops.stripe_dots_int8(*args, 1024, eng.row_cap,
+                                     eng._chunk_width, super_tile)
+    assert ts.LAUNCHES["int8_matmul"] == before + eng._n_chunks
+    want = torch.zeros_like(d)
+    for c in range(eng._n_chunks):
+        slab = chunked_ops.densify_chunk(*args, c, eng.row_cap,
+                                         eng._chunk_width, torch.int8)
+        want += panel_mesh.int8_matmul_plain(
+            slab, slab[1024:1024 + super_tile].contiguous())
+    assert d.dtype == torch.int32 and torch.equal(d, want)
+    assert int(d.abs().max()) > 0
+
+
+def test_stripe_scores_are_fp32_and_match_cpu(card, mesh_csr):
+    """The bf16 stripes on the card: an fp32 accumulator, within fp32
+    accumulation error of the CPU's fp32 product of the same bf16 slabs."""
+    eng = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), "cuda")
+    eng.build(mesh_csr)
+    cpu = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), "cpu")
+    cpu.build(mesh_csr)
+    s = chunked_ops.stripe_scores(*eng._ent, eng._counts, 0, eng.row_cap,
+                                  eng._chunk_width, 1024)
+    ref = chunked_ops.stripe_scores(*cpu._ent, cpu._counts, 0, cpu.row_cap,
+                                    cpu._chunk_width, 1024)
+    assert s.dtype == torch.float32 and s.is_cuda
+    assert float((s.cpu() - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["no_int8", "int8_stripes", "mesh_no_int8",
+                                  "mesh_int8_stripes"])
+def test_stripe_join_on_cuda_equals_cpu(card, mesh_csr, case):
+    def make(dev):
+        cfg = AllPairsConfig(**({"pallas_int8": False} if "no_int8" in case
+                                else {"use_pallas": "off"}))
+        if case.startswith("mesh"):
+            e = MeshChunkedAllPairs(cfg, mesh=make_mesh(4, devices=[dev] * 4))
+        else:
+            e = ChunkedAllPairs(cfg, dev)
+        e._int8_stripes = case.endswith("int8_stripes")
+        e.build(mesh_csr)
+        return e
+
+    eng, cpu = make("cuda"), make("cpu")
+    before = ts.LAUNCHES["int8_matmul"]
+    got, want = eng.all_pairs(0.8), cpu.all_pairs(0.8)
+    assert got.pair_set() == want.pair_set() and want.n_pairs > 0
+    n = eng._n_chunks * -(-eng.n_rows // eng._q_super())
+    assert ts.LAUNCHES["int8_matmul"] - before == (
+        n if case.endswith("int8_stripes") else 0)
+
+
+@pytest.mark.parametrize("layout", ["dims", "mesh_2x2", "rows_demoted"])
+def test_mesh_rectangle_on_cuda_equals_cpu(card, mesh_csr, layout):
+    def make(dev):
+        shape = (2, 2) if layout == "mesh_2x2" else 4
+        axis = "rows" if layout == "rows_demoted" else "dims"
+        e = MeshEngine(AllPairsConfig(shard_axis=axis, row_bucket=1024),
+                       mesh=make_mesh(shape, devices=[dev] * 4))
+        e.build(mesh_csr)
+        e._int8_off = layout == "rows_demoted"
+        return e
+
+    eng, cpu = make("cuda"), make("cpu")
+    assert not eng._kernel_ok() and eng.x is None
+    before = dict(ts.LAUNCHES)
+    got, want = eng.all_pairs(0.8), cpu.all_pairs(0.8)
+    assert got.pair_set() == want.pair_set() and want.n_pairs > 0
+    assert ts.LAUNCHES == before
+    assert all(b.is_cuda for b in eng.x_blocks)

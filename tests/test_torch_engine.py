@@ -2,9 +2,15 @@
 ``Engine(use_pallas="on")`` (Pallas in interpret mode) and the fp64
 brute-force oracle, on the same seeded corpus.
 
+The full-rectangle join (``use_pallas="off"``, ``matmul_precision="highest"``,
+a bf16 index, capacities the kernels do not tile, the edge corpora of
+``tests/test_edge.py`` that do not insert) is held against the JAX engine's
+XLA rectangle in the same way.
+
 Tolerances: the index ``x`` equals the JAX index exactly; pair sets are
-equal; similarities agree to 1e-12 (both are fp64 rescores of the same
-entries)."""
+equal; similarities agree to 1e-12 in the kernel-path tests and exactly
+(``rtol = 0``) in the rectangle tests (both are fp64 rescores of the same
+entries by the same native routine)."""
 
 import os
 import subprocess
@@ -16,6 +22,7 @@ import torch
 
 import apsim_tpu
 import apsim_tpu_torch as pt
+from apsim_tpu.vector.sparse import Vectors
 from apsim_tpu_torch.ops import tri_score as ts
 from apsim_tpu_torch.vector.batch import pack_coo_i32
 
@@ -126,6 +133,118 @@ def test_from_numpy_equals_build(corpus, engines):
     assert r.ids == ids
 
 
+def assert_same_result(rp, rj, want):
+    """Pair sets equal each other and the oracle; sims equal, rtol = 0."""
+    assert rp.pair_set() == rj.pair_set() == want
+    sj = dict(zip(zip(rj.i.tolist(), rj.j.tolist()), rj.sims.tolist()))
+    sp = dict(zip(zip(rp.i.tolist(), rp.j.tolist()), rp.sims.tolist()))
+    assert sp == sj
+
+
+# case -> config overrides under which the JAX engine and the port both
+# take the full rectangle (``_kernel_ok`` / ``_pallas_ok`` false)
+RECT_CASES = {
+    "use_pallas_off": dict(use_pallas="off"),
+    "highest": dict(matmul_precision="highest"),
+    "high": dict(matmul_precision="high", use_pallas="off"),
+    "bfloat16": dict(dtype="bfloat16", dim_bucket=64),
+    "bfloat16_highest": dict(dtype="bfloat16", matmul_precision="highest"),
+    # row_bucket not a multiple of query_tile: the capacity quantum rounds
+    # up, so the last tile is never scored at a wrong offset
+    "unaligned_row_bucket": dict(row_bucket=96, query_tile=64, dim_bucket=64),
+    "untiled_dims": dict(dim_bucket=64, query_tile=64, row_bucket=64),
+}
+
+
+@pytest.mark.parametrize("case", list(RECT_CASES))
+def test_rectangle_join_equals_jax_and_oracle(corpus, case):
+    kw = cfg_kw(**RECT_CASES[case])
+    p = pt.Engine(pt.AllPairsConfig(**kw), "cpu")
+    p.build(to_pt(corpus))
+    j = apsim_tpu.Engine(apsim_tpu.AllPairsConfig(**kw))
+    j.build(corpus)
+    assert not p._kernel_ok() and not j._pallas_ok()
+    assert (p.row_cap, p.dim_cap) == (j.row_cap, j.dim_cap)
+    assert p.row_cap % p.cfg.query_tile == 0
+    before = dict(ts.LAUNCHES)
+    for tau in (0.5, 0.8):
+        assert p._tau_eff(tau) == j._tau_eff(tau)
+        assert_same_result(p.all_pairs(tau), j.all_pairs(tau),
+                           brute_force_pairs(corpus, tau))
+        assert p._used_int8 is False and not p._int8_off
+    assert ts.LAUNCHES == before
+    counts = p.timer.counts
+    n_tiles = p.row_cap // p.cfg.query_tile
+    assert counts["kernel"] == counts["compact"] == 2 * n_tiles
+    assert counts["d2h"] == counts["score_extract"] == 2
+
+
+def _edge_corpora():
+    d = 300
+    rng = np.random.default_rng(5)
+    unnorm = []
+    for _ in range(50):
+        dims = np.sort(rng.choice(d, 6, replace=False)).astype(np.int32)
+        unnorm.append(Vectors.sparse(d, dims, rng.random(6) * 40.0))
+    rng = np.random.default_rng(9)
+    big = Vectors.sparse(d, np.arange(d, dtype=np.int32),
+                         rng.random(d)).normalized()
+    a, b = (Vectors.sparse(d, [0, 1], v) for v in ([0.6, 0.8], [0.8, 0.6]))
+    tie = a.dot(b)
+    return d, {
+        # sim(a, b) == tau exactly: >= keeps it, the next float drops it
+        "exact_tie": ([a, b], [tie, np.nextafter(tie, 2.0)]),
+        # large-norm rows: the margin must scale with the norms
+        "unnormalized": (unnorm, [400.0]),
+        "empty_and_singleton": ([Vectors.sparse(d, [], []),
+                                 Vectors.sparse(d, [1], [1.0]),
+                                 Vectors.sparse(d, [1], [1.0])], [0.5]),
+        "giant_row": ([big, Vectors.sparse(d, [0, 1], [0.6, 0.8])],
+                      [0.1, 0.5]),
+        "single_vector": ([Vectors.sparse(d, [0], [1.0])], [0.1]),
+        # tau tiny: every overlapping pair, never a disjoint one
+        "tiny_tau": ([Vectors.sparse(d, [0], [1.0]),
+                      Vectors.sparse(d, [1], [1.0]),
+                      Vectors.sparse(d, [0], [0.1])], [1e-6]),
+    }
+
+
+@pytest.mark.parametrize("case", ["exact_tie", "unnormalized",
+                                  "empty_and_singleton", "giant_row",
+                                  "single_vector", "tiny_tau"])
+def test_rectangle_join_edge_corpora(case):
+    d, corpora = _edge_corpora()
+    rows, taus = corpora[case]
+    csr = apsim_tpu.vector.batch.CSRMatrix.from_vectors(rows, d)
+    kw = dict(vector_dim=d, query_tile=64, row_bucket=64, dim_bucket=64)
+    p = pt.Engine(pt.AllPairsConfig(**kw), "cpu")
+    p.build(to_pt(csr))
+    j = apsim_tpu.Engine(apsim_tpu.AllPairsConfig(**kw))
+    j.build(csr)
+    assert not p._kernel_ok()
+    n = 0
+    for tau in taus:
+        rp = p.all_pairs(tau)
+        assert_same_result(rp, j.all_pairs(tau), brute_force_pairs(csr, tau))
+        n += rp.n_pairs
+    assert n == {"exact_tie": 1, "empty_and_singleton": 1,
+                 "single_vector": 0, "tiny_tau": 1}.get(case, n)
+
+
+def test_rectangle_join_of_a_loaded_checkpoint(corpus, tmp_path):
+    """A JAX checkpoint restores into an engine that joins through the
+    rectangle."""
+    j = apsim_tpu.Engine(apsim_tpu.AllPairsConfig(**cfg_kw()))
+    j.build(corpus)
+    j.save(str(tmp_path))
+    p = pt.Engine.load(
+        str(tmp_path),
+        pt.AllPairsConfig(**cfg_kw(matmul_precision="highest")), device="cpu")
+    assert not p._kernel_ok()
+    assert_same_result(p.all_pairs(0.7), j.all_pairs(0.7),
+                       brute_force_pairs(corpus, 0.7))
+
+
 @pytest.mark.parametrize("what", [
     "insert", "topk", "freeze", "save", "use_pallas_off", "highest",
     "profile_dir",
@@ -134,6 +253,13 @@ def test_unported_paths_raise(corpus, what):
     kw = {"use_pallas_off": {"use_pallas": "off"},
           "highest": {"matmul_precision": "highest"},
           "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
+    if what in ("use_pallas_off", "highest"):
+        # ported: these configurations join through the full rectangle
+        e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
+        e.build(to_pt(corpus))
+        assert not e._kernel_ok()
+        assert e.all_pairs(0.7).pair_set() == brute_force_pairs(corpus, 0.7)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
         e.build(to_pt(corpus))

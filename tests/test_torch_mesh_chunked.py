@@ -5,10 +5,16 @@ devices, the port's single-device ``ChunkedAllPairs`` and the fp64
 brute-force oracle.  The port's meshes put 1, 2 or 8 shards on the CPU
 (``make_mesh(n, devices=["cpu"] * 8)``).
 
+The stripe join over the mesh (``ops/chunked_mesh.py``: every
+configuration the panel kernels refuse) is held against the JAX mesh's
+stripes and the single-device stripes in the same way.
+
 Tolerances: kernel 4's plain version equals the Pallas interpreter's int32
 product exactly; the join state, the slabs and the entry buffers equal the
-JAX arrays exactly; pair sets and candidate sets are equal; similarities
-agree to 1e-12 (both are fp64 rescores of the same entries).
+JAX arrays exactly; pair sets and candidate sets are equal (the int8
+stripes' candidates for any shard count, their int32 sums being exact);
+similarities agree to 1e-12 on the panel path and exactly (``rtol = 0``) on
+the stripes (both are fp64 rescores of the same entries).
 """
 
 import numpy as np
@@ -21,6 +27,8 @@ from apsim_tpu.engine import ChunkedAllPairs as JaxChunked
 from apsim_tpu.ops import panel_mesh as jax_panel_mesh
 from apsim_tpu.parallel import MeshChunkedAllPairs as JaxMeshChunked
 from apsim_tpu.parallel import make_mesh as jax_make_mesh
+from apsim_tpu_torch.engine import chunked as pt_chunked
+from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import panel_mesh
 from apsim_tpu_torch.ops import tri_score as ts
 
@@ -61,10 +69,12 @@ def big_corpus():
     return apsim_tpu.vector.batch.CSRMatrix.from_vectors(rows, DIM)
 
 
-def port_engine(csr, n_shards, **kw):
+def port_engine(csr, n_shards, attrs=None, **kw):
     e = pt.MeshChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)),
                                mesh=cpu_mesh(n_shards), chunk_dim=32,
                                panel_rows=128)
+    for k, v in (attrs or {}).items():
+        setattr(e, k, v)
     e.build(to_pt(csr))
     return e
 
@@ -283,6 +293,108 @@ def test_load_jax_checkpoint(corpus, flavor, tmp_path):
     assert got.pair_set() == want == brute_force_pairs(corpus, 0.4, ids)
 
 
+# ------------------------------------------------- the mesh's stripe join
+# case -> (config overrides, engine attributes)
+STRIPE_CASES = {
+    "no_int8": (dict(pallas_int8=False), {}),
+    "use_pallas_off": (dict(use_pallas="off"), {}),
+    "highest": (dict(pallas_int8=False, matmul_precision="highest"), {}),
+    "int8_stripes": (dict(use_pallas="off"), {"_int8_stripes": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(STRIPE_CASES))
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_stripe_join_equals_jax_oracle_and_single_device(corpus, n_shards,
+                                                         case):
+    cfg, attrs = STRIPE_CASES[case]
+    p = port_engine(corpus, n_shards, attrs, **cfg)
+    j = JaxMeshChunked(apsim_tpu.AllPairsConfig(**cfg_kw(**cfg)),
+                       mesh=jax_make_mesh(n_shards), chunk_dim=32)
+    for k, v in attrs.items():
+        setattr(j, k, v)
+    j.build(corpus)
+    single = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**cfg)), "cpu",
+                                chunk_dim=32)
+    for k, v in attrs.items():
+        setattr(single, k, v)
+    single.build(to_pt(corpus))
+    assert not p._panel_ok() and p._q_super() == j._q_super() == 1024
+    assert (p._int8_slabs() is not None) is (case == "int8_stripes")
+    before = dict(ts.LAUNCHES)
+    for tau in (0.3, 0.6):
+        c0 = dict(p.timer.counts)
+        rp, rj = p.all_pairs(tau), j.all_pairs(tau)
+        want = brute_force_pairs(corpus, tau)
+        assert rp.pair_set() == rj.pair_set() == want
+        assert single.all_pairs(tau).pair_set() == want
+        sj = dict(zip(zip(rj.i.tolist(), rj.j.tolist()), rj.sims.tolist()))
+        assert sj == dict(zip(zip(rp.i.tolist(), rp.j.tolist()),
+                              rp.sims.tolist()))
+        done = {k: p.timer.counts[k] - c0.get(k, 0)
+                for k in ("slabs", "kernel", "reduce", "epilogue", "compact")}
+        assert done == {"slabs": p._n_chunks, "kernel": p._n_chunks,
+                        "reduce": 1, "epilogue": 1, "compact": 1}
+        if case == "int8_stripes":
+            # exact int32 sums: the single-device stripes' candidates
+            tau_eff = p._tau_eff(tau)
+            cand = p._all_pairs_stripes(tau_eff)
+            ref = single._all_pairs_stripes(tau_eff)
+            assert sorted(zip(*(a.tolist() for a in cand))) == sorted(
+                zip(*(a.tolist() for a in ref)))
+            assert cand[0].size >= len(want)
+    assert ts.LAUNCHES == before  # CPU tensors: plain versions
+
+
+def test_mesh_quantize_entries_equals_single_device(pair8):
+    """The sharded quantization (``pmax`` / ``psum`` of the per-row maxima
+    and sums) gives the single-device ``quantize_chunk_entries`` values,
+    the JAX mesh function's too."""
+    from apsim_tpu.ops import chunked_mesh as jax_cm
+
+    p, j = pair8
+    qs, aux, max_nnz = p._quantize_entries()
+    host = [torch.from_numpy(a) for a in p._ent_host]
+    q1, aux1, max1 = chunked_ops.quantize_chunk_entries(host[0], host[2],
+                                                        p.row_cap)
+    assert torch.equal(torch.cat(qs), q1) and torch.equal(aux, aux1)
+    assert max_nnz == max1 > 0
+    jq, jaux, jmax = jax_cm.mesh_quantize_chunk_entries(
+        j.mesh, "shards", j.row_cap)(j._ent[0], j._ent[2])
+    assert np.array_equal(torch.cat(qs).numpy(), np.asarray(jq))
+    assert np.array_equal(aux.numpy(), np.asarray(jaux))
+    assert int(jmax) == max_nnz
+
+
+def test_tripped_gate_takes_the_mesh_stripes(corpus, monkeypatch):
+    import apsim_tpu_torch.parallel.chunked_mesh as pt_cm
+
+    monkeypatch.setattr(pt_cm, "INT8_NNZ_GATE", 2)
+    monkeypatch.setattr(pt_chunked, "INT8_NNZ_GATE", 2)
+    p = port_engine(corpus, 8, {"_int8_stripes": True})
+    assert p._panel_ok() and p._panel_state() is None
+    assert p.all_pairs(0.4).pair_set() == brute_force_pairs(corpus, 0.4)
+    assert p._int8_stripes is False and p.timer.counts["reduce"] == 1
+
+
+def test_load_jax_checkpoint_into_stripe_engine(corpus, tmp_path):
+    """A checkpoint restores into an engine with a ``super_tile`` and no
+    int8 kernels, and joins through the mesh's stripes."""
+    ids = [f"doc{i}" for i in range(corpus.n_rows)]
+    j = JaxMeshChunked(apsim_tpu.AllPairsConfig(**cfg_kw()),
+                       mesh=jax_make_mesh(8), chunk_dim=32)
+    j.build([(d, corpus.row(i)) for i, d in enumerate(ids)])
+    j.save(str(tmp_path))
+    p = pt.MeshChunkedAllPairs.load(
+        str(tmp_path), pt.AllPairsConfig(**cfg_kw(pallas_int8=False)),
+        mesh=cpu_mesh(8), chunk_dim=32, super_tile=256)
+    assert p._q_super() == 256 and not p._panel_ok()
+    got = p.all_pairs(0.4)
+    assert got.pair_set() == j.all_pairs(0.4).pair_set() == (
+        brute_force_pairs(corpus, 0.4, ids))
+    assert p.timer.counts["epilogue"] == 1  # 220 rows: one 256-wide stripe
+
+
 # ---------------------------------------------------------- the refusals
 @pytest.mark.parametrize("what", [
     "insert", "topk", "freeze", "save", "use_pallas_off", "no_int8",
@@ -291,15 +403,24 @@ def test_load_jax_checkpoint(corpus, flavor, tmp_path):
 def test_unported_paths_raise(corpus, what):
     kw = {"use_pallas_off": {"use_pallas": "off"},
           "no_int8": {"pallas_int8": False}}.get(what, {})
-    item = {"insert": "item B", "topk": "item B", "freeze": "item B",
-            "save": "item C"}.get(what, "item A")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    if what in ("use_pallas_off", "no_int8", "odd_panel_rows"):
+        # ported: these configurations join through the mesh's stripes
         e = pt.MeshChunkedAllPairs(
             pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8),
             chunk_dim=32, panel_rows=64 if what == "odd_panel_rows" else 128)
+        e.build(to_pt(corpus))
+        assert not e._single_slab_ok(None) and not e._panel_ok()
+        assert e.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
+        return
+    item = {"insert": "item B", "topk": "item B", "freeze": "item B",
+            "save": "item C"}[what]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        e = pt.MeshChunkedAllPairs(
+            pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8),
+            chunk_dim=32, panel_rows=128)
         e.build(to_pt(corpus))
         assert not e._single_slab_ok(None)
         {"insert": lambda: e.insert([("q", corpus.row(0))]),
          "topk": lambda: e.topk([("q", corpus.row(0))], 3),
          "freeze": e.freeze,
-         "save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
+         "save": lambda: e.save("/nonexistent")}[what]()
