@@ -5,7 +5,10 @@ PyTorch with hand-written Hopper kernels.  This package imports ``torch``
 and never ``jax`` or ``apsim_tpu``: the host-only modules it shares with the
 JAX package are copies.  Ported so far: ``Engine.build`` and the exact
 thresholded ``Engine.all_pairs`` join (the upper-triangle kernels, and the
-full-rectangle join for every configuration they refuse), the out-of-core
+full-rectangle join for every configuration they refuse), the dense
+engine's streaming path (``Engine.insert`` matched online, ``topk``,
+``freeze`` and frozen matching, admission and dormant-dim activation;
+``OutputBatcher``), the out-of-core
 ``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join, and the stripe
 join behind it), their single-host mesh variants ``MeshChunkedAllPairs``
 (chunk axis sharded) and ``MeshEngine`` (rows, dims or a 2-D mesh), and
@@ -16,8 +19,8 @@ the CPU.
 
 from .config import AllPairsConfig, load_config
 from .engine.chunked import ChunkedAllPairs
-from .engine.engine import Engine
-from .engine.output import PairResult, SimilarityOutput
+from .engine.engine import Engine, PendingInsert
+from .engine.output import OutputBatcher, PairResult, SimilarityOutput
 from .parallel import MeshChunkedAllPairs, MeshEngine, make_mesh
 from .vector.batch import CSRMatrix
 from .vector.sparse import SparseVector, Vectors
@@ -32,6 +35,8 @@ __all__ = [
     "MeshChunkedAllPairs",
     "MeshEngine",
     "make_mesh",
+    "PendingInsert",
+    "OutputBatcher",
     "PairResult",
     "SimilarityOutput",
     "SparseVector",

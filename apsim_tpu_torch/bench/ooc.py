@@ -195,7 +195,7 @@ def _stripe_join(csr, tau: float, device, chunk_dim: int, panel_res) -> Dict:
 def main(argv=None) -> None:
     args = list(sys.argv[1:] if argv is None else argv)
     if "--stream" in args or "--stream-only" in args:
-        raise _not_ported("--stream (chunked streaming inserts)", "item B")
+        raise _not_ported("--stream (chunked streaming inserts)", "item B2")
     if not torch.cuda.is_available():
         raise SystemExit("apsim_tpu_torch.bench.ooc needs a CUDA device")
     prof = "--profile" in args

@@ -1,3 +1,3 @@
 from .chunked import ChunkedAllPairs
-from .engine import Engine
-from .output import PairResult, SimilarityOutput
+from .engine import Engine, PendingInsert
+from .output import OutputBatcher, PairResult, SimilarityOutput

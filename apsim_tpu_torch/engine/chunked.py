@@ -30,8 +30,9 @@ default, fp32 at ``matmul_precision="highest"``, int8 through kernel 4 when
 
 ``load`` reads the JAX package's checkpoints: a chunked-flavor checkpoint's
 ``chunk_*`` arrays are placed as they are, any other is rebuilt from its CSR
-shadow.  ``insert``, ``topk``, ``freeze`` and ``save`` are not ported yet
-and raise ``NotImplementedError``.
+shadow, and the static max-weight map (``set_max_weight_map``) comes back
+with it.  ``insert``, ``topk``, ``freeze`` (ROADMAP item B2) and ``save``
+(item C) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ class ChunkedAllPairs:
         self._chunk_cap = 0
         self._shadow: GrowableCSR | None = None
         self.ids: List[str] = []
+        self.id_to_row: Dict[str, int] = {}
+        self._static_max_weights: np.ndarray | None = None
         self.n_rows = 0
         self._max_norm = 0.0
         self._compact = CompactSpace(self.cfg.vector_dim, self.cfg.dim_bucket)
@@ -119,6 +122,8 @@ class ChunkedAllPairs:
     _margin_rel = Engine._margin_rel
     _margin = Engine._margin
     _tau_eff = Engine._tau_eff
+    set_max_weight_map = Engine.set_max_weight_map
+    _restore_static_map = Engine._restore_static_map
 
     @property
     def compact(self) -> CompactSpace:
@@ -165,6 +170,7 @@ class ChunkedAllPairs:
     def build(self, vectors, ids: Sequence[str] | None = None) -> dict:
         t0 = time.time()
         csr, self.ids = _as_csr(vectors, ids, self.cfg.vector_dim)
+        self.id_to_row = {v: k for k, v in enumerate(self.ids)}
         self._shadow = GrowableCSR(self.cfg.vector_dim)
         self._shadow.append(csr)
         self.n_rows = csr.n_rows
@@ -594,13 +600,13 @@ class ChunkedAllPairs:
 
     # ------------------------------------------------------- not ported yet
     def insert(self, vectors, tau=None, bulk=False, defer=False):
-        raise _not_ported("chunked streaming insert", "item B")
+        raise _not_ported("chunked streaming insert", "item B2")
 
     def topk(self, queries, k):
-        raise _not_ported("chunked topk", "item B")
+        raise _not_ported("chunked topk", "item B2")
 
     def freeze(self) -> None:
-        raise _not_ported("chunked freeze", "item B")
+        raise _not_ported("chunked freeze", "item B2")
 
     def save(self, path: str) -> None:
         raise _not_ported("chunked save", "item C")
@@ -628,6 +634,7 @@ class ChunkedAllPairs:
                 self.build(csr, ids)
         # merge the stored maxima with the build-recomputed ones
         self.max_weights = np.maximum(self.max_weights, max_weights)
+        self._restore_static_map(path)
 
     def _fast_restorable(self, z) -> bool:
         if "chunk_geom" not in z:
@@ -642,6 +649,7 @@ class ChunkedAllPairs:
         """Place the checkpointed entry buffers; skip every build pass."""
         n_chunks, chunk_cap, _, _ = (int(v) for v in z["chunk_geom"])
         self.ids = list(ids)
+        self.id_to_row = {v: k for k, v in enumerate(self.ids)}
         self._shadow = GrowableCSR(self.cfg.vector_dim)
         self._shadow.append(csr)
         self.n_rows = csr.n_rows

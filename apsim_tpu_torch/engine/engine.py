@@ -1,5 +1,5 @@
 """Single-device all-pairs similarity engine (the PyTorch counterpart of
-``apsim_tpu/engine/engine.py``; the batch-join slice).
+``apsim_tpu/engine/engine.py``).
 
 One object holds:
 
@@ -7,7 +7,7 @@ One object holds:
     ``"cuda"``, unless the caller names another; no fallback to the CPU),
     over compact frequency-ordered columns (the inverted-index replacement);
   - a host float64 CSR shadow (exact rescoring, checkpoints);
-  - per-dimension max weights.
+  - running per-dimension max weights (admission pruning).
 
 ``build`` fills the index; ``all_pairs`` is the exact thresholded cosine
 join: a kernel pass over the upper-triangle blocks keeps a proven candidate
@@ -15,9 +15,17 @@ superset at ``tau_eff`` and the host fp64 rescore makes the emitted pair set
 equal the fp64 brute-force oracle.  An index the kernels refuse
 (``use_pallas="off"``, ``matmul_precision="highest"``, capacities they do
 not tile) takes the full-rectangle join of ``ops/score.allpairs_extract``.
-``load`` reads the JAX package's ``index.npz`` checkpoints.  Streaming
-``insert``, ``topk``, ``freeze`` and ``save`` are not ported yet and raise
-``NotImplementedError``.
+
+``insert`` streams micro-batches matched online against the live index
+(index-before-query, so intra-batch pairs come out both ways), with the
+reference's component filter and admission pruning, dormant-dim
+activation and a rollback on device failure; ``defer=True`` leaves the
+candidates' D2H copy and fp64 rescore to ``PendingInsert.result``.
+``topk`` is the provably exact k-nearest query (device fetch grown until
+the margin proof holds, then an fp64 re-rank); ``freeze`` turns inserts
+into frozen-index matching.  ``load`` reads the JAX package's
+``index.npz`` checkpoints, its static max-weight map included.  ``save`` is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,9 +46,10 @@ from ..ops import tri_score
 from ..utils.logging import Timer, get_logger
 from ..vector.batch import CSRMatrix, pack_coo_i32, round_up
 from ..vector.sparse import SparseVector
-from .output import PairResult
+from .output import PairResult, SimilarityOutput
 
-__all__ = ["Engine", "BuildStats"]
+__all__ = ["Engine", "BuildStats", "PendingInsert", "assemble_topk",
+           "fetch_exact_topk"]
 
 
 class BuildStats(dict):
@@ -70,6 +79,91 @@ def _as_csr(
     return csr, out_ids
 
 
+class _CompletedInsert:
+    """Already-finished insert result (frozen, empty and dropped batches)."""
+
+    def __init__(self, out: SimilarityOutput):
+        self._out = out
+
+    def result(self) -> SimilarityOutput:
+        return self._out
+
+
+class PendingInsert:
+    """Deferred completion of a streaming insert.
+
+    When ``insert`` returns, the batch is in the index and its match has
+    run on the device (``torch.nonzero`` waits for it); the candidates'
+    D2H copy and the fp64 rescore are left to :meth:`result`, which a
+    caller can run after handing the next batch to the engine (the
+    server's ingest pipelining).  Safe across later inserts: the
+    candidates are rows and columns of this insert's index state, and the
+    rescore reads shadow rows that later inserts only append to."""
+
+    def __init__(self, eng: "Engine", rows: torch.Tensor, cols: torch.Tensor,
+                 tau: float):
+        self._e = (eng, rows, cols, tau)
+        self._out: SimilarityOutput | None = None
+
+    def result(self) -> SimilarityOutput:
+        if self._out is None:
+            eng, rows, cols, tau = self._e
+            with eng.timer.section("d2h"):
+                rows, cols = rows.cpu().numpy(), cols.cpu().numpy()
+            with eng.timer.section("rescore"):
+                self._out = eng._emit_query_results(cols, rows, tau)
+            self._e = None
+        return self._out
+
+
+def assemble_topk(qids, qi_idx, cand_idx, sims, k_eff: int, ids):
+    """Group flat (query, candidate, sim) triples per query, dedup
+    candidates (dormant-hit extras may repeat a fetched row) and return the
+    fp64-ranked top ``k_eff`` per query id.  One stable argsort over the
+    flat arrays instead of a per-query boolean mask — O(total·log total),
+    not O(nq·total)."""
+    out = {}
+    qi_idx = np.asarray(qi_idx)
+    order = np.argsort(qi_idx, kind="stable")
+    qs = qi_idx[order]
+    bounds = np.searchsorted(qs, np.arange(len(qids) + 1))
+    for qi, qid in enumerate(qids):
+        sel = order[bounds[qi] : bounds[qi + 1]]
+        rr, ss = np.asarray(cand_idx)[sel], np.asarray(sims)[sel]
+        uniq, first = np.unique(rr, return_index=True)
+        rr, ss = uniq, ss[first]
+        top = np.argsort(-ss, kind="stable")[:k_eff]
+        out[qid] = [(ids[int(rr[t])], float(ss[t])) for t in top]
+    return out
+
+
+def fetch_exact_topk(fetch, n_rows: int, k_eff: int, margin: float):
+    """Grow the candidate fetch until it provably contains the true top-k.
+
+    ``fetch(k_fetch) -> (dev_scores [nq, k_fetch], rows [nq, k_fetch])``
+    returns the device's top ``k_fetch`` per query, scores descending.  The
+    fetched set is sufficient for query q once
+    ``dev_scores[q, -1] < dev_scores[q, k_eff-1] - margin`` with
+    ``margin = 2m`` (see Engine.topk docstring for the bound), because every
+    unfetched candidate scores at most the minimum fetched score.  Fetching
+    all ``n_rows`` is trivially sufficient.  Depths double, so at most
+    O(log n) device calls happen, and only on adversarially tie-dense
+    corpora.  The stop test is a strict ``<``, so the arbitrary order in
+    which ``torch.topk`` returns tied scores cannot end the growth early.
+
+    Returns ``(rows, k_fetch)`` of the final sufficient fetch.
+    """
+    k_fetch = min(n_rows, max(4 * k_eff, k_eff + 64))
+    while True:
+        scores, rows = fetch(k_fetch)
+        if k_fetch >= n_rows:
+            return rows, k_fetch
+        cutoff = scores[:, k_eff - 1] - margin
+        if bool(np.all(scores[:, -1] < cutoff)):
+            return rows, k_fetch
+        k_fetch = min(n_rows, 2 * k_fetch)
+
+
 class Engine:
     def __init__(self, config: AllPairsConfig | None = None,
                  device: torch.device | str = "cuda"):
@@ -96,12 +190,17 @@ class Engine:
         self._scipy_cache: tuple | None = None
         self._compact_cache: tuple | None = None
         self.max_weights = np.zeros(self.cfg.vector_dim, dtype=np.float64)
+        # corpus-wide maxima installed by set_max_weight_map (admission)
+        self._static_max_weights: np.ndarray | None = None
         self._max_norm = 0.0  # largest row L2 norm seen (margin scaling)
+        self._frozen = False
         self.stats: Dict[str, float] = {
             "vectors_indexed": 0,
+            "vectors_dropped_admission": 0,
             "candidates_scored": 0,
             "candidate_pairs": 0,  # device candidates sent to the rescore
             "pairs_emitted": 0,
+            "insert_batches": 0,
             "dormant_dims": 0,
         }
         self.timer = Timer()  # per-stage wall timings
@@ -110,11 +209,12 @@ class Engine:
         self._int8_off = False
         self._used_int8 = False
         # dormant-dim archive: df==1 dims are kept OFF the device index (they
-        # cannot contribute to any i != j pair); their single (row, value)
-        # entry lives here for the insert path to activate
+        # cannot contribute to any i != j pair) and their single (row, value)
+        # entry lives here until an insert shares the dim (activation)
         self._dorm_rows = np.empty(0, np.int64)
         self._dorm_dims = np.empty(0, np.int64)
         self._dorm_vals = np.empty(0, np.float64)
+        self._dorm_buf = None  # capacity-doubling backing of the three above
         self._dormant_of_ext: np.ndarray | None = None
 
     # ------------------------------------------------------------------ sizes
@@ -517,16 +617,585 @@ class Engine:
         self.stats["pairs_emitted"] += i.size
         return PairResult(i, j, sims, list(self.ids))
 
-    # ------------------------------------------------------- not ported yet
-    def insert(self, vectors, tau=None, bulk=False, defer=False):
-        raise _not_ported("streaming insert", "item B")
+    # ----------------------------------------------------------------- insert
+    def insert(
+        self,
+        vectors: Sequence[Tuple[str, SparseVector]],
+        tau: float | None = None,
+        bulk: bool = False,
+        defer: bool = False,
+    ) -> "SimilarityOutput | PendingInsert":
+        """Streaming micro-batch insert matched online against the live index.
 
-    def topk(self, queries, k):
-        raise _not_ported("topk", "item B")
+        Reproduces the reference streaming path semantics in order:
+          1. drop components with ``value <= index_threshold``
+             (WriteWorkerActor.scala:192, fine-print #5);
+          2. max-weight admission pruning at the entry
+             (EntryProxyActor.scala:81-93) — configurable: the reference's
+             all-1.0 stub, real running max weights, or off;
+          3. index-before-query: the batch joins the index first, then every
+             batch vector queries, so intra-batch pairs surface symmetrically
+             (IndexingWorkerActor.scala:123-132, fine-print #2);
+          4. when frozen (benchmark mode), skip indexing but keep querying
+             (IndexingWorkerActor.scala:143-144).
 
+        ``bulk=True`` is the LoadData/HBase ingest path: it skips the
+        component filter and admission pruning (both live on the VectorIOMsg
+        path only — WriteWorkerActor.scala:185-202 vs :153-161) but still
+        matches online.  ``defer=True`` returns an object whose ``result()``
+        gives the output (``PendingInsert``)."""
+        with self.timer.section("insert"):
+            return self._insert_impl(vectors, tau, bulk, defer)
+
+    def _insert_impl(self, vectors, tau, bulk, defer):
+        tau = self.cfg.similarity_threshold if tau is None else float(tau)
+        self.stats["insert_batches"] += 1
+        filtered: List[Tuple[str, SparseVector]] = []
+        with self.timer.section("admit"):
+            for vid, vec in vectors:
+                if not bulk:
+                    if self.cfg.index_threshold > 0:
+                        vec = vec.filter_values_above(self.cfg.index_threshold)
+                    if not self._admit(vec, tau):
+                        self.stats["vectors_dropped_admission"] += 1
+                        continue
+                filtered.append((vid, vec))
+        if not filtered:
+            empty = SimilarityOutput({}, time.time())
+            return _CompletedInsert(empty) if defer else empty
+        csr, new_ids = _as_csr(filtered, None, self.cfg.vector_dim)
+
+        if self._frozen:
+            out = self._match_external(csr, new_ids, tau)
+            return _CompletedInsert(out) if defer else out
+
+        n0 = self.n_rows
+        dorm0 = self._dorm_rows.size  # archive rollback point (see below)
+        with self.timer.section("prepare"):
+            keep_csr = self._stream_archive_singletons(csr, n0)
+            self._grow_for(csr, extend=False)
+            act = self._activate_dormant(csr.indices, collect=True)
+            compact_csr = self.compact.map_csr(keep_csr, extend=False)
+            # host bookkeeping first so the error margin (tau_eff) already
+            # covers the batch's norms before any device scoring
+            self.n_rows = n0 + csr.n_rows
+            for k, vid in enumerate(new_ids):
+                self.id_to_row[vid] = n0 + k
+            self.ids.extend(new_ids)
+            self._append_shadow(csr)
+            np.maximum.at(self.max_weights, csr.indices, csr.data)
+            self._note_norms(csr)
+            self.stats["vectors_indexed"] += csr.n_rows
+
+        try:
+            return self._insert_device_phase(act, compact_csr, n0, tau, defer)
+        except Exception:
+            # device failure after the host commit: roll back to the
+            # pre-batch state so the caller's drop/retry sees a consistent
+            # engine (no phantom rows) — see _recover_insert
+            self._recover_insert(n0, csr.n_rows, dorm0)
+            raise
+
+    def _insert_device_phase(self, act, compact_csr, n0, tau, defer):
+        """Append the batch (and any activated dormant entries) to the
+        index, then match the batch's rows against it.  The bf16 copy the
+        products multiply (``_rect_operand``), when it exists and is in
+        step with ``x``, takes the same rows and entries, so a micro-batch
+        never pays an O(index) recast."""
+        tau_eff = self._tau_eff(tau)
+        kept = self._kept_bf16()
+        with self.timer.section("append"):
+            if act is not None:
+                self._scatter_activation(act)
+                self._commit_activation(act)
+            rows_b = np.repeat(
+                np.arange(compact_csr.n_rows, dtype=np.int64),
+                np.diff(compact_csr.indptr),
+            )
+            coo = pack_coo_i32(rows_b, compact_csr.indices, compact_csr.data,
+                               self.row_cap - n0)
+            score_ops.append_rows(self.x, coo, n0)
+            if kept is not None:
+                self._keep_in_step(kept, n0, act)
+            self._sync()
+        xo = self._rect_operand()
+        n1 = min(n0 + round_up(self.n_rows - n0, 8), self.row_cap)
+        rows, cols = score_ops.match_rows_extract(
+            xo, xo[n0:n1], n0, self.n_rows, tau_eff,
+            self.cfg.matmul_precision, timer=self.timer,
+        )
+        self.stats["candidates_scored"] += self.n_rows * (self.n_rows - n0)
+        pending = PendingInsert(self, rows, cols, tau)
+        return pending if defer else pending.result()
+
+    def _kept_bf16(self) -> torch.Tensor | None:
+        """The cached bf16 copy of the index when the products multiply it
+        (``score.rounds_to_bf16``) and it is in step with ``x``; else None.
+        A copy out of step is dropped."""
+        cached = self._bf16_cache
+        if cached is None or not score_ops.rounds_to_bf16(
+                self.x, self.cfg.matmul_precision):
+            return None
+        if cached[0] != (id(self.x), self.x._version):
+            self._bf16_cache = None
+            return None
+        return cached[1]
+
+    def _keep_in_step(self, kept: torch.Tensor, n0: int, act) -> None:
+        """Write the rows ``[n0, n_rows)`` and the activated entries of
+        ``x`` into its bf16 copy and re-key the copy to ``x``'s version.
+        Each element rounds to bf16 on its own, so the copy stays equal to
+        a fresh ``x.to(torch.bfloat16)`` bit for bit."""
+        kept[n0:self.n_rows] = self.x[n0:self.n_rows].to(torch.bfloat16)
+        if act is not None:
+            r = torch.from_numpy(np.asarray(act[0], np.int64)).to(self.device)
+            c = torch.from_numpy(np.asarray(act[1], np.int64)).to(self.device)
+            kept[r, c] = self.x[r, c].to(torch.bfloat16)
+        self._bf16_cache = ((id(self.x), self.x._version), kept)
+
+    def _recover_insert(self, n0: int, n_batch: int,
+                        dorm0: int | None = None) -> None:
+        """Roll back a failed micro-batch insert: truncate host bookkeeping
+        to the pre-batch state and rebuild the device index from the shadow
+        (a failure inside the append can leave ``x`` half-written).  Without
+        this, a device failure left PHANTOM rows — present in the shadow/ids
+        but absent from every device result.  max_weights and the norm
+        margin are NOT rolled back: both are upper bounds, so keeping the
+        dropped batch's contribution is conservative.  Only safe when
+        nothing was appended after the failed batch; otherwise state is left
+        as it is."""
+        if self.n_rows != n0 + n_batch:
+            return  # later inserts landed; cannot roll back safely
+        if dorm0 is not None and self._dorm_rows.size > dorm0:
+            # roll back this batch's dormant-archive appends too: a stale
+            # entry references a rolled-back row, so a later _dormant_hits
+            # would emit candidate rows >= n_rows (out-of-range into the
+            # shadow/ids) and a later activation would scatter the value
+            # into a device row owned by a DIFFERENT re-inserted vector
+            dims_added = self._dorm_dims[dorm0:]
+            self._dormant_of_ext[dims_added] = -1
+            self._dorm_rows = self._dorm_rows[:dorm0]
+            self._dorm_dims = self._dorm_dims[:dorm0]
+            self._dorm_vals = self._dorm_vals[:dorm0]
+            self.stats["dormant_dims"] -= int(dims_added.size)
+        row_cap, dim_cap = self.row_cap, self.dim_cap
+        self.n_rows = n0
+        del self.ids[n0:]
+        self.id_to_row = {v: k for k, v in enumerate(self.ids)}
+        # truncate the growable shadow arrays (O(1): tail reused on append)
+        self._sh_rows = n0
+        self._sh_nnz = int(self._sh_indptr[n0])
+        self._scipy_cache = None
+        self._compact_cache = None
+        self.stats["vectors_indexed"] -= n_batch
+        shadow = self.shadow_csr()
+        compact_csr = self.compact.map_csr(
+            self._drop_unmapped(shadow), extend=False
+        )
+        self.x = self._new_index(compact_csr, row_cap, dim_cap)
+        # the rebuild just scattered EVERY mapped shadow entry — including
+        # archived entries whose dim this batch promoted (compact.extend is
+        # not rolled back).  Their archive marks are now stale: a later
+        # activation would scatter the value a SECOND time, inflating that
+        # row's device score beyond the margin and breaking topk's exact
+        # fetch.  Commit (clear) the marks of every mapped dim now.
+        if self._dormant_of_ext is not None:
+            marked = np.nonzero(self._dormant_of_ext >= 0)[0]
+            if marked.size:
+                mapped = self.compact.cols_of(marked) >= 0
+                n_clear = int(mapped.sum())
+                if n_clear:
+                    self._dormant_of_ext[marked[mapped]] = -1
+                    self.stats["dormant_dims"] -= n_clear
+
+    # -------------------------------------------------------------- admission
+    def set_max_weight_map(self, weights: np.ndarray) -> None:
+        """Install precomputed corpus-wide per-dim max weights (the
+        ``<table>_MAX`` statistic) for exact ``admission="real"`` pruning —
+        the thing the reference computes (HBaseUpLoader.scala:113-123) but
+        never loads back."""
+        if weights.shape != (self.cfg.vector_dim,):
+            raise ValueError("max weight map must cover vector_dim")
+        self._static_max_weights = np.asarray(weights, dtype=np.float64)
+
+    def _admit(self, vec: SparseVector, tau: float) -> bool:
+        """Upper-bound admission: dot(max_weights|support, v) >= tau
+        (EntryProxyActor.scala:81-93).
+
+        "real" with a static corpus map (``set_max_weight_map``) is exactly
+        lossless: the bound covers every corpus vector.  Without one, the
+        running-maxima bound is made self-inclusive (``max(m_d, v_d)``) so it
+        still dominates the similarity against everything seen so far — but a
+        *later* vector with larger weights can in principle form a pair with
+        an already-dropped one; use the static map when strict losslessness
+        against future inserts matters (documented in PARITY.md).
+        """
+        mode = self.cfg.admission
+        if mode == "off" or vec.nnz == 0:
+            return vec.nnz > 0
+        if mode == "real":
+            static = self._static_max_weights
+            if static is not None:
+                # the static map covers the STORED corpus; streamed vectors
+                # may exceed it, so fold in the running maxima (and the
+                # vector itself) — otherwise a heavy streamed v1 followed by
+                # a light v2 could drop v2 despite cos(v1, v2) >= tau,
+                # breaking the "exactly lossless" contract
+                bound = np.maximum(
+                    static[vec.indices],
+                    np.maximum(self.max_weights[vec.indices], vec.values),
+                )
+                admit = float(np.dot(bound, vec.values)) >= tau
+            else:
+                bound = np.maximum(self.max_weights[vec.indices], vec.values)
+                admit = float(np.dot(bound, vec.values)) >= tau
+            if not admit:
+                # record the dropped vector's weights so future bounds
+                # account for it
+                np.maximum.at(self.max_weights, vec.indices, vec.values)
+            return admit
+        # "ones": the reference's stub map (all weights 1.0)
+        return float(np.sum(vec.values)) >= tau
+
+    # ------------------------------------------------------ streaming growth
+    def _stream_archive_singletons(
+        self, csr: CSRMatrix, row_offset: int
+    ) -> CSRMatrix:
+        """Streaming analog of the build-time dormant tier: a brand-new dim
+        seen exactly ONCE (once in this batch, never before, not already
+        archived) cannot contribute to any i≠j pair yet, so its single entry
+        is archived host-side instead of minting a compact column — without
+        this, long streams inflate dim_cap far past the build path's.  Dims
+        appearing ≥2× in the batch, or whose archived partner just arrived,
+        are promoted (extended; `_activate_dormant` then moves the archived
+        entry onto the device).  Returns the csr filtered to device-bound
+        entries; the caller's shadow append keeps every entry, so exactness
+        is untouched.
+        """
+        if not self.cfg.dormant_dims:
+            self.compact.extend(csr.indices)
+            return csr
+        cols = self.compact.cols_of(csr.indices)
+        newm = cols < 0
+        if not newm.any():
+            return csr
+        if self._dormant_of_ext is None:
+            self._dormant_of_ext = np.full(
+                self.cfg.vector_dim, -1, np.int32
+            )
+        uniq, counts = np.unique(csr.indices[newm], return_counts=True)
+        in_archive = self._dormant_of_ext[uniq] >= 0
+        promote = uniq[(counts >= 2) | in_archive]
+        singles = uniq[(counts == 1) & ~in_archive]
+        if promote.size:
+            self.compact.extend(promote)
+        if singles.size == 0:
+            return csr
+        mark = np.zeros(self.cfg.vector_dim, bool)
+        mark[singles] = True
+        sel = mark[csr.indices]
+        row_of = np.repeat(np.arange(csr.n_rows), csr.row_nnz())
+        arch_dims = csr.indices[sel].astype(np.int64)
+        base = self._dorm_append(
+            (row_offset + row_of[sel]).astype(np.int64),
+            arch_dims,
+            csr.data[sel].astype(np.float64),
+        )
+        self._dormant_of_ext[arch_dims] = base + np.arange(
+            arch_dims.size, dtype=np.int32
+        )
+        self.stats["dormant_dims"] += int(arch_dims.size)
+        keep = ~sel
+        row_counts = np.zeros(csr.n_rows, np.int64)
+        np.add.at(row_counts, row_of[keep], 1)
+        indptr = np.zeros(csr.n_rows + 1, np.int64)
+        np.cumsum(row_counts, out=indptr[1:])
+        return CSRMatrix(
+            csr.n_rows, csr.n_cols, indptr, csr.indices[keep],
+            csr.data[keep],
+        )
+
+    def _dorm_append(self, rows, dims, vals) -> int:
+        """Amortized append to the dormant archive (capacity-doubling
+        buffers, exposed as views — per-batch cost O(batch), not
+        O(archive)); returns the first new archive index."""
+        n0 = self._dorm_rows.size
+        need = n0 + rows.size
+        buf = self._dorm_buf
+        if buf is None or need > buf[0].size:
+            cap = 1024
+            while cap < need:
+                cap *= 2
+            buf = (
+                np.empty(cap, np.int64),
+                np.empty(cap, np.int64),
+                np.empty(cap, np.float64),
+            )
+            buf[0][:n0] = self._dorm_rows
+            buf[1][:n0] = self._dorm_dims
+            buf[2][:n0] = self._dorm_vals
+            self._dorm_buf = buf
+        buf[0][n0:need] = rows
+        buf[1][n0:need] = dims
+        buf[2][n0:need] = vals
+        self._dorm_rows = buf[0][:need]
+        self._dorm_dims = buf[1][:need]
+        self._dorm_vals = buf[2][:need]
+        return n0
+
+    def _grow_for(self, csr: CSRMatrix, extend: bool = True) -> None:
+        """Make room for ``csr``'s rows and the compact space's columns:
+        the row capacity doubles from the row quantum, the column capacity
+        is ``CompactSpace.capacity`` (the JAX package's law, so ``row_cap``
+        and ``dim_cap`` equal its own after any stream and stay tiled for
+        the kernels)."""
+        if extend:
+            self.compact.extend(csr.indices)
+        need_rows = round_up(self.n_rows + csr.n_rows, self._row_quantum())
+        new_row_cap = self.row_cap
+        while new_row_cap < need_rows:
+            new_row_cap = max(new_row_cap * 2, self._row_quantum())
+        new_dim_cap = self.compact.capacity
+        if self.x is None:
+            self.x = score_ops.new_index_matrix(
+                new_row_cap, new_dim_cap, self.cfg.dtype, self.device
+            )
+        elif new_row_cap != self.row_cap or new_dim_cap != self.dim_cap:
+            self.x = score_ops.grow(self.x, new_row_cap, new_dim_cap)
+
+    # ------------------------------------------------------- frozen matching
+    def _match_external(
+        self, csr: CSRMatrix, qids: List[str], tau: float
+    ) -> SimilarityOutput:
+        """Frozen-index matching: queries are scored but not indexed."""
+        if self.x is None:
+            return SimilarityOutput({}, time.time())
+        qn = csr.row_norms()
+        if qn.size and float(qn.max()) > self._max_norm:
+            # widen the margin for out-of-distribution query norms
+            saved, self._max_norm = self._max_norm, float(qn.max())
+        else:
+            saved = None
+        try:
+            compact = self.compact.map_csr(
+                self._drop_unmapped(csr), extend=False
+            )
+            tau_eff = self._tau_eff(tau)
+        finally:
+            if saved is not None:
+                self._max_norm = saved
+        with self.timer.section("frozen_product"):
+            q = self._dense_queries(compact)
+            rows, qcols = score_ops.queries_match_extract(
+                self._rect_operand()[: self.n_rows], q, tau_eff,
+                self.cfg.matmul_precision,
+            )
+            rows, qcols = rows.cpu().numpy(), qcols.cpu().numpy()
+        self.stats["candidates_scored"] += self.n_rows * len(qids)
+        # queries sharing a dormant dim with an indexed row: the device score
+        # missed that contribution — add those rows as explicit candidates
+        extra_q, extra_r = self._dormant_hits(csr)
+        if extra_q.size:
+            rows = np.concatenate([rows, extra_r])
+            qcols = np.concatenate([qcols, extra_q])
+        # exact fp64 rescore via the native cross-pair path
+        shadow = self.shadow_csr()
+        out: Dict[str, Dict[str, float]] = {}
+        with self.timer.section("frozen_rescore"):
+            if len(rows):
+                rows_a = np.asarray(rows, np.int64)
+                qcols_a = np.asarray(qcols, np.int64)
+                sims = rescore_ops.cross_pair_dots(
+                    shadow.indptr, shadow.indices, shadow.data, shadow.n_cols,
+                    csr.indptr, csr.indices, csr.data, qcols_a, rows_a,
+                )
+                keep = sims >= tau
+                for r, qc, s in zip(rows_a[keep], qcols_a[keep], sims[keep]):
+                    out.setdefault(qids[int(qc)], {})[self.ids[int(r)]] = (
+                        float(s))
+        self.stats["pairs_emitted"] += sum(len(v) for v in out.values())
+        return SimilarityOutput(out, time.time())
+
+    def _dense_queries(self, compact: CSRMatrix) -> torch.Tensor:
+        """The query batch densified on the device in the index's dtype,
+        from one packed COO."""
+        rows_b = np.repeat(
+            np.arange(compact.n_rows, dtype=np.int64),
+            np.diff(compact.indptr),
+        )
+        coo = pack_coo_i32(rows_b, compact.indices, compact.data,
+                           compact.n_rows)
+        return score_ops.densify_rows(coo, compact.n_rows, self.dim_cap,
+                                      self.x.dtype, self.device)
+
+    # ------------------------------------------------- dormant dim activation
+    def _activate_dormant(self, ext_dims: np.ndarray, collect: bool = False):
+        """Insert-time activation: dims of the incoming batch that were
+        dormant just received compact columns; their archived entries must
+        now live on the device so new×old pairs through those dims score
+        correctly.  With ``collect=True`` the (rows, compact cols, vals,
+        dims) arrays are RETURNED for the caller to scatter in its device
+        phase."""
+        if self._dormant_of_ext is None:
+            return None
+        uniq = np.unique(np.asarray(ext_dims))
+        idxs = self._dormant_of_ext[uniq]
+        sel = idxs >= 0
+        if not sel.any():
+            return None
+        dims, idxs = uniq[sel], idxs[sel]
+        cols = self.compact.cols_of(dims).astype(np.int64)
+        # still-unmapped archived dims (this batch's fresh singletons) stay
+        # archived — only dims that just received a compact column activate
+        ok = cols >= 0
+        if not ok.any():
+            return None
+        dims, idxs, cols = dims[ok], idxs[ok], cols[ok]
+        rows = self._dorm_rows[idxs]
+        vals = self._dorm_vals[idxs]
+        # NOTE: the archive marks are NOT cleared here — the caller commits
+        # them (``_commit_activation``) after the device call that scatters
+        # the entries succeeds.  Clearing first would silently lose the
+        # entries if anything raises in between; the opposite failure mode
+        # (entries scattered but still marked → a later activation adds them
+        # again) only inflates device scores, which the margin/rescore
+        # contract absorbs as a superset.
+        act = (rows, cols, vals, dims)
+        if collect:
+            return act
+        self._scatter_activation(act)
+        self._commit_activation(act)
+        return None
+
+    def _commit_activation(self, act) -> None:
+        dims = act[3]
+        self._dormant_of_ext[dims] = -1
+        self.stats["dormant_dims"] -= int(dims.size)
+
+    def _scatter_activation(self, act) -> None:
+        """Add the activated entries into their (older) rows of the index;
+        ``score.scatter_entries`` refuses a repeated (row, col)."""
+        score_ops.scatter_entries(self.x, act[0], act[1], act[2])
+
+    def _dormant_hits(self, csr: CSRMatrix) -> Tuple[np.ndarray, np.ndarray]:
+        """External-query correction: unique (query_idx, index_row) pairs
+        that share a dormant dim — the device score misses that contribution,
+        so these rows must join the rescore candidate set explicitly."""
+        if self._dormant_of_ext is None or self._dorm_dims.size == 0:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        look = self._dormant_of_ext[csr.indices]
+        hit = look >= 0
+        if not hit.any():
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        row_of = np.repeat(np.arange(csr.n_rows), csr.row_nnz())
+        q = row_of[hit].astype(np.int64)
+        r = self._dorm_rows[look[hit]]
+        key = q * (self.n_rows + 1) + r
+        _, first = np.unique(key, return_index=True)
+        return q[first], r[first]
+
+    def _emit_query_results(
+        self, qrows: np.ndarray, crows: np.ndarray, tau: float
+    ) -> SimilarityOutput:
+        """qrows: query row index (batch member), crows: candidate row index;
+        exact-rescore and shape into the reference's query->candidates map."""
+        if qrows.size == 0:
+            return SimilarityOutput({}, time.time())
+        shadow = self.shadow_csr()
+        # mat_fn (not an eager mat): with the native merge available the
+        # scipy matrix is never touched, and eagerly rebuilding it here would
+        # cost O(corpus nnz) on EVERY streaming batch (the cache key changes
+        # per insert).  No compact= either, for the same reason.
+        sims = rescore_ops.pair_dots(
+            shadow.indptr, shadow.indices, shadow.data, qrows, crows,
+            shadow.n_cols, mat_fn=self._shadow_scipy,
+        )
+        keep = sims >= tau
+        out: Dict[str, Dict[str, float]] = {}
+        for q, c, s in zip(qrows[keep], crows[keep], sims[keep]):
+            out.setdefault(self.ids[int(q)], {})[self.ids[int(c)]] = float(s)
+        self.stats["pairs_emitted"] += int(keep.sum())
+        return SimilarityOutput(out, time.time())
+
+    # ------------------------------------------------------------------- topk
+    def topk(
+        self,
+        queries: Sequence[Tuple[str, SparseVector]],
+        k: int,
+    ) -> Dict[str, List[Tuple[str, float]]]:
+        """k nearest cosine neighbors per query over the static index.
+
+        Reported scores are exact float64 and the RESULT SET is provably
+        exact (up to ties at the k-th true score, where any valid selection
+        is returned): the device ranks candidates, we fetch the top
+        ``k_fetch`` and keep growing ``k_fetch`` until the margin condition
+        ``min(fetched device scores) < (k-th fetched device score) − 2m``
+        holds, where ``m`` bounds the device scoring error.  Proof sketch:
+        every true-top-k member c has ``dev(c) ≥ true(c) − m ≥ t* − m``
+        where ``t*`` is the k-th largest true score, and ``t* ≥ dev_k − m``
+        since the k best-by-device candidates all have true score
+        ``≥ dev_k − m``; hence ``dev(c) ≥ dev_k − 2m`` and c is fetched once
+        every candidate scoring above that cutoff is.  The fetched set is
+        then rescored in float64 and re-ranked — the same
+        superset-then-exact-rescore contract as the thresholded join.
+        Device scoring always runs at "highest" precision here (a true fp32
+        product, TF32 off: ``score.true_fp32_matmul``) so the margin (and
+        thus the fetch depth) stays small even in bf16 index mode.
+        """
+        if self.n_rows == 0:
+            return {qid: [] for qid, _ in queries}
+        k_eff = min(k, self.n_rows)
+        csr, qids = _as_csr(list(queries), None, self.cfg.vector_dim)
+        nq = len(qids)
+        if nq == 0:
+            return {}
+        compact = self.compact.map_csr(self._drop_unmapped(csr), extend=False)
+        q = self._dense_queries(compact)
+        xs = self.x[: round_up(self.n_rows, 8)]
+
+        def fetch(kf: int):
+            s, r = score_ops.topk_scores(xs, q, self.n_rows, kf, "highest")
+            return s.cpu().numpy(), r.cpu().numpy()
+
+        q_norms = csr.row_norms()
+        qmax = float(q_norms.max()) if q_norms.size else 0.0
+        m = self._margin_rel("highest") * max(self._max_norm * qmax, 1.0)
+        with self.timer.section("topk_fetch"):
+            rows, k_fetch = fetch_exact_topk(fetch, self.n_rows, k_eff, 2 * m)
+        # exact fp64 rescore of the fetched candidates (queries vs shadow;
+        # no stacked copy of the corpus); rows reachable only through a
+        # dormant dim join the candidate set explicitly (the device score
+        # missed that contribution, so the margin bound alone can't cover them)
+        with self.timer.section("topk_rescore"):
+            shadow = self.shadow_csr()
+            qi_idx = np.repeat(np.arange(nq), k_fetch)
+            cand_idx = rows.reshape(-1).astype(np.int64)
+            extra_q, extra_r = self._dormant_hits(csr)
+            if extra_q.size:
+                qi_idx = np.concatenate([qi_idx, extra_q])
+                cand_idx = np.concatenate([cand_idx, extra_r])
+            sims = rescore_ops.cross_pair_dots(
+                shadow.indptr, shadow.indices, shadow.data, shadow.n_cols,
+                csr.indptr, csr.indices, csr.data, qi_idx, cand_idx,
+            )
+        with self.timer.section("topk_assemble"):
+            return assemble_topk(qids, qi_idx, cand_idx, sims, k_eff,
+                                 self.ids)
+
+    # ----------------------------------------------------------------- freeze
     def freeze(self) -> None:
-        raise _not_ported("freeze", "item B")
+        """Benchmark freeze: stop index updates, keep serving queries
+        (the ReceiveTimeout branch, IndexingWorkerActor.scala:143-144)."""
+        self._frozen = True
 
+    def unfreeze(self) -> None:
+        self._frozen = False
+
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    # ------------------------------------------------------- not ported yet
     def save(self, path: str) -> None:
         raise _not_ported("save", "item C")
 
@@ -553,6 +1222,7 @@ class Engine:
         self._dorm_rows = np.empty(0, np.int64)
         self._dorm_dims = np.empty(0, np.int64)
         self._dorm_vals = np.empty(0, np.float64)
+        self._dorm_buf = None
         self._dormant_of_ext = None
         self.stats["dormant_dims"] = 0
         mapped = self.compact.cols_of(csr.indices) >= 0
@@ -625,6 +1295,15 @@ class Engine:
                 f"config vector_dim {self.cfg.vector_dim} ({path})"
             )
         self._restore_arrays(csr, ids, max_weights)
+        self._restore_static_map(path)
+
+    def _restore_static_map(self, path: str) -> None:
+        """The static max-weight map a checkpoint carries
+        (``set_max_weight_map``; the JAX package's ``save`` writes it as
+        ``static_max_weights``, empty when none was installed)."""
+        z = np.load(os.path.join(path, "index.npz"))
+        if "static_max_weights" in z and z["static_max_weights"].size:
+            self._static_max_weights = z["static_max_weights"]
 
     def _restore_arrays(self, csr: CSRMatrix, ids, max_weights) -> None:
         if self.n_rows:

@@ -1,20 +1,24 @@
-"""Result model (copied from ``apsim_tpu/engine/output.py``).
+"""Result model and emission modes (copied from
+``apsim_tpu/engine/output.py``; host only).
 
-Reference parity: ``SimilarityOutput(output: HashMap[qid -> HashMap[cid ->
-sim]], outputMoment)`` with its pretty-printer (Message.scala:20-35).  The
-time-batched emission (``OutputBatcher``) belongs to the serving stack and
-is not ported yet.
+Reference parity:
+  - ``SimilarityOutput(output: HashMap[qid -> HashMap[cid -> sim]],
+    outputMoment)`` with its pretty-printer (Message.scala:20-35);
+  - immediate emission when ``outputIODuration <= 0`` vs time-batched
+    coalescing flushed every ``outputIODuration`` ms
+    (IndexingWorkerActor.scala:122-141), ``OutputBatcher``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 
-__all__ = ["PairResult", "SimilarityOutput"]
+__all__ = ["PairResult", "SimilarityOutput", "OutputBatcher"]
 
 
 @dataclasses.dataclass
@@ -79,3 +83,52 @@ class SimilarityOutput:
     def merge_into(self, buf: Dict[str, Dict[str, float]]) -> None:
         for qid, sims in self.output.items():
             buf.setdefault(qid, {}).update(sims)
+
+
+class OutputBatcher:
+    """Emission-mode switch.
+
+    ``duration_ms <= 0``: every ``emit`` call forwards immediately (the
+    reference's ``outputWritingDuration <= 0`` branch).  Otherwise results
+    coalesce into a write buffer that a timer thread flushes every
+    ``duration_ms`` (the ``IOTicket`` loop, IndexingWorkerActor.scala:135-141).
+    """
+
+    def __init__(
+        self,
+        sink: Callable[[SimilarityOutput], None],
+        duration_ms: int = 0,
+    ):
+        self._sink = sink
+        self._duration_ms = duration_ms
+        self._buf: Dict[str, Dict[str, float]] = {}
+        self._lock = threading.Lock()
+        self._timer: threading.Thread | None = None
+        self._stop = threading.Event()
+        if duration_ms > 0:
+            self._timer = threading.Thread(target=self._loop, daemon=True)
+            self._timer.start()
+
+    def emit(self, out: SimilarityOutput) -> None:
+        if self._duration_ms <= 0:
+            if out.output:
+                self._sink(out)
+            return
+        with self._lock:
+            out.merge_into(self._buf)
+
+    def flush(self) -> None:
+        with self._lock:
+            buf, self._buf = self._buf, {}
+        if buf:
+            self._sink(SimilarityOutput(buf, time.time()))
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._timer is not None:
+            self._timer.join(timeout=2.0)
+        self.flush()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._duration_ms / 1000.0):
+            self.flush()

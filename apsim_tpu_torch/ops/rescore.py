@@ -19,8 +19,8 @@ except Exception:  # pragma: no cover
     _sp = None
 
 __all__ = [
-    "pair_dots", "default_margin", "build_compact", "as_scipy",
-    "grouped_available",
+    "pair_dots", "cross_pair_dots", "default_margin", "build_compact",
+    "as_scipy", "grouped_available",
 ]
 
 
@@ -72,6 +72,32 @@ def default_margin(dtype: str) -> float:
     """Device-error bound by score dtype: fp32 accumulate on fp32 inputs is
     ~1e-6 relative for these workloads; bfloat16 inputs need a far wider net."""
     return 1e-4 if dtype == "float32" else 5e-2
+
+
+def cross_pair_dots(
+    s_indptr, s_indices, s_data, n_cols,
+    q_indptr, q_indices, q_data,
+    qrows: np.ndarray, crows: np.ndarray,
+) -> np.ndarray:
+    """Exact fp64 dots between QUERY-matrix rows (qrows) and SHADOW rows
+    (crows) — top-k re-ranking and frozen matching.  Avoids materializing a
+    stacked copy of the shadow per call (that copy is O(corpus nnz))."""
+    qrows = np.asarray(qrows, dtype=np.int64)
+    crows = np.asarray(crows, dtype=np.int64)
+    from ..native import native_pair_dots
+
+    nat = native_pair_dots(
+        s_indptr, s_indices, s_data, q_indptr, q_indices, q_data,
+        crows, qrows,
+    )
+    if nat is not None:
+        return nat
+    # numpy fallback: stack the two matrices and reuse pair_dots
+    n_s = len(s_indptr) - 1
+    indptr = np.concatenate([s_indptr, s_indptr[-1] + q_indptr[1:]])
+    indices = np.concatenate([s_indices, q_indices])
+    data = np.concatenate([s_data, q_data])
+    return pair_dots(indptr, indices, data, qrows + n_s, crows, n_cols)
 
 
 def as_scipy(indptr, indices, data, n_cols):

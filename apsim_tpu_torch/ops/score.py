@@ -1,5 +1,5 @@
 """Dense-index device ops as torch ops (counterpart of
-``apsim_tpu/ops/score.py``, the parts the batch join uses).
+``apsim_tpu/ops/score.py``).
 
 The index is a dense ``[row_cap, dim_cap]`` matrix over compact columns (see
 ``index/compact.py``) that lives on an explicit device.  Sparse rows reach it
@@ -7,9 +7,18 @@ as the flat packed COO of ``vector.batch.pack_coo_i32``.
 
 ``allpairs_extract`` is the full-rectangle join: the path of every index
 the upper-triangle kernels refuse (``use_pallas="off"``,
-``matmul_precision="highest"``, an untiled or oversized index).  Its score
-tiles are **fp32** whatever the operands (``score_tile``): the engine's
-margins (``Engine._margin_rel``) count operand rounding and fp32
+``matmul_precision="highest"``, an untiled or oversized index).
+
+The streaming ops serve ``Engine.insert``, ``topk`` and frozen matching:
+``append_rows`` (a micro-batch's rows into the live index, in place),
+``scatter_entries`` (dormant-dim activation), ``grow``,
+``match_rows_extract`` (a batch against the index), ``densify_rows`` +
+``queries_match_extract`` (external queries) and ``topk_scores``.  They are
+plain functions on an explicit device: no caps, cursor, packed head or
+shape buckets; compaction is exact-length ``torch.nonzero``.
+
+Every score is **fp32** whatever the operands (``score_tile``): the
+engine's margins (``Engine._margin_rel``) count operand rounding and fp32
 accumulation, never a rounded score.
 """
 
@@ -23,9 +32,11 @@ import torch
 from . import tri_score as ts
 
 __all__ = [
-    "new_index_matrix", "scatter_coo", "capb_for", "MIN_TAU_EFF",
+    "new_index_matrix", "scatter_coo", "MIN_TAU_EFF",
     "true_fp32_matmul", "rounds_to_bf16", "score_operand", "score_tile",
-    "upper_buckets", "allpairs_extract",
+    "upper_buckets", "allpairs_extract", "append_rows", "scatter_entries",
+    "grow", "match_rows_extract", "densify_rows", "queries_match_extract",
+    "topk_scores",
 ]
 
 # floor for the device threshold: keeps all-zero (padded/invalid) rows out of
@@ -33,12 +44,6 @@ __all__ = [
 MIN_TAU_EFF = 1e-30
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def capb_for(cap: int, group: int) -> int:
-    """Level-1 group capacity implied by a pair cap (the JAX package's
-    formula, kept for the streaming paths' fixed-capacity buffers)."""
-    return max(cap // group, 1024)
 
 
 def new_index_matrix(
@@ -51,18 +56,131 @@ def scatter_coo(x: torch.Tensor, coo: np.ndarray) -> torch.Tensor:
     """Write the entries of ONE packed ``[3, ecap]`` int32 COO array (rows /
     cols / fp32 value bits) into ``x`` in place and return it.
 
-    Padding entries carry ``row == row_cap``: XLA's scatter drops them
-    silently, torch's ``index_put_`` raises on out-of-bounds indices, so they
-    are filtered first.  The caller guarantees unique (row, col) entries that
-    land on zeros (a fresh index), so a plain assignment equals the JAX
-    package's ``.add(unique_indices=True)``."""
-    c = torch.from_numpy(coo).to(x.device)
-    keep = c[0] < x.shape[0]
-    rows = c[0][keep].long()
-    cols = c[1][keep].long()
-    vals = c[2][keep].view(torch.float32).to(x.dtype)
+    Padding entries carry ``row == row_cap`` and are dropped
+    (``_coo_entries``).  The caller guarantees unique (row, col) entries
+    that land on zeros (a fresh index), so a plain assignment equals the
+    JAX package's ``.add(unique_indices=True)``."""
+    rows, cols, vals = _coo_entries(coo, x.shape[0], x.device, x.dtype)
     x.index_put_((rows, cols), vals)
     return x
+
+
+def _coo_entries(coo: np.ndarray, n: int, device, dtype):
+    """(rows, cols, vals) of a packed COO on ``device``, the entries whose
+    row lies in ``[0, n)`` only: padding rows carry a row id ``>= n``, and
+    torch has no scatter mode that drops them (XLA's drops them silently,
+    ``index_put_`` raises)."""
+    c = torch.from_numpy(coo).to(device)
+    keep = c[0] < n
+    return (c[0][keep].long(), c[1][keep].long(),
+            c[2][keep].view(torch.float32).to(dtype))
+
+
+# --------------------------------------------------------- streaming ops
+
+
+def append_rows(x: torch.Tensor, coo: np.ndarray, s0: int) -> torch.Tensor:
+    """Add a micro-batch's entries into ``x[s0:]`` in place and return
+    ``x`` (``apsim_tpu/ops/score.py:scatter_rows_sliced``).
+
+    ``coo`` is one packed ``[3, ecap]`` COO whose rows are LOCAL to ``s0``;
+    padding entries carry a row ``>= row_cap - s0`` and are dropped.  The
+    add touches only the batch's entries, so it costs O(batch nnz), never a
+    pass over the index.  The caller guarantees unique (row, col) entries,
+    so ``accumulate=True`` is the JAX ``.add(unique_indices=True)``."""
+    rows, cols, vals = _coo_entries(coo, x.shape[0] - s0, x.device, x.dtype)
+    x[s0:].index_put_((rows, cols), vals, accumulate=True)
+    return x
+
+
+def scatter_entries(x: torch.Tensor, rows: np.ndarray, cols: np.ndarray,
+                    vals: np.ndarray) -> torch.Tensor:
+    """Add arbitrary ``(row, col, val)`` host entries into ``x`` in place and
+    return it (the dormant-dim activation's add into older rows,
+    ``apsim_tpu/ops/score.py:scatter_entries``).  Raises ``ValueError`` on a
+    repeated (row, col): an accumulating scatter would add the value twice,
+    where the JAX scatter assumes ``unique_indices``."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    keys = rows * x.shape[1] + cols
+    if np.unique(keys).size != keys.size:
+        raise ValueError("scatter_entries: repeated (row, col) entries")
+    r = torch.from_numpy(rows).to(x.device)
+    c = torch.from_numpy(cols).to(x.device)
+    v = torch.from_numpy(np.asarray(vals, np.float32)).to(x.device)
+    x.index_put_((r, c), v.to(x.dtype), accumulate=True)
+    return x
+
+
+def grow(x: torch.Tensor, row_cap: int, dim_cap: int) -> torch.Tensor:
+    """A new zero ``[row_cap, dim_cap]`` matrix with ``x`` in its top-left
+    corner (capacity growth)."""
+    out = torch.zeros((row_cap, dim_cap), dtype=x.dtype, device=x.device)
+    out[: x.shape[0], : x.shape[1]] = x
+    return out
+
+
+def match_rows_extract(xo: torch.Tensor, q: torch.Tensor, n0: int,
+                       n_rows: int, tau_eff, precision: str, timer=None):
+    """Candidates of a streamed batch against the index it has just joined
+    (``match_tile_extract`` / ``insert_match_fused`` of the JAX package).
+
+    ``xo`` is the index in the form ``score_tile`` multiplies
+    (``score_operand``); ``q`` its rows from global row ``n0`` on, the
+    batch (callers round its height up to a multiple of 8; the rows past
+    ``n_rows`` are zero).  Scores ``xo[:n_rows] @ q^T`` (fp32) and returns
+    device int64 ``(rows, cols)`` of every cell with ``s >= tau_eff`` and
+    ``row != col``, ``cols`` as global row ids (``>= n0``).  Both directions
+    of an intra-batch pair come out.
+
+    The JAX op scores a whole static tile window; the window's other
+    columns lie below ``n0`` (masked there) or are zero rows (score 0 <
+    ``MIN_TAU_EFF``), so the candidate set is the same.  With a ``Timer``
+    the product is timed as "product", mask and ``nonzero`` as "compact"."""
+    with ts._section(timer, "product"):
+        s = score_tile(xo[:n_rows], q, precision)
+        if s.is_cuda and timer is not None:
+            torch.cuda.synchronize(s.device)
+    with ts._section(timer, "compact"):
+        m = s >= float(tau_eff)
+        k = min(q.shape[0], n_rows - n0)
+        # the batch's own cells: row n0 + j against column j
+        m[n0 + torch.arange(k, device=s.device),
+          torch.arange(k, device=s.device)] = False
+        hit = torch.nonzero(m)
+    return hit[:, 0], hit[:, 1] + n0
+
+
+def densify_rows(coo: np.ndarray, n: int, dim_cap: int, dtype,
+                 device) -> torch.Tensor:
+    """Dense ``[n, dim_cap]`` rows of ``dtype`` from one packed COO
+    (padding rows carry ``n``): the on-device densify of the JAX package's
+    ``queries_match_fused`` and ``topk_scores_fused``."""
+    q = torch.zeros((n, dim_cap), dtype=dtype, device=device)
+    rows, cols, vals = _coo_entries(coo, n, device, dtype)
+    q.index_put_((rows, cols), vals, accumulate=True)
+    return q
+
+
+def queries_match_extract(xo: torch.Tensor, q: torch.Tensor, tau_eff,
+                          precision: str):
+    """Frozen-index match (``queries_match_fused`` / ``dense_queries_extract``):
+    device int64 ``(index rows, query rows)`` of every cell of ``xo @ q^T``
+    (fp32) with ``s >= tau_eff``.  ``q`` comes from ``densify_rows``."""
+    hit = torch.nonzero(score_tile(xo, q, precision) >= float(tau_eff))
+    return hit[:, 0], hit[:, 1]
+
+
+def topk_scores(x: torch.Tensor, q: torch.Tensor, n_rows: int, k: int,
+                precision: str = "highest"):
+    """Top ``k`` scores per query row and their index rows, descending:
+    ``(scores [nq, k] fp32, rows [nq, k] int64)``.  Rows ``>= n_rows`` are
+    masked to ``-inf``; ``x`` may be cut to fewer rows than its capacity
+    but must hold at least ``n_rows``.  ``torch.topk`` orders ties
+    arbitrarily (``Engine.topk`` re-ranks in fp64)."""
+    s = score_tile(q, x, precision)
+    s[:, n_rows:] = -float("inf")
+    return torch.topk(s, k, dim=1)
 
 
 # ------------------------------------------------------ full-rectangle join

@@ -15,7 +15,7 @@ and the panel ops are rerouted.
 The stripe join (``pallas_int8=False``, ``use_pallas="off"``, a tripped
 int32 gate) runs sharded too (``ops/chunked_mesh.py``): every shard scores
 the stripe over its own chunks and the partial accumulators are summed
-before the one epilogue.  ``insert``, ``topk`` and ``freeze`` (item B) and
+before the one epilogue.  ``insert``, ``topk`` and ``freeze`` (item B2) and
 ``save`` (item C) raise ``NotImplementedError`` as in the single-device
 engine.  The single-slab tier never applies: slabs are shard-split.
 """

@@ -28,7 +28,8 @@ case (the dims and 2-D layouts, and a rows mesh whose kernel path is
 refused: demoted, gated, ``matmul_precision="highest"``,
 ``use_pallas="off"``, ``pallas_int8=False``) joins through the rectangle
 over the mesh (``ops/mesh_score.py``).  With one shard it is ``Engine``,
-kernel path and all.
+kernel path, streaming inserts, top-k and all; with more, ``insert`` and
+``topk`` raise (ROADMAP item G.2: the block-wise insert and top-k).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from ..config import AllPairsConfig
-from ..engine.engine import Engine
+from ..engine.engine import Engine, _not_ported
 from ..engine.chunked import INT8_NNZ_GATE
 from ..ops import mesh_pallas
 from ..ops import mesh_score
@@ -168,6 +169,33 @@ class MeshEngine(Engine):
 
     def _sync(self) -> None:
         sync(self.mesh.devices)
+
+    @property
+    def x(self):
+        """The index with one shard (None with more)."""
+        return self._x
+
+    @x.setter
+    def x(self, val):
+        # with one shard the blocks are the index: a grown or rebuilt x
+        # must replace them, or row_cap / dim_cap would read a stale block
+        Engine.x.fset(self, val)
+        if self.n_shards == 1:
+            self.x_blocks = [] if val is None else [val]
+            self._block_operands = None
+
+    # ------------------------------------------------ streaming (one shard)
+    def insert(self, vectors, tau=None, bulk=False, defer=False):
+        if self.n_shards > 1:
+            raise _not_ported("MeshEngine.insert over more than one shard",
+                              "item G.2")
+        return super().insert(vectors, tau, bulk, defer)
+
+    def topk(self, queries, k):
+        if self.n_shards > 1:
+            raise _not_ported("MeshEngine.topk over more than one shard",
+                              "item G.2")
+        return super().topk(queries, k)
 
     @property
     def row_cap(self) -> int:

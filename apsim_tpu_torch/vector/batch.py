@@ -3,8 +3,9 @@
 What the batch joins need: :class:`CSRMatrix`, the host CSR that ETL, the
 oracle and the dense engine's fp64 shadow use; :class:`GrowableCSR`, the
 chunked engine's append-only fp64 shadow; and the flat packed COO that the
-index build scatters onto the device.  The padded ``[rows, k]`` layout
-belongs to the streaming paths and is not ported yet.
+index build and the streaming inserts and queries move onto the device.
+The JAX package's padded ``[rows, k]`` layout is not ported: no path of
+the port uses it.
 """
 
 from __future__ import annotations

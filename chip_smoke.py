@@ -96,6 +96,24 @@ result line):
    ``_int8_off = True``, and ``MeshChunkedAllPairs(pallas_int8=False)``
    over 8 shards on the 100,000 rows (one join).
 
+8. The dense engine's streaming path on phase 3's corpus.  ``Engine``
+   builds on rows 0-24,575; every other row is streamed through
+   ``insert(tau=0.8)`` (16 batches of 1, 16 of 32, then 256-row batches to
+   the last row), which grows the row capacity to 49,152.  Gates: the
+   build join's pairs and every insert's output, as unordered pairs, equal
+   the fp64 oracle's; ``all_pairs(0.8)`` of the streamed index launches
+   kernel 1 (counters zeroed just before) and equals the oracle; the bf16
+   copy the inserts kept equals ``x.to(bfloat16)`` bit for bit;
+   ``topk(k=10)`` for 1,024 queries (512 corpus rows under new ids, 512 of
+   another seed) matches a dense fp64 top-k on the card rank for rank
+   within 1e-12 (ids equal where the 10th and 11th scores differ by more),
+   with ``allow_tf32`` on beforehand and unchanged after; ``freeze`` then
+   256 inserts (128 corpus copies, 128 of a third seed) equal the fp64
+   oracle at tau = 0.8 and index nothing.  Then, on rows of their own
+   seed, host-clock timings (warm, median of 9): insert + ``result()`` at
+   bs = 1, 32 and 256 with the stage split at 256, eight bs = 256 batches
+   pipelined one deep with ``defer=True``, ``topk`` and frozen matching.
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -116,7 +134,7 @@ import torch
 
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
-                             make_mesh)
+                             SparseVector, make_mesh)
 from apsim_tpu_torch.bench.ooc import join_ops, profile_join
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
@@ -138,6 +156,7 @@ OOC_ROWS = 100_000
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 ops/s, bf16 flop/s, HBM
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12  # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -661,6 +680,325 @@ def compare_stripe_mm(eng: ChunkedAllPairs, q0: int, c: int) -> dict:
     return compare_mm(slab, xj, f"int8 stripe q0={q0}, chunk {c}")
 
 
+# ------------------------------------------------ phase 8: the streaming path
+STREAM_BUILD = 24_576
+
+
+def csr_rows(csr: CSRMatrix, lo: int, hi: int) -> CSRMatrix:
+    """Rows [lo, hi) of ``csr`` as a CSR of their own."""
+    a, b = int(csr.indptr[lo]), int(csr.indptr[hi])
+    return CSRMatrix(hi - lo, csr.n_cols, csr.indptr[lo:hi + 1] - a,
+                     csr.indices[a:b], csr.data[a:b])
+
+
+def dense64(csr: CSRMatrix, dev) -> torch.Tensor:
+    """fp64 ``[rows, 32768]`` of a synthetic corpus (its dims lie below
+    32,768) on the card: the streaming oracle's operand."""
+    rows = np.repeat(np.arange(csr.n_rows), np.diff(csr.indptr))
+    d = torch.zeros((csr.n_rows, 32768), dtype=torch.float64, device=dev)
+    d[torch.from_numpy(rows).to(dev),
+      torch.from_numpy(csr.indices.astype(np.int64)).to(dev)] = (
+        torch.from_numpy(csr.data).to(dev))
+    return d
+
+
+def median_host_ms(fn, reps: int = 9) -> float:
+    """Median host-clock time of ``fn`` over ``reps`` warm runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def dims_step(eng: Engine, csr: CSRMatrix, d: torch.Tensor,
+              want: set) -> None:
+    """Column growth and dormant activation on the streamed index: 64
+    corpus rows with their dims moved past the corpus's mint columns (dims
+    seen twice in the batch) and archive the rest as singletons; copies of
+    eight of them then activate those singletons, whose entries go into
+    the older rows of ``x`` and of its kept bf16 copy, without growth. The
+    outputs equal an fp64 oracle, and the join of the grown index (kernel
+    1) equals the old pair set with the new pairs."""
+    picks = np.arange(7, csr.n_rows, csr.n_rows // 64)[:64]
+    vecs = []
+    for p in picks:
+        v = csr.row(int(p))
+        vecs.append(SparseVector(v.size, v.indices + 32768, v.values))
+    n0 = eng.n_rows
+    ids = [str(n0 + k) for k in range(72)]
+    cap0, dorm0 = eng.dim_cap, eng.stats["dormant_dims"]
+    union = set()
+
+    def add(out) -> None:
+        for q, cands in out.output.items():
+            for c in cands:
+                a, b = int(q), int(c)
+                union.add((min(a, b), max(a, b)))
+
+    add(eng.insert(list(zip(ids[:64], vecs)), tau=TAU))
+    cap1, dorm1 = eng.dim_cap, eng.stats["dormant_dims"]
+    kept1 = eng._bf16_cache[1]
+    if cap1 <= cap0 or dorm1 <= dorm0:
+        raise AssertionError(f"new dims: dim_cap {cap0} -> {cap1}, dormant "
+                             f"dims {dorm0} -> {dorm1}")
+    add(eng.insert(list(zip(ids[64:], vecs[:8])), tau=TAU))
+    dorm2 = eng.stats["dormant_dims"]
+    key, kept = eng._bf16_cache
+    if eng.dim_cap != cap1 or dorm2 >= dorm1:
+        raise AssertionError(f"activation: dim_cap {cap1} -> {eng.dim_cap}, "
+                             f"dormant dims {dorm1} -> {dorm2}")
+    if kept is not kept1 or key != (id(eng.x), eng.x._version) or not (
+            torch.equal(kept, eng.x.to(torch.bfloat16))):
+        raise AssertionError("the activation's entries are not in the kept "
+                             "bf16 copy, or the copy was recast")
+    # fp64 oracle of the 72 new rows against the corpus and each other
+    rows = np.repeat(np.arange(72), [v.indices.size for v in vecs + vecs[:8]])
+    q = torch.zeros((72, 65536), dtype=torch.float64, device=d.device)
+    q[torch.from_numpy(rows).to(d.device),
+      torch.from_numpy(np.concatenate(
+          [v.indices for v in vecs + vecs[:8]]).astype(np.int64)).to(
+              d.device)] = torch.from_numpy(np.concatenate(
+                  [v.values for v in vecs + vecs[:8]])).to(d.device)
+    want_new = set()
+    ii, rr = torch.nonzero(q[:, :32768] @ d.T >= TAU, as_tuple=True)
+    want_new.update((r, n0 + i) for i, r in zip(ii.tolist(), rr.tolist()))
+    ii, jj = torch.nonzero(q @ q.T >= TAU, as_tuple=True)
+    want_new.update((n0 + i, n0 + j) for i, j in zip(ii.tolist(), jj.tolist())
+                    if i < j)
+    if union != want_new:
+        raise AssertionError(f"new-dims inserts differ from the fp64 oracle: "
+                             f"{len(union - want_new)} extra, "
+                             f"{len(want_new - union)} missing")
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    if ts.LAUNCHES["score_bits_int8"] < 1 or not eng._used_int8:
+        raise AssertionError("the grown index's join did not launch "
+                             "score_bits_int8")
+    check_parity(res, want | want_new, "phase 8 join of the grown index")
+    log(f"phase 8 new dims: dim_cap {cap0} -> {cap1}, dormant dims {dorm0} "
+        f"-> {dorm1} -> {dorm2} (8 copies activated {dorm1 - dorm2}); kept "
+        f"bf16 copy in step; {len(union)} new pairs equal the fp64 oracle; "
+        f"join of the grown index (kernel 1, "
+        f"{ts.LAUNCHES['score_bits_int8']} launches) equals the oracle")
+
+
+def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
+                 smi: str) -> None:
+    """Phase 8: build on the first 24,576 rows of phase 3's corpus, stream
+    every other row through ``insert``, then hold the union of the outputs,
+    the join of the streamed index (and kernel 1 at its operands), the kept
+    bf16 copy, ``topk``, frozen matching and ``dims_step`` against fp64
+    oracles; then time the streaming entry points."""
+    t_phase = time.perf_counter()
+    eng = Engine(AllPairsConfig(), dev)
+    log(f"phase 8 build, {STREAM_BUILD} rows: "
+        f"{json.dumps(eng.build(csr_rows(csr, 0, STREAM_BUILD)))}")
+    caps0 = (eng.row_cap, eng.dim_cap)
+    res = eng.all_pairs(TAU)
+    union = set(zip(res.i.tolist(), res.j.tolist()))
+    sizes = [1] * 16 + [32] * 16
+    s = STREAM_BUILD
+    t0 = time.perf_counter()
+    n_batches = 0
+    while s < csr.n_rows:
+        bs = sizes[n_batches] if n_batches < len(sizes) else 256
+        e = min(s + bs, csr.n_rows)
+        out = eng.insert([(str(i), csr.row(i)) for i in range(s, e)], tau=TAU)
+        for q, cands in out.output.items():
+            for c in cands:
+                a, b = int(q), int(c)
+                union.add((min(a, b), max(a, b)))
+        s, n_batches = e, n_batches + 1
+    stream_s = time.perf_counter() - t0
+    if eng.n_rows != csr.n_rows or eng.row_cap != 2 * STREAM_BUILD:
+        raise AssertionError(f"stream: n_rows {eng.n_rows}, row_cap "
+                             f"{eng.row_cap}")
+    if union != want:
+        raise AssertionError(
+            f"streamed union differs from the fp64 oracle: "
+            f"{len(union - want)} extra, {len(want - union)} missing")
+    log(f"phase 8 stream: {n_batches} inserts of rows {STREAM_BUILD}-"
+        f"{csr.n_rows - 1} in {stream_s:.3f} s; (row_cap, dim_cap) {caps0} -> "
+        f"{(eng.row_cap, eng.dim_cap)}; build join + every insert's output: "
+        f"{len(union)} pairs equal the fp64 oracle")
+
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    launches = dict(ts.LAUNCHES)
+    log(f"phase 8 join of the streamed index, kernel launches: {launches}")
+    if launches["score_bits_int8"] < 1 or not eng._used_int8:
+        raise AssertionError("the streamed index's join did not launch "
+                             "score_bits_int8")
+    check_parity(res, want, "phase 8 join of the streamed index")
+    tm, tn = eng._tiles()
+    bi, bj = blocks(eng.row_cap, tm, tn, dev)
+    rec = compare("int8", eng._operands(True), bi, bj, eng._tau_eff(TAU),
+                  tm, tn, timed=False)
+    log(f"phase 8 int8 kernel vs plain at the streamed index's operands, "
+        f"row_cap={eng.row_cap} dim_cap={eng.dim_cap} "
+        f"({eng.row_cap - eng.n_rows} padding rows): {json.dumps(rec)}")
+    kernels[0].update(stream_join_launches=launches["score_bits_int8"],
+                      stream_max_abs_err=rec["max_abs_err"])
+    del bi, bj
+
+    key, kept = eng._bf16_cache
+    if key != (id(eng.x), eng.x._version) or not torch.equal(
+            kept, eng.x.to(torch.bfloat16)):
+        raise AssertionError("the kept bf16 copy is not a fresh cast of x")
+    log("phase 8 kept bf16 copy: in step with x, equal to x.to(bfloat16) "
+        "bit for bit")
+
+    # top-k: 512 corpus rows under new ids (ties at 1.0 with duplicates)
+    # and 512 rows of another seed, against an fp64 dense top-k
+    d = dense64(csr, dev)
+    qsrc = synthetic_corpus(512, seed=7)
+    picks = np.arange(0, csr.n_rows, csr.n_rows // 512)[:512]
+    queries = ([(f"t{r}", csr.row(int(r))) for r in picks]
+               + [(f"s{i}", qsrc.row(i)) for i in range(512)])
+    qd = torch.cat([d[torch.from_numpy(picks).to(dev)], dense64(qsrc, dev)])
+    sq = qd @ d.T
+    ora_s, ora_r = torch.topk(sq, 11, dim=1)
+    ora_s, ora_r = ora_s.cpu().numpy(), ora_r.cpu().numpy()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    top = eng.topk(queries, 10)
+    tf32_after = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 8 topk: allow_tf32 True before, {tf32_after} after")
+    if tf32_after is not True:
+        raise AssertionError("topk changed allow_tf32")
+    n_tied = 0
+    for qi, (qid, _) in enumerate(queries):
+        got = top[qid]
+        scores = np.array([v for _, v in got])
+        if len(got) != 10 or np.abs(scores - ora_s[qi, :10]).max() > 1e-12:
+            raise AssertionError(f"topk {qid}: scores {scores} vs fp64 "
+                                 f"{ora_s[qi, :10]}")
+        if ora_s[qi, 9] - ora_s[qi, 10] > 1e-12:
+            if {int(c) for c, _ in got} != set(ora_r[qi, :10].tolist()):
+                raise AssertionError(f"topk {qid}: ids differ from fp64")
+        else:
+            n_tied += 1
+    ids = torch.tensor([[int(c) for c, _ in top[q]] for q, _ in queries],
+                       device=dev)
+    mine = torch.tensor([[v for _, v in top[q]] for q, _ in queries],
+                        dtype=torch.float64, device=dev)
+    if float((torch.gather(sq, 1, ids) - mine).abs().max()) > 1e-12:
+        raise AssertionError("topk: a reported score is not its row's")
+    log(f"phase 8 topk(k=10), {len(queries)} queries: fp64 scores rank for "
+        f"rank within 1e-12 of the dense fp64 top-k, ids equal where the "
+        f"10th and 11th differ ({n_tied} queries tied there)")
+    del sq, qd
+
+    # frozen matching: queries are scored, not indexed
+    fsrc = synthetic_corpus(128, seed=11)
+    fpicks = np.arange(5, csr.n_rows, csr.n_rows // 128)[:128]
+    fq = ([(f"z{r}", csr.row(int(r))) for r in fpicks]
+          + [(f"y{i}", fsrc.row(i)) for i in range(128)])
+    fd = torch.cat([d[torch.from_numpy(fpicks).to(dev)], dense64(fsrc, dev)])
+    fs = fd @ d.T
+    eng.freeze()
+    n0 = eng.n_rows
+    out = eng.insert(fq, tau=TAU).output
+    if eng.n_rows != n0:
+        raise AssertionError("a frozen insert indexed rows")
+    qi, ri = torch.nonzero(fs >= TAU, as_tuple=True)
+    fs_h = fs.cpu().numpy()
+    row_of = {q: k for k, (q, _) in enumerate(fq)}
+    want_f: dict = {}
+    for a, b in zip(qi.tolist(), ri.tolist()):
+        want_f.setdefault(fq[a][0], set()).add(str(b))
+    if {q: set(c) for q, c in out.items()} != want_f or any(
+            abs(v - fs_h[row_of[q], int(c)]) > 1e-12
+            for q, cs in out.items() for c, v in cs.items()):
+        raise AssertionError("frozen match differs from the fp64 oracle")
+    if any(not out.get(f"z{r}", {}).get(str(r)) for r in fpicks):
+        raise AssertionError("a copied row did not find itself")
+    log(f"phase 8 frozen match, {len(fq)} queries: {sum(map(len, out.values()))}"
+        f" pairs equal the fp64 oracle at tau = {TAU}; n_rows unchanged")
+    eng.unfreeze()
+    dims_step(eng, csr, d, want)
+    del d, fd, fs
+    torch.cuda.empty_cache()
+
+    # timings (host clock, warm, median of 9), after the gates
+    def split(before: dict, names, reps: int = 9) -> dict:
+        """Mean ms per call of each Timer section since ``before``."""
+        return {k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0))
+                / reps * 1e3 for k in names}
+
+    rec = {"card": smi, "rows": eng.n_rows, "row_cap": eng.row_cap,
+           "dim_cap": eng.dim_cap}
+    before = dict(eng.timer.totals)
+    rec["topk_ms"] = median_host_ms(lambda: eng.topk(queries, 10))
+    rec["topk_queries_per_s"] = len(queries) / rec["topk_ms"] * 1e3
+    rec["topk_stages_ms"] = split(before, ("topk_fetch", "topk_rescore",
+                                           "topk_assemble"))
+    eng.freeze()
+    eng.insert(fq, tau=TAU)
+    before = dict(eng.timer.totals)
+    rec["frozen_ms"] = median_host_ms(lambda: eng.insert(fq, tau=TAU))
+    rec["frozen_queries_per_s"] = len(fq) / rec["frozen_ms"] * 1e3
+    rec["frozen_stages_ms"] = split(before, ("admit", "frozen_product",
+                                             "frozen_rescore"))
+    eng.unfreeze()
+    extra = synthetic_corpus(8192, seed=13)
+    cursor = [0]
+
+    def take(n):
+        a = cursor[0]
+        cursor[0] += n
+        return [(f"x{i}", extra.row(i)) for i in range(a, a + n)]
+
+    for bs in (1, 32, 256):
+        batches = [take(bs) for _ in range(11)]
+        for b in batches[:2]:
+            eng.insert(b, tau=TAU, defer=True).result()
+        it = iter(batches[2:])
+        before = dict(eng.timer.totals)
+        ms = median_host_ms(
+            lambda: eng.insert(next(it), tau=TAU, defer=True).result())
+        rec[f"insert_bs{bs}_ms"] = ms
+        rec[f"insert_bs{bs}_vectors_per_s"] = bs / ms * 1e3
+        if bs == 256:
+            rec["stages_ms_per_batch_bs256"] = split(
+                before, ("insert", "admit", "prepare", "append", "product",
+                         "compact", "d2h", "rescore"))
+    batches = [take(256) for _ in range(8)]
+    t0 = time.perf_counter()
+    prev = None
+    for b in batches:
+        cur = eng.insert(b, tau=TAU, defer=True)
+        if prev is not None:
+            prev.result()
+        prev = cur
+    prev.result()
+    dt = time.perf_counter() - t0
+    rec["pipelined_bs256_ms_per_batch"] = dt / len(batches) * 1e3
+    rec["pipelined_bs256_vectors_per_s"] = 256 * len(batches) / dt
+    if eng.row_cap != 2 * STREAM_BUILD:
+        raise AssertionError("the timing inserts grew the index")
+    # the path's two products alone (CUDA events, median of 5): a bs = 256
+    # match against the kept bf16 copy, and top-k's true fp32 product for
+    # 1,024 queries
+    n, k = eng.n_rows, eng.dim_cap
+    xo, xs = eng._rect_operand()[:n], eng.x[:n]
+    qb, qf = xo[n - 256:], eng.x[:1024]
+    rec["match_product"] = {
+        "shape": [n, 256, k],
+        "ms": median_ms(lambda: score_ops.score_tile(xo, qb, "default")),
+        **bound(2 * n * 256 * k, 2 * (n + 256) * k + 4 * n * 256, PEAK_BF16)}
+    rec["topk_product"] = {
+        "shape": [1024, n, k],
+        "ms": median_ms(lambda: score_ops.score_tile(qf, xs, "highest")),
+        **bound(2 * 1024 * n * k, 4 * (n + 1024) * k + 4 * 1024 * n,
+                PEAK_FP32)}
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 8 timings: {json.dumps(rec)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -989,6 +1327,10 @@ def main() -> int:
         raise AssertionError(f"{label}: pair set differs from the "
                              f"single-device panel join's")
     del meng, jm
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the streaming path (insert, join, topk, frozen match)
+    stream_phase(dev, big_csr, want32, kernels, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

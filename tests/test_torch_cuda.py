@@ -16,14 +16,20 @@ the card give the pair sets of the same joins over four CPU shards.  The
 full-rectangle join on the card gives the CPU engine's pair set (both are
 exact by the fp64 rescore), leaves ``allow_tf32`` as it found it, and its
 score tiles are fp32; the int8 stripes' accumulator equals the plain
-product in every int32.
+product in every int32.  The streaming path on the card gives the CPU
+engine's outputs (fp64 similarities equal), index and top-k lists; the
+bf16 copy that inserts keep in step equals a fresh cast bit for bit; the
+match's scores are fp32; ``topk`` multiplies with TF32 off and leaves
+``allow_tf32`` as it found it.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, Engine,
-                             MeshChunkedAllPairs, MeshEngine, make_mesh)
+from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
+                             Engine, MeshChunkedAllPairs, MeshEngine,
+                             SparseVector, make_mesh)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import panel as panel_ops
@@ -492,3 +498,134 @@ def test_mesh_rectangle_on_cuda_equals_cpu(card, mesh_csr, layout):
     assert got.pair_set() == want.pair_set() and want.n_pairs > 0
     assert ts.LAUNCHES == before
     assert all(b.is_cuda for b in eng.x_blocks)
+
+
+# ------------------------------------------------------ the streaming path
+def _head(csr, n):
+    return CSRMatrix(n, csr.n_cols, csr.indptr[: n + 1],
+                     csr.indices[: csr.indptr[n]], csr.data[: csr.indptr[n]])
+
+
+def _stream(eng, csr, s, bs, shift=0):
+    """Insert rows [s, s + bs) of ``csr``; ``shift`` moves every second
+    row's dims past the corpus's (new dims: column growth)."""
+    batch = []
+    for i in range(s, s + bs):
+        v = csr.row(i)
+        if shift and i % 2:
+            v = SparseVector(v.size, v.indices + shift, v.values)
+        batch.append((str(i), v))
+    return eng.insert(batch, tau=0.8)
+
+
+def test_stream_on_cuda_equals_cpu(card, mesh_csr):
+    """Build 2,000 rows, stream batches of 1, 32, 256 and one with new
+    dims, then copies of shifted rows: outputs, index and capacities equal
+    the CPU engine's after every batch, and the kept bf16 copy equals a
+    fresh cast of the index bit for bit (re-keyed to the index's version,
+    dropped at growth).  Batches that activate dormant dims without growth
+    write the activated entries into the kept copy itself."""
+    cfg = AllPairsConfig(row_bucket=1024, dim_bucket=2048)
+    engs = {d: Engine(cfg, d) for d in ("cuda", "cpu")}
+    for e in engs.values():
+        e.build(_head(mesh_csr, 2000))
+    dim_cap0 = engs["cuda"].dim_cap
+    # the copies re-send rows of the shifted batch (rows 2290-2589, every
+    # second one shifted): the dims they archived as singletons activate
+    copies = []
+    for i in range(2291, 2323, 2):
+        v = mesh_csr.row(i)
+        copies.append((f"c{i}", SparseVector(v.size, v.indices + 40000,
+                                             v.values)))
+    s = 2000
+    activated_in_place = 0
+    for bs, shift in ((1, 0), (32, 0), (256, 0), (1, 0), (300, 40000),
+                      (256, 0), (len(copies), None)):
+        g, c = engs["cuda"], engs["cpu"]
+        caps, dorm = (g.row_cap, g.dim_cap), g.stats["dormant_dims"]
+        kept0 = g._bf16_cache[1] if g._bf16_cache else None
+        if shift is None:
+            outs = {d: e.insert(copies, tau=0.8).output
+                    for d, e in engs.items()}
+            assert all(outs["cuda"][q][q[1:]] > 0.999 for q, _ in copies)
+        else:
+            outs = {d: _stream(e, mesh_csr, s, bs, shift).output
+                    for d, e in engs.items()}
+            s += bs
+        assert outs["cuda"] == outs["cpu"]
+        assert (g.row_cap, g.dim_cap) == (c.row_cap, c.dim_cap)
+        assert g.stats["dormant_dims"] == c.stats["dormant_dims"]
+        assert torch.equal(g.x.cpu(), c.x)
+        key, kept = g._bf16_cache
+        assert key == (id(g.x), g.x._version)
+        assert torch.equal(kept, g.x.to(torch.bfloat16))
+        if (kept0 is not None and g.stats["dormant_dims"] < dorm
+                and (g.row_cap, g.dim_cap) == caps):
+            assert kept is kept0
+            activated_in_place += 1
+    assert activated_in_place >= 2
+    assert engs["cuda"].row_cap == 4096 and engs["cuda"].dim_cap > dim_cap0
+    got = engs["cuda"].all_pairs(0.8).pair_set()
+    assert got == engs["cpu"].all_pairs(0.8).pair_set() and got
+
+
+def test_stream_match_scores_are_fp32(card, mesh_csr, monkeypatch):
+    """The insert's product multiplies the bf16 copy into fp32 scores; no
+    bf16 score tile meets the threshold."""
+    eng = Engine(AllPairsConfig(row_bucket=1024), "cuda")
+    eng.build(_head(mesh_csr, 1500))
+    seen = []
+    real = score_ops.score_tile
+
+    def spy(a, q, precision):
+        s = real(a, q, precision)
+        seen.append((a.dtype, q.dtype, s.dtype))
+        return s
+
+    monkeypatch.setattr(score_ops, "score_tile", spy)
+    _stream(eng, mesh_csr, 1500, 64)
+    assert seen == [(torch.bfloat16, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("tf32_before", [False, True])
+def test_topk_and_frozen_match_on_cuda_equal_cpu(card, mesh_csr, tf32_before,
+                                                 monkeypatch):
+    """``topk`` on the card: the CPU engine's lists, a product run with TF32
+    off, ``allow_tf32`` as found; frozen matching: the CPU output."""
+    cfg = AllPairsConfig(row_bucket=1024)
+    engs = {d: Engine(cfg, d) for d in ("cuda", "cpu")}
+    for e in engs.values():
+        e.build(_head(mesh_csr, 2500))
+    qs = [(f"q{i}", mesh_csr.row(i)) for i in range(2400, 2600)]
+    flags = []
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    try:
+        monkeypatch.setattr(score_ops, "true_fp32_matmul",
+                            _tf32_probe(score_ops.true_fp32_matmul, flags))
+        got = engs["cuda"].topk(qs, 10)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32_before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert flags and not any(flags)
+    want = engs["cpu"].topk(qs, 10)
+    assert list(got) == list(want)
+    for q in got:
+        assert [c for c, _ in got[q]] == [c for c, _ in want[q]]
+        assert np.allclose([v for _, v in got[q]], [v for _, v in want[q]],
+                           rtol=0, atol=1e-12)
+    for e in engs.values():
+        e.freeze()
+    outs = {d: e.insert(qs, tau=0.8).output for d, e in engs.items()}
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+
+
+def _tf32_probe(ctx, flags):
+    """``true_fp32_matmul`` that records ``allow_tf32`` inside its block."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def probe():
+        with ctx():
+            flags.append(torch.backends.cuda.matmul.allow_tf32)
+            yield
+    return probe

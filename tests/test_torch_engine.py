@@ -260,13 +260,32 @@ def test_unported_paths_raise(corpus, what):
         assert not e._kernel_ok()
         assert e.all_pairs(0.7).pair_set() == brute_force_pairs(corpus, 0.7)
         return
+    if what in ("insert", "topk", "freeze"):
+        # ported: the streaming path (item B1)
+        e = pt.Engine(pt.AllPairsConfig(**cfg_kw()), "cpu")
+        e.build(to_pt(corpus))
+        q = corpus.row(0)
+        if what == "insert":
+            out = e.insert([("q", q)], tau=0.7).output["q"]
+            sims = corpus.to_dense() @ q.to_array()
+            assert set(out) == {str(i) for i in np.nonzero(sims >= 0.7)[0]}
+            assert e.n_rows == corpus.n_rows + 1
+        elif what == "topk":
+            top = e.topk([("q", q)], 3)["q"]
+            assert top[0] == ("0", pytest.approx(1.0)) and len(top) == 3
+        else:
+            e.freeze()
+            assert e.frozen
+            e.insert([("q", q)], tau=0.7)
+            assert e.n_rows == corpus.n_rows
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
         e.build(to_pt(corpus))
-        {"insert": lambda: e.insert([("q", corpus.row(0))]),
-         "topk": lambda: e.topk([("q", corpus.row(0))], 3),
-         "freeze": e.freeze,
-         "save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
+        {"save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
+    if what == "save":
+        with pytest.raises(NotImplementedError, match="item C"):
+            e.save("/nonexistent")
 
 
 def test_device_must_be_explicit():

@@ -347,7 +347,7 @@ def test_unported_paths_raise(corpus, what):
         assert not e._kernel_ok() and e.x is None
         assert e.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
         return
-    item = {"insert": "item B", "topk": "item B", "save": "item C"}[what]
+    item = {"insert": "item G.2", "topk": "item G.2", "save": "item C"}[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         e = pt.MeshEngine(pt.AllPairsConfig(**cfg_kw(**kw)),
                           mesh=cpu_mesh(8))
