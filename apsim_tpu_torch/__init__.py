@@ -10,8 +10,10 @@ engine's streaming path (``Engine.insert`` matched online, ``topk``,
 ``freeze`` and frozen matching, admission and dormant-dim activation;
 ``OutputBatcher``), the out-of-core
 ``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join, and the stripe
-join behind it), their single-host mesh variants ``MeshChunkedAllPairs``
-(chunk axis sharded) and ``MeshEngine`` (rows, dims or a 2-D mesh), and
+join behind it) and its streaming path (``insert`` on the resident, host,
+paneled and rebuild routes, ``topk``, ``freeze``), their single-host mesh
+variants ``MeshChunkedAllPairs`` (chunk axis sharded; its join only) and
+``MeshEngine`` (rows, dims or a 2-D mesh), and
 loading each engine from the JAX package's checkpoints.  Entry points run
 on the card (``"cuda"``, or a mesh over the cards) unless the caller names
 the CPU.

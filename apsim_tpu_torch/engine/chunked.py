@@ -1,5 +1,5 @@
 """Out-of-core all-pairs engine: the PyTorch counterpart of
-``apsim_tpu/engine/chunked.py`` (the batch-join slice).
+``apsim_tpu/engine/chunked.py``.
 
 The dense :class:`~apsim_tpu_torch.engine.engine.Engine` holds
 ``rows × dim_cap`` floats on the device.  ``ChunkedAllPairs`` keeps only
@@ -28,11 +28,35 @@ gate) takes the stripe join (``ops/chunked.chunked_stripe_extract``): one
 default, fp32 at ``matmul_precision="highest"``, int8 through kernel 4 when
 ``_int8_stripes`` is set.
 
+``insert`` streams micro-batches matched online against the live index
+(index-before-query, so intra-batch pairs come out both ways), with the
+component filter, admission pruning and the dormant-dim tier shared with
+the dense engine.  A batch is appended to the entry buffers (capacity
+doubling, host mirror kept in step) and matched on one of four routes:
+
+  - resident: every chunk slab stays on the device as one stacked
+    ``[n_chunks, row_cap, width]`` tensor (bf16, fp32 at "highest") while it
+    fits ``match_slab_budget_mb``; inserts set their entries into it, so a
+    match is products only;
+  - host: beyond the budget, a scipy spGEMM of the fp64 shadow against the
+    batch, when the cost model says it is cheaper than the device;
+  - paneled: beyond the budget, ``ph``-row panels densified from a
+    row-sorted flat COO kept in step with the appends;
+  - rebuild: every chunk slab densified per match (the paneled route's
+    class opt-out).
+
+Each device route scores through ``score.score_tile`` (fp32 scores) and
+keeps ``s >= tau_eff`` by exact-length ``torch.nonzero``; the fp64 rescore
+decides the output.  ``topk`` is the provably exact k-nearest query (fetch
+grown until the margin proof holds, fp64 re-rank); ``freeze`` turns inserts
+into frozen-index matching.
+
 ``load`` reads the JAX package's checkpoints: a chunked-flavor checkpoint's
-``chunk_*`` arrays are placed as they are, any other is rebuilt from its CSR
-shadow, and the static max-weight map (``set_max_weight_map``) comes back
-with it.  ``insert``, ``topk``, ``freeze`` (ROADMAP item B2) and ``save``
-(item C) are not ported yet and raise ``NotImplementedError``.
+``chunk_*`` arrays (the document frequencies of the host router among
+them) are placed as they are, any other is rebuilt from its CSR shadow, and
+the static max-weight map (``set_max_weight_map``) comes back with it.
+``save`` (ROADMAP item C) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,11 +74,14 @@ from ..index.compact import CompactSpace
 from ..ops import chunked as chunked_ops
 from ..ops import panel as panel_ops
 from ..ops import rescore as rescore_ops
+from ..ops import score as score_ops
 from ..ops import tri_score as ts
 from ..utils.logging import Timer
-from ..vector.batch import CSRMatrix, GrowableCSR, pow2_bucket, round_up
-from .engine import Engine, _as_csr, _not_ported
-from .output import PairResult
+from ..vector.batch import (CSRMatrix, GrowableCSR, pack_coo_i32,
+                            pow2_bucket, round_up)
+from .engine import (Engine, _as_csr, _CompletedInsert, _not_ported,
+                     assemble_topk, fetch_exact_topk)
+from .output import PairResult, SimilarityOutput
 
 __all__ = ["ChunkedAllPairs"]
 
@@ -84,7 +111,13 @@ class ChunkedAllPairs:
         self.super_tile = None if super_tile is None else int(super_tile)
         self._q8_cache = None  # (key, (q2d, aux)) of the int8 stripes
         self._ent = None  # device (rows2d, cols2d, vals2d) [n_chunks, cap]
+        self._ent_gen = 0  # bumped whenever _ent is replaced (_ent_key)
         self._ent_host = None  # host mirror of _ent (checkpoint layout)
+        self._mslab = None  # resident match slabs [n_chunks, row_cap, width]
+        self._sort_state: dict | None = None  # the paneled match's COO
+        # the route of the last match: "resident_slabs", "host_spgemm",
+        # "device_paneled" or "device_rebuild"
+        self.last_route: str | None = None
         self._counts = None  # np int64 [n_chunks]
         self._counts_dev = None  # device int32 copy
         self._n_chunks = 1
@@ -95,30 +128,41 @@ class ChunkedAllPairs:
         self._static_max_weights: np.ndarray | None = None
         self.n_rows = 0
         self._max_norm = 0.0
+        self._frozen = False
+        # per-external-dim document frequencies (the host router's cost)
+        self._ext_df: np.ndarray | None = None
         self._compact = CompactSpace(self.cfg.vector_dim, self.cfg.dim_bucket)
         self.max_weights = np.zeros(self.cfg.vector_dim, dtype=np.float64)
         self.stats: Dict[str, float] = {
             "vectors_indexed": 0,
             "candidates_scored": 0,
             "pairs_emitted": 0,
+            "insert_batches": 0,
             "dormant_dims": 0,
+            "vectors_dropped_admission": 0,
         }
         self.timer = Timer()
         # dormant-dim archive (df==1 dims stay off the device)
         self._dorm_rows = np.empty(0, np.int64)
         self._dorm_dims = np.empty(0, np.int64)
         self._dorm_vals = np.empty(0, np.float64)
+        self._dorm_buf = None  # capacity-doubling backing of the three above
         self._dormant_of_ext: np.ndarray | None = None
         self._panel_geom_cache = None
         self._panel_state_cache = None
         self._compact_rescore_cache = None
 
-    # dormant-dim archive, margin policy and device wait shared with the
-    # dense engine (one definition each, as in the JAX package; the mesh
-    # subclass's _sync waits for every shard's device)
+    # dormant-dim archive, admission, margin policy and device wait shared
+    # with the dense engine (one definition each, as in the JAX package:
+    # they touch only the compact space, the archive, the max-weight maps
+    # and the host CSRs; the mesh subclass's _sync waits for every shard)
     _sync = Engine._sync
     _drop_unmapped = Engine._drop_unmapped
     _archive_dormant = Engine._archive_dormant
+    _dormant_hits = Engine._dormant_hits
+    _stream_archive_singletons = Engine._stream_archive_singletons
+    _dorm_append = Engine._dorm_append
+    _admit = Engine._admit
     _margin_rel = Engine._margin_rel
     _margin = Engine._margin
     _tau_eff = Engine._tau_eff
@@ -128,6 +172,13 @@ class ChunkedAllPairs:
     @property
     def compact(self) -> CompactSpace:
         return self._compact
+
+    def shadow_csr(self) -> CSRMatrix:
+        """The fp64 host shadow of every indexed row."""
+        return self._shadow.view() if self._shadow is not None else CSRMatrix(
+            0, self.cfg.vector_dim, np.zeros(1, np.int64),
+            np.empty(0, np.int32), np.empty(0, np.float64),
+        )
 
     # ------------------------------------------------------------------ sizes
     @property
@@ -173,6 +224,9 @@ class ChunkedAllPairs:
         self.id_to_row = {v: k for k, v in enumerate(self.ids)}
         self._shadow = GrowableCSR(self.cfg.vector_dim)
         self._shadow.append(csr)
+        self._ext_df = np.bincount(
+            csr.indices, minlength=self.cfg.vector_dim
+        ).astype(np.int64)
         self.n_rows = csr.n_rows
         self._compact = CompactSpace.from_csr(
             csr, self.cfg.dim_bucket,
@@ -231,10 +285,19 @@ class ChunkedAllPairs:
         self._counts_dev = torch.from_numpy(
             self._counts.astype(np.int32)
         ).to(self.device)
+        self._new_corpus()
+
+    def _new_corpus(self) -> None:
+        """Release every state derived from the previous corpus' entry
+        buffers (an append keeps the resident stack and the sorted state in
+        step instead, and the caches keyed by ``_ent_key`` miss)."""
+        self._ent_gen += 1
         self._panel_geom_cache = None
         self._panel_state_cache = None
         self._compact_rescore_cache = None
         self._q8_cache = None
+        self._mslab = None
+        self._sort_state = None
 
     # ------------------------------------------------------------ stripe join
     # accumulator budget of the automatic stripe width (bytes): carried
@@ -282,10 +345,12 @@ class ChunkedAllPairs:
         )
 
     def _ent_key(self):
-        """Identity and version of the values buffer the int8 cache was
-        quantized from (a tensor updated in place keeps its identity)."""
-        v = self._ent[2]
-        return (id(v), v._version)
+        """State of the entry buffers that a derived cache (the int8
+        stripes', the panel join's) was computed from: the generation of
+        ``_ent``, bumped whenever the buffers are replaced (a build, a
+        capacity growth), and the values buffer's in-place version, bumped
+        by every append and activation."""
+        return (self._ent_gen, self._ent[2]._version)
 
     def _int8_slabs(self):
         """Cached ``(q2d int8, aux)`` for the int8 stripes, quantized on
@@ -409,8 +474,9 @@ class ChunkedAllPairs:
         geom = self._panel_geom()
         if geom is None:
             return None
+        key = (self._ent_key(), geom)
         cached = self._panel_state_cache
-        if cached is not None and cached[0] == geom:
+        if cached is not None and cached[0] == key:
             return cached[1]
         rb, tm, tn, n_panels, d_cap = geom
         with self._stage("quantize_sort"):
@@ -440,7 +506,7 @@ class ChunkedAllPairs:
                         for p in range(n_panels)
                     ],
                 }
-        self._panel_state_cache = (geom, state)
+        self._panel_state_cache = (key, state)
         return state
 
     def _build_slab(self, state, p: int):
@@ -559,6 +625,9 @@ class ChunkedAllPairs:
     # -------------------------------------------------------------- all_pairs
     def all_pairs(self, tau: float | None = None) -> PairResult:
         """Exact thresholded all-pairs cosine join over the chunked index."""
+        # release the resident match stack first: the join's own slabs need
+        # the memory, and the next match rebuilds the stack lazily
+        self._mslab = None
         tau = self.cfg.similarity_threshold if tau is None else float(tau)
         if self.n_rows == 0:
             return PairResult(
@@ -598,16 +667,579 @@ class ChunkedAllPairs:
             self.stats["pairs_emitted"] += int(keep.sum())
             return PairResult(i[keep], j[keep], sims[keep], list(self.ids))
 
-    # ------------------------------------------------------- not ported yet
-    def insert(self, vectors, tau=None, bulk=False, defer=False):
-        raise _not_ported("chunked streaming insert", "item B2")
+    # ------------------------------------------------ entry-buffer appends
+    def _append_ccoo(self, rows_of, ccols, vals, tail: bool = True) -> None:
+        """Append COO entries (global rows, COMPACT cols, values) to the
+        per-chunk buffers: bucket by chunk (a stable sort, ``slot = counts +
+        rank``), double the capacity as needed, ship the entries in ONE
+        packed int32 copy (chunk / slot / row / local / fp32 bits), set them
+        into the buffers, the resident stack and the sorted state, and
+        update the host mirror by the same scatter.  ``tail`` marks a
+        streamed batch (rows at or above every existing row); ``tail=False``
+        a dormant activation (older rows: the sorted state's overflow)."""
+        chunk, local = chunked_ops.split_chunks(ccols, self._n_chunks)
+        add = np.bincount(chunk, minlength=self._n_chunks).astype(np.int64)
+        need = int((self._counts + add).max()) if chunk.size else 0
+        while need > self._chunk_cap:
+            self._chunk_cap *= 2
+            self._grow_entries(self._chunk_cap)
+        order = np.argsort(chunk, kind="stable")
+        ch = chunk[order]
+        starts = np.zeros(self._n_chunks + 1, np.int64)
+        np.cumsum(add, out=starts[1:])
+        slot = (
+            np.arange(chunk.size) - starts[ch] + self._counts[ch]
+        ).astype(np.int32)
+        coo5 = np.empty((5, chunk.size), np.int32)
+        coo5[0] = ch
+        coo5[1] = slot
+        coo5[2] = np.asarray(rows_of)[order]
+        coo5[3] = local[order]
+        coo5[4] = np.asarray(vals)[order].astype(np.float32).view(np.int32)
+        if chunk.size:
+            self._op_append(torch.from_numpy(coo5).to(self.device), tail)
+            r, c, v = self._ent_host
+            r[ch, slot] = coo5[2]
+            c[ch, slot] = coo5[3]
+            v[ch, slot] = coo5[4].view(np.float32)
+        self._counts = self._counts + add
+        self._counts_dev = torch.from_numpy(
+            self._counts.astype(np.int32)
+        ).to(self.device)
 
-    def topk(self, queries, k):
-        raise _not_ported("chunked topk", "item B2")
+    def _op_append(self, coo5: torch.Tensor, tail: bool) -> None:
+        """Set one packed ``[5, n]`` device batch into the entry buffers and
+        keep the resident stack and the sorted state in step.  A stack of
+        another geometry (row capacity or chunk width moved) is dropped, not
+        grown: the next match rebuilds it, so the card never holds two."""
+        ch, slot, row, local = coo5[0], coo5[1], coo5[2], coo5[3]
+        val = coo5[4].view(torch.float32)
+        chunked_ops.append_entries(*self._ent, ch, slot, row, local, val)
+        m = self._mslab
+        if m is not None:
+            if (m.shape[1], m.shape[2]) != (self.row_cap, self._chunk_width):
+                self._mslab = None
+            else:
+                chunked_ops.append_match_slabs(m, ch, row, local, val)
+        self._sort_state_append(row, local * self._n_chunks + ch, val, tail)
 
+    def _grow_entries(self, new_cap: int) -> None:
+        """Double the per-chunk capacity on the device and in the host
+        mirror (new slots carry the pad row)."""
+        self._ent = chunked_ops.grow_entry_cap(
+            *self._ent, new_cap=new_cap, pad_row=panel_ops.PAD_ROW
+        )
+        self._ent_gen += 1
+        r, c, v = self._ent_host
+        grow = new_cap - r.shape[1]
+        self._ent_host = (
+            np.pad(r, ((0, 0), (0, grow)), constant_values=panel_ops.PAD_ROW),
+            np.pad(c, ((0, 0), (0, grow))),
+            np.pad(v, ((0, 0), (0, grow))),
+        )
+
+    def _activate_dormant(self, ext_dims: np.ndarray) -> None:
+        """Insert-time activation: archived df==1 entries whose dim just got
+        a compact column go into the entry buffers (``tail=False``), so
+        new x old pairs through those dims score on the device.  The marks
+        are cleared only after the append went through."""
+        if self._dormant_of_ext is None:
+            return
+        uniq = np.unique(np.asarray(ext_dims))
+        idxs = self._dormant_of_ext[uniq]
+        sel = idxs >= 0
+        if not sel.any():
+            return
+        dims, idxs = uniq[sel], idxs[sel]
+        cols = self._compact.cols_of(dims).astype(np.int64)
+        # this batch's fresh singletons are archived but still unmapped:
+        # only dims that just received a compact column activate
+        ok = cols >= 0
+        if not ok.any():
+            return
+        dims, idxs, cols = dims[ok], idxs[ok], cols[ok]
+        self._append_ccoo(
+            self._dorm_rows[idxs], cols, self._dorm_vals[idxs], tail=False
+        )
+        self._dormant_of_ext[dims] = -1
+        self.stats["dormant_dims"] -= int(dims.size)
+
+    # --------------------------------------------------- resident match stack
+    def _match_slabs(self):
+        """The resident stack for the current geometry, built lazily; None
+        when ``n_chunks * row_cap * width * itemsize`` exceeds
+        ``match_slab_budget_mb``.  A geometry change drops the old stack
+        before the new one is built."""
+        if self._ent is None:
+            return None
+        dt = chunked_ops.slab_dtype(self.cfg.matmul_precision)
+        rows, width = self.row_cap, self._chunk_width
+        itemsize = 4 if dt == torch.float32 else 2
+        budget = int(self.cfg.match_slab_budget_mb) << 20
+        if self._n_chunks * rows * width * itemsize > budget:
+            self._mslab = None
+            return None
+        m = self._mslab
+        if m is not None and (m.shape[1], m.shape[2]) != (rows, width):
+            self._mslab = m = None
+        if m is None:
+            with self._stage("match_slabs"):
+                self._mslab = chunked_ops.build_match_slabs(
+                    *self._ent, self._counts, rows, width, dt
+                )
+        return self._mslab
+
+    # ------------------------------------------------------ paneled match
+    # beyond the slab budget (the route's design: ops/chunked.py)
+    _paneled_match = True   # class-level opt-out (then: the rebuild route)
+    _sort_o_cap = 32768     # overflow region entries (activation spill)
+    _paneled_q_cap = 8192   # query width limit ([ph, q] fp32 ~= 1 GB)
+    _paneled_ph_cap = 32768  # max panel height (tests shrink it)
+
+    def _paneled_ph(self, row_cap: int | None = None) -> int:
+        """Panel height: the largest divisor of row_cap that is at most
+        ``_paneled_ph_cap`` and a multiple of 64."""
+        rc = self.row_cap if row_cap is None else row_cap
+        k = -(-rc // int(self._paneled_ph_cap))
+        while rc % k or (rc // k) % 64:
+            k += 1
+        return rc // k
+
+    def _paneled_ok(self) -> bool:
+        return (
+            self._paneled_match
+            and self._ent is not None
+            and self._match_slabs() is None  # the resident route wins
+        )
+
+    def _sort_state_get(self) -> dict:
+        """The sorted flat-COO state of the current corpus, (re)built
+        lazily by one device sort of the entry buffers, with headroom for
+        appends and an empty overflow region."""
+        st = self._sort_state
+        if st is not None:
+            return st
+        live = int(self._counts.sum())
+        cap_s = pow2_bucket(live + max(65536, live // 4), 4096)
+        with self._stage("sort_entries"):
+            r_s, gc_s, v_s, n = chunked_ops.sort_entries(
+                *self._ent, self._counts_dev, cap_s
+            )
+        o_cap = int(self._sort_o_cap)
+        st = {
+            "cap_s": cap_s, "n_ent": n, "r_s": r_s, "gc_s": gc_s, "v_s": v_s,
+            "r_o": torch.full((o_cap,), panel_ops.PAD_ROW, dtype=torch.int32,
+                              device=self.device),
+            "gc_o": torch.zeros(o_cap, dtype=torch.int32, device=self.device),
+            "v_o": torch.zeros(o_cap, dtype=torch.float32,
+                               device=self.device),
+            "n_o": 0,
+        }
+        self._sort_state = st
+        return st
+
+    def _sort_state_append(self, rows, gcols, vals, tail: bool) -> None:
+        """Keep the sorted state in step with an append (the same device
+        batch the entry buffers took).  A full sorted region or overflow
+        region drops the state: the next paneled match re-sorts with
+        headroom (consolidation)."""
+        st = self._sort_state
+        if st is None or rows.numel() == 0:
+            return
+        n, cap = ((st["n_ent"], st["cap_s"]) if tail
+                  else (st["n_o"], int(self._sort_o_cap)))
+        if n + rows.numel() > cap:
+            self._sort_state = None
+            return
+        chunked_ops.append_sorted(st, rows, gcols, vals, tail)
+
+    def _run_match_paneled(self, ccsr: CSRMatrix, q_base: int, tau_eff):
+        """One paneled match: the query batch densified from ONE packed COO
+        into ``[q, d_cap]`` (``q`` rounded up to 8 rows), then
+        ``paneled_match_extract``."""
+        st = self._sort_state_get()
+        d_cap = self._n_chunks * self._chunk_width
+        nq = ccsr.n_rows
+        sdt = chunked_ops.slab_dtype(self.cfg.matmul_precision)
+        q_rows = round_up(max(nq, 1), 8)
+        qr = np.repeat(np.arange(nq, dtype=np.int64), np.diff(ccsr.indptr))
+        coo = pack_coo_i32(qr, ccsr.indices, ccsr.data, q_rows, lo=1)
+        qslab = score_ops.densify_rows(coo, q_rows, d_cap, sdt, self.device)
+        return chunked_ops.paneled_match_extract(
+            st, qslab, q_base, self.n_rows, self._paneled_ph(), tau_eff,
+            self.cfg.matmul_precision, timer=self.timer,
+        )
+
+    # ------------------------------------------------- host streaming match
+    # Beyond the slab budget a device route pays an O(corpus) densify per
+    # batch; a scipy spGEMM of the fp64 shadow against the batch yields the
+    # same candidate set (cut at tau - 1e-9, both sides fp64) and feeds the
+    # same rescore.  The router weighs the spGEMM's corpus walk and its
+    # intersections (the batch's document-frequency mass) against the
+    # device's per-entry densify cost.
+    _host_stream_match = True
+    # Cost constants carried over from the JAX package, calibrated there on
+    # a TPU v5e and its host; not yet measured for the H100 machine
+    # (``bench/ooc.py --stream --router-ab`` measures both routes there).
+    _host_ns_per_nnz = 6.0      # corpus-stream term of the spGEMM
+    _host_ns_per_flop = 70.0    # per intersection + COO materialization
+    _rebuild_ns_per_nnz = 20.0  # device slab densify (per entry)
+
+    def _use_host_match(self, q_ext_indices: np.ndarray) -> bool:
+        """Route this batch's match to the host spGEMM?  ``q_ext_indices``
+        are the query entries' EXTERNAL dims.  Never while the resident
+        stack fits; never without document frequencies."""
+        if not self._host_stream_match:
+            return False
+        if self._ent is None or self._match_slabs() is not None:
+            return False
+        if self._ext_df is None:
+            return False
+        nnz = int(self._shadow.view().indptr[-1])
+        est_flops = int(self._ext_df[np.asarray(q_ext_indices)].sum())
+        host_cost = nnz * self._host_ns_per_nnz + (
+            est_flops * self._host_ns_per_flop
+        )
+        return host_cost < nnz * self._rebuild_ns_per_nnz
+
+    def _host_match_cross(self, q_csr: CSRMatrix, tau: float):
+        """Candidates (index_row, query_local) of the whole shadow x the
+        queries in fp64, cut at ``tau - 1e-9``."""
+        import scipy.sparse as sp
+
+        self.last_route = "host_spgemm"
+        with self.timer.section("host_match"):
+            shadow = self._shadow.view()
+            x = sp.csr_matrix(
+                (shadow.data, shadow.indices, shadow.indptr),
+                shape=(shadow.n_rows, shadow.n_cols), copy=False,
+            )
+            q = sp.csr_matrix(
+                (q_csr.data, q_csr.indices, q_csr.indptr),
+                shape=(q_csr.n_rows, q_csr.n_cols), copy=False,
+            )
+            c = (x @ q.T).tocoo()
+            keep = c.data >= tau - 1e-9
+            return c.row[keep].astype(np.int64), c.col[keep].astype(np.int64)
+
+    def _host_match_rows(self, n0: int, tau: float):
+        """Host route of ``_match_rows``: the queries are shadow rows
+        ``[n0, n_rows)``, already appended, so only the self-pair is
+        excluded."""
+        rows, qloc = self._host_match_cross(self._shadow_tail(n0), tau)
+        nonself = rows != (n0 + qloc)
+        return rows[nonself], qloc[nonself]
+
+    def _shadow_tail(self, n0: int) -> CSRMatrix:
+        """Shadow rows ``[n0, n_rows)`` as a CSR of their own."""
+        sh = self._shadow.view()
+        a = int(sh.indptr[n0])
+        return CSRMatrix(sh.n_rows - n0, sh.n_cols, sh.indptr[n0:] - a,
+                         sh.indices[a:], sh.data[a:])
+
+    # ------------------------------------------------------------ match
+    def _match_rows(self, n0: int, tau: float):
+        """Cross-match index rows ``[n0, n_rows)`` (already appended)
+        against the whole index: host (index_row, query_local) arrays."""
+        sub = self._shadow_tail(n0)
+        if self._use_host_match(sub.indices):
+            return self._host_match_rows(n0, tau)
+        # unmapped query dims only reach the excluded self-pair: dormant
+        # dims and fresh singletons belong to one row each
+        ccsr = self._compact.map_csr(self._drop_unmapped(sub), extend=False)
+        return self._match_ccsr(ccsr, n0, self._tau_eff(tau))
+
+    def _match_width_limit(self) -> int:
+        """Largest power-of-two query width (at least 256) whose fp32
+        ``[row_cap, width]`` match accumulator stays under 6 GB."""
+        budget = (6 << 30) // (4 * self.row_cap)
+        w = 256
+        while w * 2 <= budget:
+            w *= 2
+        return w
+
+    def _bucket_queries(self, ccsr: CSRMatrix, q_rows: int):
+        """The compact query CSR bucketed by chunk, ``(rows2d, cols2d,
+        vals2d, counts)``: the three buffers in ONE int32 copy to the
+        device, the counts on the host."""
+        rows_of = np.repeat(
+            np.arange(ccsr.n_rows, dtype=np.int64), np.diff(ccsr.indptr)
+        )
+        chunk, _ = chunked_ops.split_chunks(ccsr.indices, self._n_chunks)
+        per = np.bincount(chunk, minlength=self._n_chunks)
+        q_cap = max(int(per.max()) if per.size else 1, 1)
+        r2, c2, v2, cnts = chunked_ops.bucket_entries(
+            rows_of, ccsr.indices.astype(np.int64), ccsr.data,
+            self._n_chunks, q_cap, q_rows,
+        )
+        pk = torch.from_numpy(np.stack([r2, c2, v2.view(np.int32)])).to(
+            self.device)
+        return pk[0], pk[1], pk[2].view(torch.float32), cnts
+
+    def _run_match(self, ccsr: CSRMatrix, q_base: int, q_rows: int, tau_eff):
+        """One device match on the resident route, else the rebuild
+        route: device (index_row, query_local)."""
+        q = self._bucket_queries(ccsr, q_rows)
+        mslab = self._match_slabs()
+        if mslab is not None:
+            return chunked_ops.cached_match_extract(
+                mslab, q, q_base, tau_eff, q_rows, self.cfg.matmul_precision,
+                timer=self.timer,
+            )
+        return chunked_ops.chunked_match_extract(
+            *self._ent, self._counts, q, q_base, tau_eff, self.row_cap,
+            self._chunk_width, q_rows, self.cfg.matmul_precision,
+            timer=self.timer,
+        )
+
+    def _match_ccsr(self, ccsr: CSRMatrix, q_base: int, tau_eff):
+        """Match a compact query CSR against the whole index in sub-batches
+        of the route's width limit (the whole batch is indexed before any
+        match, so intra-batch pairs surface whatever the split).  Returns
+        host (index_row, query_local)."""
+        nq = ccsr.n_rows
+        paneled = self._paneled_ok()
+        limit = (int(self._paneled_q_cap) if paneled
+                 else self._match_width_limit())
+        self.last_route = (
+            "device_paneled" if paneled
+            else "resident_slabs" if self._match_slabs() is not None
+            else "device_rebuild")
+
+        def run_one(part: CSRMatrix, base: int):
+            if paneled:
+                r, l = self._run_match_paneled(part, base, tau_eff)
+            else:
+                q_rows = min(round_up(max(part.n_rows, 1), 8), limit)
+                r, l = self._run_match(part, base, q_rows, tau_eff)
+            with self.timer.section("d2h"):
+                return r.cpu().numpy(), l.cpu().numpy()
+
+        rows_all, loc_all = [], []
+        for s in range(0, max(nq, 1), limit):
+            e = min(s + limit, nq)
+            a, b = int(ccsr.indptr[s]), int(ccsr.indptr[e])
+            part = CSRMatrix(e - s, ccsr.n_cols, ccsr.indptr[s:e + 1] - a,
+                             ccsr.indices[a:b], ccsr.data[a:b])
+            # q_base + s keeps the self-pair exclusion on the part's rows
+            r, l = run_one(part, q_base + s)
+            rows_all.append(r)
+            loc_all.append(l + s)
+        return np.concatenate(rows_all), np.concatenate(loc_all)
+
+    # ----------------------------------------------------------------- insert
+    def insert(self, vectors, tau: float | None = None, bulk: bool = False,
+               defer: bool = False):
+        """Streaming micro-batch insert matched online against the live
+        chunked index, in the order of the dense engine's ``insert``:
+        component filter (``index_threshold``) and admission pruning unless
+        ``bulk``; a frozen engine only matches; an insert before any build
+        builds and matches the batch against itself; otherwise the batch
+        joins the index first and then queries it, so intra-batch pairs
+        come out both ways.  ``defer=True`` returns an object whose
+        ``result()`` gives the output (the insert itself is synchronous)."""
+        with self.timer.section("insert"):
+            out = self._insert_impl(vectors, tau, bulk)
+        return _CompletedInsert(out) if defer else out
+
+    def _insert_impl(self, vectors, tau, bulk: bool) -> SimilarityOutput:
+        tau = self.cfg.similarity_threshold if tau is None else float(tau)
+        filtered = []
+        with self.timer.section("admit"):
+            for vid, vec in vectors:
+                if not bulk:
+                    if self.cfg.index_threshold > 0:
+                        vec = vec.filter_values_above(self.cfg.index_threshold)
+                    if not self._admit(vec, tau):
+                        self.stats["vectors_dropped_admission"] += 1
+                        continue
+                filtered.append((vid, vec))
+        if not filtered:
+            return SimilarityOutput({}, time.time())
+        csr, new_ids = _as_csr(filtered, None, self.cfg.vector_dim)
+        if self._shadow is None:
+            if self._frozen:
+                # frozen before anything was indexed: nothing to match and
+                # nothing may be indexed
+                return SimilarityOutput({}, time.time())
+            self.build(csr, new_ids)
+            return self._emit(self._match_rows(0, tau), new_ids, 0, tau)
+        if self._frozen:
+            return self._match_external(csr, new_ids, tau)
+        n0 = self.n_rows
+        with self.timer.section("prepare"):
+            self.stats["insert_batches"] += 1
+            self.stats["vectors_indexed"] += csr.n_rows
+            # host bookkeeping first: the margin covers the batch's norms
+            norms = csr.row_norms()
+            if norms.size:
+                self._max_norm = max(self._max_norm, float(norms.max()))
+            np.maximum.at(self.max_weights, csr.indices, csr.data)
+            self._shadow.append(csr)
+            if self._ext_df is not None:
+                np.add.at(self._ext_df, csr.indices, 1)
+            self.ids.extend(new_ids)
+            for k, vid in enumerate(new_ids):
+                self.id_to_row[vid] = n0 + k
+            self.n_rows = n0 + csr.n_rows
+            # fresh df==1 dims stay archived; promoted dims mint columns
+            keep_csr = self._stream_archive_singletons(csr, n0)
+        with self._stage("append"):
+            self._activate_dormant(csr.indices)
+            ccsr = self._compact.map_csr(keep_csr, extend=False)
+            rows_of = n0 + np.repeat(
+                np.arange(csr.n_rows, dtype=np.int64), np.diff(ccsr.indptr)
+            )
+            self._append_ccoo(rows_of, ccsr.indices, ccsr.data)
+        return self._emit(self._match_rows(n0, tau), new_ids, n0, tau)
+
+    def _emit(self, pairs, qids: List[str], n0: int, tau: float):
+        """fp64 rescore of the candidates (index_row, query_local) of the
+        batch whose first row is ``n0``, shaped as {query: {row id: sim}}."""
+        rows, qlocal = pairs
+        if len(rows) == 0:
+            return SimilarityOutput({}, time.time())
+        with self.timer.section("rescore"):
+            shadow = self._shadow.view()
+            self.stats["candidates_scored"] += len(rows)
+            rows = np.asarray(rows, np.int64)
+            qlocal = np.asarray(qlocal, np.int64)
+            sims = rescore_ops.pair_dots(
+                shadow.indptr, shadow.indices, shadow.data, rows,
+                qlocal + n0, shadow.n_cols,
+            )
+            out: Dict[str, Dict[str, float]] = {}
+            keep = sims >= tau
+            for r, q, s in zip(rows[keep], qlocal[keep], sims[keep]):
+                out.setdefault(qids[int(q)], {})[self.ids[int(r)]] = float(s)
+            self.stats["pairs_emitted"] += sum(len(v) for v in out.values())
+        return SimilarityOutput(out, time.time())
+
+    def _match_external(self, csr: CSRMatrix, qids, tau: float):
+        """Frozen-index matching: queries are scored, not indexed.  Query
+        norms beyond the index's widen the margin for this match only."""
+        qn = csr.row_norms()
+        saved = self._max_norm
+        if qn.size:
+            self._max_norm = max(saved, float(qn.max()))
+        try:
+            tau_eff = self._tau_eff(tau)
+        finally:
+            self._max_norm = saved
+        if self._use_host_match(csr.indices):
+            # the spGEMM walks the whole shadow: archived dormant entries
+            # are in it, so no _dormant_hits patch
+            rows, qlocal = self._host_match_cross(csr, tau)
+        else:
+            ccsr = self._compact.map_csr(self._drop_unmapped(csr),
+                                         extend=False)
+            # q_base past every row: no self-pair exclusion can trigger
+            rows, qlocal = self._match_ccsr(ccsr, self.n_rows, tau_eff)
+            # queries sharing a dormant dim with an archived row: the device
+            # score missed that contribution, so the rows join explicitly
+            extra_q, extra_r = self._dormant_hits(csr)
+            if extra_q.size:
+                rows = np.concatenate([rows, extra_r])
+                qlocal = np.concatenate([qlocal, extra_q])
+        out: Dict[str, Dict[str, float]] = {}
+        with self.timer.section("rescore"):
+            if len(rows):
+                shadow = self._shadow.view()
+                rows = np.asarray(rows, np.int64)
+                qlocal = np.asarray(qlocal, np.int64)
+                sims = rescore_ops.cross_pair_dots(
+                    shadow.indptr, shadow.indices, shadow.data, shadow.n_cols,
+                    csr.indptr, csr.indices, csr.data, qlocal, rows,
+                )
+                keep = sims >= tau
+                for r, ql, s in zip(rows[keep], qlocal[keep], sims[keep]):
+                    out.setdefault(qids[int(ql)], {})[self.ids[int(r)]] = (
+                        float(s))
+        return SimilarityOutput(out, time.time())
+
+    # ----------------------------------------------------------------- freeze
     def freeze(self) -> None:
-        raise _not_ported("chunked freeze", "item B2")
+        """Stop index updates, keep answering queries: inserts become
+        frozen-index matches."""
+        self._frozen = True
 
+    def unfreeze(self) -> None:
+        self._frozen = False
+
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    # ------------------------------------------------------------------- topk
+    def topk(self, queries, k: int) -> Dict[str, list]:
+        """k nearest neighbours per query over the chunked index, with the
+        dense engine's provably exact fetch and fp64 re-rank
+        (``Engine.topk``).  Batches wider than ``_match_width_limit`` are
+        split (the ``[q, row_cap]`` fp32 score block is budgeted like the
+        match's); the parts are independent and exact."""
+        queries = list(queries)
+        limit = self._match_width_limit()
+        out: Dict[str, list] = {}
+        for s in range(0, len(queries), limit):
+            out.update(self._topk_impl(queries[s:s + limit], k))
+        return out
+
+    def _op_topk(self, q, q_rows: int, kf: int):
+        """Device top ``kf`` per query: against the resident stack when it
+        fits (scored at its dtype), else fp32 slabs at "highest"."""
+        mslab = self._match_slabs()
+        if mslab is not None:
+            return chunked_ops.cached_topk(
+                mslab, q, self.n_rows, q_rows, kf, self.cfg.matmul_precision,
+            )
+        return chunked_ops.chunked_topk(
+            *self._ent, self._counts, q, self.n_rows, self.row_cap,
+            self._chunk_width, q_rows, kf, "highest",
+        )
+
+    def _topk_impl(self, queries, k: int):
+        if self.n_rows == 0:
+            return {qid: [] for qid, _ in queries}
+        qcsr, qids = _as_csr(list(queries), None, self.cfg.vector_dim)
+        nq = len(qids)
+        ccsr = self._compact.map_csr(self._drop_unmapped(qcsr), extend=False)
+        q_rows = round_up(nq, 8)
+        k_eff = min(k, self.n_rows)
+        with self.timer.section("topk_fetch"):
+            q = self._bucket_queries(ccsr, q_rows)
+
+            def fetch(kf: int):
+                s, r = self._op_topk(q, q_rows, kf)
+                return s[:nq].cpu().numpy(), r[:nq].cpu().numpy()
+
+            q_norms = qcsr.row_norms()
+            qmax = float(q_norms.max()) if q_norms.size else 0.0
+            # the device-error bound of the fetch proof: fp32 slabs at
+            # "highest" on the rebuild route; the resident stack scores at
+            # its dtype, so a bf16 stack takes the bf16 margin
+            mslab = self._match_slabs()
+            fp32_path = mslab is None or mslab.dtype == torch.float32
+            rel = self._margin_rel("highest" if fp32_path else "default")
+            m = rel * max(self._max_norm * qmax, 1.0)
+            rows, k_fetch = fetch_exact_topk(fetch, self.n_rows, k_eff, 2 * m)
+        with self.timer.section("topk_rescore"):
+            shadow = self._shadow.view()
+            qi_idx = np.repeat(np.arange(nq), k_fetch)
+            cand_idx = rows.reshape(-1).astype(np.int64)
+            # rows reachable only through a dormant dim join explicitly
+            extra_q, extra_r = self._dormant_hits(qcsr)
+            if extra_q.size:
+                qi_idx = np.concatenate([qi_idx, extra_q])
+                cand_idx = np.concatenate([cand_idx, extra_r])
+            sims = rescore_ops.cross_pair_dots(
+                shadow.indptr, shadow.indices, shadow.data, shadow.n_cols,
+                qcsr.indptr, qcsr.indices, qcsr.data, qi_idx, cand_idx,
+            )
+        with self.timer.section("topk_assemble"):
+            return assemble_topk(qids, qi_idx, cand_idx, sims, k_eff,
+                                 self.ids)
+
+    # ------------------------------------------------------- not ported yet
     def save(self, path: str) -> None:
         raise _not_ported("chunked save", "item C")
 
@@ -655,6 +1287,9 @@ class ChunkedAllPairs:
         self.n_rows = csr.n_rows
         self._n_chunks = n_chunks
         self._chunk_cap = chunk_cap
+        self._ext_df = z["chunk_ext_df"]
+        if self._ext_df.size == 0:  # saved without document frequencies
+            self._ext_df = None
         base, dim_bucket = (int(v) for v in z["chunk_base"])
         cs = CompactSpace(self.cfg.vector_dim, dim_bucket)
         cs.ext_of_col = z["chunk_ext_of_col"].astype(np.int64)
@@ -666,6 +1301,7 @@ class ChunkedAllPairs:
         self._dorm_rows = z["chunk_dorm_rows"]
         self._dorm_dims = z["chunk_dorm_dims"]
         self._dorm_vals = z["chunk_dorm_vals"]
+        self._dorm_buf = None
         if int(z["chunk_dorm_has_map"][0]):
             m = np.full(self.cfg.vector_dim, -1, np.int32)
             m[z["chunk_dorm_map_dims"]] = z["chunk_dorm_map_idx"]

@@ -15,9 +15,11 @@ and the panel ops are rerouted.
 The stripe join (``pallas_int8=False``, ``use_pallas="off"``, a tripped
 int32 gate) runs sharded too (``ops/chunked_mesh.py``): every shard scores
 the stripe over its own chunks and the partial accumulators are summed
-before the one epilogue.  ``insert``, ``topk`` and ``freeze`` (item B2) and
-``save`` (item C) raise ``NotImplementedError`` as in the single-device
-engine.  The single-slab tier never applies: slabs are shard-split.
+before the one epilogue.  ``insert``, ``topk`` and ``freeze`` raise
+``NotImplementedError`` (ROADMAP item G.1): the entry buffers are split per
+shard, so the single-device streaming match must not run on them; ``save``
+(item C) raises as in the single-device engine.  The single-slab tier never
+applies: slabs are shard-split.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..config import AllPairsConfig
 from ..engine.chunked import INT8_NNZ_GATE, ChunkedAllPairs
+from ..engine.engine import _not_ported
 from ..ops import chunked_mesh as cm_ops
 from ..ops import panel_mesh
 from ..vector.batch import round_up
@@ -88,10 +91,20 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         self._ent = tuple(split(a) for a in self._ent_host)
         self._counts = counts
         self._counts_dev = split(counts.astype(np.int32))
-        self._panel_geom_cache = None
-        self._panel_state_cache = None
-        self._compact_rescore_cache = None
-        self._q8_cache = None
+        self._new_corpus()
+
+    # ------------------------------------------------------ not ported yet
+    def insert(self, vectors, tau=None, bulk=False, defer=False):
+        raise _not_ported("mesh chunked streaming insert", "item G.1")
+
+    def topk(self, queries, k: int):
+        raise _not_ported("mesh chunked topk", "item G.1")
+
+    def freeze(self) -> None:
+        raise _not_ported("mesh chunked freeze", "item G.1")
+
+    def unfreeze(self) -> None:
+        raise _not_ported("mesh chunked unfreeze", "item G.1")
 
     # ----------------------------------------------------- mesh stripe join
     def _local_counts(self) -> list:
@@ -111,7 +124,7 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                 max_nnz)
 
     def _ent_key(self):
-        return tuple((id(v), v._version) for v in self._ent[2])
+        return (self._ent_gen,) + tuple(v._version for v in self._ent[2])
 
     def _op_stripe(self, q0: int, tau_eff, super_tile: int):
         q8 = self._int8_slabs()
@@ -189,8 +202,9 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         geom = self._panel_geom()
         if geom is None:
             return None
+        key = (self._ent_key(), geom)
         cached = self._panel_state_cache
-        if cached is not None and cached[0] == geom:
+        if cached is not None and cached[0] == key:
             return cached[1]
         rb, _, _, n_panels, d_cap = geom
         with self._stage("quantize_sort"):
@@ -218,7 +232,7 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                         for p in range(n_panels)
                     ],
                 }
-        self._panel_state_cache = (geom, state)
+        self._panel_state_cache = (key, state)
         return state
 
     def _build_slab(self, state, p: int):

@@ -135,7 +135,8 @@ import torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
                              SparseVector, make_mesh)
-from apsim_tpu_torch.bench.ooc import join_ops, profile_join
+from apsim_tpu_torch.bench.ooc import (batch_oracle, dense_rows, join_ops,
+                                       profile_join)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
 from apsim_tpu_torch.ops import chunked as chunked_ops
@@ -784,6 +785,74 @@ def dims_step(eng: Engine, csr: CSRMatrix, d: torch.Tensor,
         f"{ts.LAUNCHES['score_bits_int8']} launches) equals the oracle")
 
 
+def check_topk(eng, queries, sq: torch.Tensor, label: str) -> None:
+    """``eng.topk(queries, 10)`` with ``allow_tf32`` on beforehand: it must
+    come back on, and every query's fp64 scores must equal the dense fp64
+    top-k of the scores ``sq [nq, n_rows]`` rank for rank within 1e-12 (the
+    ids too where the 10th and 11th scores differ), each reported score
+    its row's own."""
+    dev = sq.device
+    ora_s, ora_r = torch.topk(sq, 11, dim=1)
+    ora_s, ora_r = ora_s.cpu().numpy(), ora_r.cpu().numpy()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    top = eng.topk(queries, 10)
+    tf32_after = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"{label} topk: allow_tf32 True before, {tf32_after} after")
+    if tf32_after is not True:
+        raise AssertionError("topk changed allow_tf32")
+    n_tied = 0
+    for qi, (qid, _) in enumerate(queries):
+        got = top[qid]
+        scores = np.array([v for _, v in got])
+        if len(got) != 10 or np.abs(scores - ora_s[qi, :10]).max() > 1e-12:
+            raise AssertionError(f"topk {qid}: scores {scores} vs fp64 "
+                                 f"{ora_s[qi, :10]}")
+        if ora_s[qi, 9] - ora_s[qi, 10] > 1e-12:
+            if {int(c) for c, _ in got} != set(ora_r[qi, :10].tolist()):
+                raise AssertionError(f"topk {qid}: ids differ from fp64")
+        else:
+            n_tied += 1
+    ids = torch.tensor([[int(c) for c, _ in top[q]] for q, _ in queries],
+                       device=dev)
+    mine = torch.tensor([[v for _, v in top[q]] for q, _ in queries],
+                        dtype=torch.float64, device=dev)
+    if float((torch.gather(sq, 1, ids) - mine).abs().max()) > 1e-12:
+        raise AssertionError("topk: a reported score is not its row's")
+    log(f"{label} topk(k=10), {len(queries)} queries: fp64 scores rank for "
+        f"rank within 1e-12 of the dense fp64 top-k, ids equal where the "
+        f"10th and 11th differ ({n_tied} queries tied there)")
+
+
+def check_frozen(eng, fq, fs: torch.Tensor, fpicks, label: str) -> None:
+    """``freeze``, then ``insert(fq)``: the output must equal the fp64
+    oracle of the scores ``fs [nq, n_rows]`` at TAU (similarities within
+    1e-12), each copied corpus row ``z<r>`` must find row r, and nothing
+    may be indexed; ``unfreeze`` after."""
+    eng.freeze()
+    n0 = eng.n_rows
+    out = eng.insert(fq, tau=TAU).output
+    if eng.n_rows != n0:
+        raise AssertionError("a frozen insert indexed rows")
+    qi, ri = torch.nonzero(fs >= TAU, as_tuple=True)
+    fs_h = fs.cpu().numpy()
+    row_of = {q: k for k, (q, _) in enumerate(fq)}
+    want_f: dict = {}
+    for a, b in zip(qi.tolist(), ri.tolist()):
+        want_f.setdefault(fq[a][0], set()).add(str(b))
+    if {q: set(c) for q, c in out.items()} != want_f or any(
+            abs(v - fs_h[row_of[q], int(c)]) > 1e-12
+            for q, cs in out.items() for c, v in cs.items()):
+        raise AssertionError("frozen match differs from the fp64 oracle")
+    if any(not out.get(f"z{r}", {}).get(str(r)) for r in fpicks):
+        raise AssertionError("a copied row did not find itself")
+    log(f"{label} frozen match, {len(fq)} queries: "
+        f"{sum(map(len, out.values()))} pairs equal the fp64 oracle at "
+        f"tau = {TAU}; n_rows unchanged")
+    eng.unfreeze()
+
+
 def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                  smi: str) -> None:
     """Phase 8: build on the first 24,576 rows of phase 3's corpus, stream
@@ -859,37 +928,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                + [(f"s{i}", qsrc.row(i)) for i in range(512)])
     qd = torch.cat([d[torch.from_numpy(picks).to(dev)], dense64(qsrc, dev)])
     sq = qd @ d.T
-    ora_s, ora_r = torch.topk(sq, 11, dim=1)
-    ora_s, ora_r = ora_s.cpu().numpy(), ora_r.cpu().numpy()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    top = eng.topk(queries, 10)
-    tf32_after = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    log(f"phase 8 topk: allow_tf32 True before, {tf32_after} after")
-    if tf32_after is not True:
-        raise AssertionError("topk changed allow_tf32")
-    n_tied = 0
-    for qi, (qid, _) in enumerate(queries):
-        got = top[qid]
-        scores = np.array([v for _, v in got])
-        if len(got) != 10 or np.abs(scores - ora_s[qi, :10]).max() > 1e-12:
-            raise AssertionError(f"topk {qid}: scores {scores} vs fp64 "
-                                 f"{ora_s[qi, :10]}")
-        if ora_s[qi, 9] - ora_s[qi, 10] > 1e-12:
-            if {int(c) for c, _ in got} != set(ora_r[qi, :10].tolist()):
-                raise AssertionError(f"topk {qid}: ids differ from fp64")
-        else:
-            n_tied += 1
-    ids = torch.tensor([[int(c) for c, _ in top[q]] for q, _ in queries],
-                       device=dev)
-    mine = torch.tensor([[v for _, v in top[q]] for q, _ in queries],
-                        dtype=torch.float64, device=dev)
-    if float((torch.gather(sq, 1, ids) - mine).abs().max()) > 1e-12:
-        raise AssertionError("topk: a reported score is not its row's")
-    log(f"phase 8 topk(k=10), {len(queries)} queries: fp64 scores rank for "
-        f"rank within 1e-12 of the dense fp64 top-k, ids equal where the "
-        f"10th and 11th differ ({n_tied} queries tied there)")
+    check_topk(eng, queries, sq, "phase 8")
     del sq, qd
 
     # frozen matching: queries are scored, not indexed
@@ -899,26 +938,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
           + [(f"y{i}", fsrc.row(i)) for i in range(128)])
     fd = torch.cat([d[torch.from_numpy(fpicks).to(dev)], dense64(fsrc, dev)])
     fs = fd @ d.T
-    eng.freeze()
-    n0 = eng.n_rows
-    out = eng.insert(fq, tau=TAU).output
-    if eng.n_rows != n0:
-        raise AssertionError("a frozen insert indexed rows")
-    qi, ri = torch.nonzero(fs >= TAU, as_tuple=True)
-    fs_h = fs.cpu().numpy()
-    row_of = {q: k for k, (q, _) in enumerate(fq)}
-    want_f: dict = {}
-    for a, b in zip(qi.tolist(), ri.tolist()):
-        want_f.setdefault(fq[a][0], set()).add(str(b))
-    if {q: set(c) for q, c in out.items()} != want_f or any(
-            abs(v - fs_h[row_of[q], int(c)]) > 1e-12
-            for q, cs in out.items() for c, v in cs.items()):
-        raise AssertionError("frozen match differs from the fp64 oracle")
-    if any(not out.get(f"z{r}", {}).get(str(r)) for r in fpicks):
-        raise AssertionError("a copied row did not find itself")
-    log(f"phase 8 frozen match, {len(fq)} queries: {sum(map(len, out.values()))}"
-        f" pairs equal the fp64 oracle at tau = {TAU}; n_rows unchanged")
-    eng.unfreeze()
+    check_frozen(eng, fq, fs, fpicks, "phase 8")
     dims_step(eng, csr, d, want)
     del d, fd, fs
     torch.cuda.empty_cache()
@@ -997,6 +1017,339 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                 PEAK_FP32)}
     rec["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 8 timings: {json.dumps(rec)}")
+
+
+# ---------------------------------------- phase 9: the chunked streaming path
+CSTREAM_BUILD = 90_000
+CSTREAM_CAPS = [90112, 98304, 106496]  # the row capacities the stream sees
+DIMS_CAPACITY = 36864  # compact capacity after the shifted rows' new dims
+
+
+def pairs_of(out) -> set:
+    """An insert's output as unordered int pairs."""
+    return {(min(int(q), int(c)), max(int(q), int(c)))
+            for q, cands in out.output.items() for c in cands}
+
+
+def block_scores(csr: CSRMatrix, qd: torch.Tensor) -> torch.Tensor:
+    """fp64 scores ``[nq, csr.n_rows]`` of dense queries ``qd`` against the
+    rows of ``csr``, densified on the card 16,384 rows at a time."""
+    out = torch.empty((qd.shape[0], csr.n_rows), dtype=torch.float64,
+                      device=qd.device)
+    for r0 in range(0, csr.n_rows, 16384):
+        r1 = min(r0 + 16384, csr.n_rows)
+        out[:, r0:r1] = qd @ dense_rows(csr, r0, r1, qd.shape[1],
+                                        qd.device).T
+    return out
+
+
+def query_sets(csr: CSRMatrix, dev):
+    """Phase 8's query sets on the 100,000-row corpus: 1,024 top-k queries
+    (512 corpus rows under new ids, 512 of seed 7) and 256 frozen-match
+    queries (128 copies, 128 of seed 11), each with its fp64 scores
+    against the corpus."""
+    qsrc, fsrc = synthetic_corpus(512, seed=7), synthetic_corpus(128, seed=11)
+    picks = np.arange(0, csr.n_rows, csr.n_rows // 512)[:512]
+    fpicks = np.arange(5, csr.n_rows, csr.n_rows // 128)[:128]
+    queries = ([(f"t{r}", csr.row(int(r))) for r in picks]
+               + [(f"s{i}", qsrc.row(i)) for i in range(512)])
+    fq = ([(f"z{r}", csr.row(int(r))) for r in fpicks]
+          + [(f"y{i}", fsrc.row(i)) for i in range(128)])
+    scores = []
+    for qs in (queries, fq):
+        qcsr = CSRMatrix.from_vectors([v for _, v in qs], csr.n_cols)
+        scores.append(block_scores(
+            csr, dense_rows(qcsr, 0, qcsr.n_rows, 32768, dev)))
+    return queries, scores[0], fq, scores[1], fpicks
+
+
+def stream_rows(eng: ChunkedAllPairs, csr: CSRMatrix, lo: int, sizes,
+                route=None):
+    """Insert rows ``[lo, n_rows)`` of ``csr`` (ids: row numbers) in batches
+    of ``sizes``, then of 256; ``route`` (if given) must be each batch's.
+    Returns the union of the outputs, the routes taken, the row
+    capacities seen, the batch count and the seconds."""
+    union, routes, caps = set(), [], [eng.row_cap]
+    s, nb = lo, 0
+    t0 = time.perf_counter()
+    while s < csr.n_rows:
+        bs = sizes[nb] if nb < len(sizes) else 256
+        e = min(s + bs, csr.n_rows)
+        if route is None and not eng._paneled_ok():
+            raise AssertionError(f"batch at row {s}: not beyond the budget")
+        out = eng.insert([(str(i), csr.row(i)) for i in range(s, e)], tau=TAU)
+        routes.append(eng.last_route)
+        if route is not None and eng.last_route != route:
+            raise AssertionError(f"batch at row {s} took {eng.last_route}, "
+                                 f"not {route}")
+        if eng.row_cap != caps[-1]:
+            caps.append(eng.row_cap)
+        union |= pairs_of(out)
+        s, nb = e, nb + 1
+    return union, routes, caps, nb, time.perf_counter() - t0
+
+
+def chunked_stream_resident(dev, csr: CSRMatrix, want: set, kernels: list,
+                            qsets, smi: str) -> dict:
+    """Phase 9a: the resident route at 100,000 rows: build on 90,000, stream
+    the rest, gate, join (kernel 3), top-k and frozen matching against fp64
+    oracles; then the route's timings.  Returns the timing record."""
+    eng = ChunkedAllPairs(AllPairsConfig(), dev)
+    log(f"phase 9a build, {CSTREAM_BUILD} rows: "
+        f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
+    res = eng.all_pairs(TAU)
+    builds0 = eng.timer.counts.get("match_slabs", 0)
+    union, _, caps, nb, secs = stream_rows(
+        eng, csr, CSTREAM_BUILD, [1] * 8 + [32] * 8, "resident_slabs")
+    union |= set(zip(res.i.tolist(), res.j.tolist()))
+    builds = eng.timer.counts["match_slabs"] - builds0
+    if caps != CSTREAM_CAPS or builds != len(caps):
+        raise AssertionError(f"resident stream: row caps {caps}, stack "
+                             f"built {builds} times")
+    if union != want:
+        raise AssertionError(
+            f"phase 9a streamed union differs from the fp64 oracle: "
+            f"{len(union - want)} extra, {len(want - union)} missing")
+    stack = eng._mslab
+    log(f"phase 9a stream: {nb} inserts of rows {CSTREAM_BUILD}-"
+        f"{csr.n_rows - 1} in {secs:.3f} s, every one on the resident "
+        f"route; row_cap {caps}; stack {list(stack.shape)} {stack.dtype} "
+        f"({stack.numel() * stack.element_size() / 1e9:.2f} GB) built "
+        f"{builds} times; build join + every insert's output: "
+        f"{len(union)} pairs equal the fp64 oracle")
+
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    launches = dict(ts.LAUNCHES)
+    geom = eng._panel_geom()
+    n_pairs = geom[3] * (geom[3] + 1) // 2
+    expect = {k: 0 for k in launches}
+    expect["panel_score_bits_int8"] = n_pairs
+    if launches != expect or eng._mslab is not None:
+        raise AssertionError(f"join of the streamed chunked index: launches "
+                             f"{launches}, expected {expect}")
+    check_parity(res, want, "phase 9a join of the streamed chunked index")
+    last = geom[3] - 1
+    recs = [compare_panel(eng, pi, pj, *geom[1:3], timed=False)
+            for pi, pj in ((0, last), (last, last))]
+    log(f"phase 9a panel kernel vs plain at the streamed index ({eng.n_rows} "
+        f"rows, the last panel {geom[0] * geom[3] - eng.n_rows} rows of "
+        f"padding): {json.dumps(recs)}")
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k3.update(stream_join_launches=launches["panel_score_bits_int8"],
+              stream_max_abs_err=max(r["max_abs_err"] for r in recs))
+
+    queries, sq, fq, fs, fpicks = qsets
+    check_topk(eng, queries, sq, "phase 9a")
+    if eng._mslab is None:
+        raise AssertionError("topk did not score against the resident stack")
+    check_frozen(eng, fq, fs, fpicks, "phase 9a")
+    if eng.last_route != "resident_slabs":
+        raise AssertionError(f"frozen match took {eng.last_route}")
+
+    # timings (host clock, warm, median of 9), after the gates
+    rec = {"card": smi, "rows": eng.n_rows, "row_cap": eng.row_cap}
+    rec.update(stream_timings(eng, synthetic_corpus(4096, seed=13),
+                              (1, 32, 256), "resident_slabs"))
+    if eng.row_cap != CSTREAM_CAPS[-1]:
+        raise AssertionError("the timing inserts crossed a row capacity")
+    # top-k against the bf16 stack fetches deep (the bf16 margin): seconds
+    # a call, so the median of 3
+    before = dict(eng.timer.totals)
+    rec["topk_ms"] = median_host_ms(lambda: eng.topk(queries, 10), 3)
+    rec["topk_queries_per_s"] = len(queries) / rec["topk_ms"] * 1e3
+    rec["topk_stages_ms"] = {
+        k: (eng.timer.totals[k] - before[k]) / 3 * 1e3
+        for k in ("topk_fetch", "topk_rescore", "topk_assemble")}
+    eng.freeze()
+    eng.insert(fq, tau=TAU)
+    rec["frozen_ms"] = median_host_ms(lambda: eng.insert(fq, tau=TAU))
+    rec["frozen_queries_per_s"] = len(fq) / rec["frozen_ms"] * 1e3
+    eng.unfreeze()
+    # the match's product alone (CUDA events, median of 5): a bs = 256
+    # batch against the whole stack
+    stack = eng._match_slabs()
+    extra = synthetic_corpus(256, seed=21)
+    ccsr = eng.compact.map_csr(eng._drop_unmapped(extra), extend=False)
+    q = eng._bucket_queries(ccsr, 256)
+    n_c, rc, w = stack.shape
+    rec["match_product"] = {
+        "shape": [n_c, rc, w, 256],
+        "ms": median_ms(lambda: chunked_ops.chunk_scores(
+            lambda c: stack[c], q, n_c, w, 256, stack.dtype, "default")),
+        **bound(2 * n_c * rc * w * 256,
+                stack.numel() * 2 + 12 * int(ccsr.indptr[-1]) + 4 * rc * 256,
+                PEAK_BF16)}
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase 9a timings: {json.dumps(rec)}")
+    return rec
+
+
+STREAM_SPLIT = ("insert", "admit", "prepare", "append", "match_slabs",
+                "sort_entries", "product", "compact", "host_match", "d2h",
+                "rescore")
+
+
+def stream_timings(eng: ChunkedAllPairs, extra: CSRMatrix, sizes, route,
+                   reps: int = 9, cursor=None) -> dict:
+    """Insert latency (host clock, warm: two batches first, then the
+    median of ``reps``) and vectors/s at each batch size of ``sizes`` on
+    rows of ``extra``, every batch on ``route``, with the stage split per
+    batch at the largest size."""
+    cursor = cursor if cursor is not None else [0]
+    rec = {}
+    for bs in sizes:
+        batches = []
+        for _ in range(reps + 2):
+            a = cursor[0]
+            cursor[0] += bs
+            batches.append([(f"x{a + i}", extra.row(a + i))
+                            for i in range(bs)])
+        for b in batches[:2]:
+            eng.insert(b, tau=TAU)
+        it = iter(batches[2:])
+        before = dict(eng.timer.totals)
+
+        def one():
+            eng.insert(next(it), tau=TAU)
+            if eng.last_route != route:
+                raise AssertionError(f"timed batch took {eng.last_route}")
+
+        ms = median_host_ms(one, reps)
+        rec[f"insert_bs{bs}_ms"] = ms
+        rec[f"insert_bs{bs}_vectors_per_s"] = bs / ms * 1e3
+        if bs == sizes[-1]:
+            rec[f"stages_ms_per_batch_bs{bs}"] = {
+                k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0))
+                / reps * 1e3 for k in STREAM_SPLIT}
+    return rec
+
+
+def chunked_stream_beyond(dev, csr: CSRMatrix, want: set, qsets,
+                          smi: str) -> dict:
+    """Phase 9b: beyond the slab budget at the same 100,000 rows: the
+    router's routes, top-k at "highest", column growth and dormant
+    activation into the sorted state's overflow, both routes forced, the
+    join of the grown index; then each route's timings (forced; the host
+    route's median of 3, its batches take seconds) and the router's own
+    choice for such a batch."""
+    eng = ChunkedAllPairs(AllPairsConfig(match_slab_budget_mb=0), dev)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 9b build, {CSTREAM_BUILD} rows: "
+        f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
+    res = eng.all_pairs(TAU)
+    union, routes, caps, nb, secs = stream_rows(eng, csr, CSTREAM_BUILD, [])
+    union |= set(zip(res.i.tolist(), res.j.tolist()))
+    if union != want:
+        raise AssertionError(
+            f"phase 9b streamed union differs from the fp64 oracle: "
+            f"{len(union - want)} extra, {len(want - union)} missing")
+    log(f"phase 9b stream: {nb} inserts of 256 rows in {secs:.3f} s, routes "
+        f"{ {r: routes.count(r) for r in set(routes)} }; row_cap {caps}; "
+        f"{len(union)} pairs equal the fp64 oracle")
+    queries, sq, _, _, _ = qsets
+    check_topk(eng, queries[:256], sq[:256], "phase 9b (fp32 slabs)")
+
+    # column growth and dormant activation (phase 8's dims step)
+    index = [csr]
+    picks = np.arange(7, csr.n_rows, csr.n_rows // 64)[:64]
+    vecs = []
+    for p in picks:
+        v = csr.row(int(p))
+        vecs.append(SparseVector(v.size, v.indices + 32768, v.values))
+    cap0, w0 = eng.compact.capacity, eng._chunk_width
+    dorm0 = eng.stats["dormant_dims"]
+    grown = set()
+    step = {}
+    for k, vs in ((0, vecs), (64, vecs[:8])):
+        n0 = eng.n_rows
+        part = CSRMatrix.from_vectors(vs, csr.n_cols)
+        out = eng.insert([(str(n0 + i), v) for i, v in enumerate(vs)],
+                         tau=TAU)
+        step[k] = (eng.last_route, eng.stats["dormant_dims"])
+        want_b = batch_oracle(index, part, n0, TAU, dev)
+        if pairs_of(out) != want_b:
+            raise AssertionError(f"new-dims insert ({len(vs)} rows) differs "
+                                 f"from the fp64 oracle")
+        grown |= want_b
+        index.append(part)
+    st = eng._sort_state
+    dorm1, dorm2 = step[0][1], step[64][1]
+    if (eng.compact.capacity, eng._chunk_width) != (DIMS_CAPACITY, 2 * w0) or (
+            dorm1 <= dorm0 or dorm2 >= dorm1 or st is None
+            or st["n_o"] == 0):
+        raise AssertionError(
+            f"dims step: capacity {cap0} -> {eng.compact.capacity}, width "
+            f"{w0} -> {eng._chunk_width}, dormant {dorm0} -> {dorm1} -> "
+            f"{dorm2}, overflow {None if st is None else st['n_o']}")
+    log(f"phase 9b new dims: compact capacity {cap0} -> "
+        f"{eng.compact.capacity}, chunk width {w0} -> {eng._chunk_width}, "
+        f"dormant dims {dorm0} -> {dorm1} -> {dorm2}, {st['n_o']} entries "
+        f"activated into the overflow region; routes {step[0][0]}, "
+        f"{step[64][0]}; {len(grown)} pairs equal the fp64 oracle")
+
+    probes = synthetic_corpus(512, seed=101)
+    dev_route = "device_paneled"
+    for k, (force, name) in enumerate(((True, "host_spgemm"),
+                                       (False, dev_route))):
+        part = csr_rows(probes, 256 * k, 256 * (k + 1))
+        n0 = eng.n_rows
+        eng._use_host_match = lambda q, _f=force: _f  # shadow the router
+        try:
+            out = eng.insert([(str(n0 + i), part.row(i)) for i in range(256)],
+                             tau=TAU)
+        finally:
+            del eng._use_host_match
+        want_b = batch_oracle(index, part, n0, TAU, dev)
+        if eng.last_route != name or pairs_of(out) != want_b:
+            raise AssertionError(f"forced {name}: took {eng.last_route}, "
+                                 f"{len(pairs_of(out) ^ want_b)} pairs off")
+        grown |= want_b
+        index.append(part)
+    log("phase 9b forced routes: a bs = 256 batch on host_spgemm and one on "
+        "device_paneled, each equal to the fp64 oracle")
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    if ts.LAUNCHES["panel_score_bits_int8"] < 1:
+        raise AssertionError("the grown index's join did not launch kernel 3")
+    check_parity(res, want | grown, "phase 9b join of the grown index")
+
+    rec = {"card": smi, "rows": eng.n_rows, "row_cap": eng.row_cap,
+           "chunk_width": eng._chunk_width, "ph": eng._paneled_ph()}
+    extra = synthetic_corpus(4096, seed=17)
+    cursor = [0]
+    sample = csr_rows(extra, 0, 256)
+    rec["router_choice_bs256"] = ("host_spgemm"
+                                  if eng._use_host_match(sample.indices)
+                                  else dev_route)
+    for name, force, reps in (("paneled", False, 9), ("host", True, 3)):
+        eng._use_host_match = lambda q, _f=force: _f  # one route each
+        try:
+            rec[name] = stream_timings(
+                eng, extra, (256,), "host_spgemm" if force else dev_route,
+                reps=reps, cursor=cursor)
+        finally:
+            del eng._use_host_match
+    rec["router_correct"] = rec["router_choice_bs256"] == min(
+        ("host_spgemm", rec["host"]["insert_bs256_ms"]),
+        (dev_route, rec["paneled"]["insert_bs256_ms"]),
+        key=lambda kv: kv[1])[0]
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"phase 9b timings: {json.dumps(rec)}")
+    return rec
+
+
+def chunked_stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
+                         smi: str) -> None:
+    """Phase 9: the chunked engine's streaming path on phase 5's corpus."""
+    t_phase = time.perf_counter()
+    qsets = query_sets(csr, dev)
+    torch.cuda.empty_cache()
+    chunked_stream_resident(dev, csr, want, kernels, qsets, smi)
+    torch.cuda.empty_cache()
+    chunked_stream_beyond(dev, csr, want, qsets, smi)
+    torch.cuda.empty_cache()
+    log(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
 def main() -> int:
@@ -1331,6 +1684,9 @@ def main() -> int:
 
     # ---- phase 8: the streaming path (insert, join, topk, frozen match)
     stream_phase(dev, big_csr, want32, kernels, smi)
+
+    # ---- phase 9: the chunked engine's streaming path on phase 5's corpus
+    chunked_stream_phase(dev, ooc_csr, want, kernels, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

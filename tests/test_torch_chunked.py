@@ -29,7 +29,7 @@ from apsim_tpu_torch.bench import ooc as pt_ooc
 from apsim_tpu_torch.engine import chunked as pt_chunked
 from apsim_tpu_torch.ops import tri_score as ts
 
-from oracle import brute_force_pairs, random_sparse_corpus
+from oracle import brute_force_pairs, brute_force_sims, random_sparse_corpus
 
 DIM = 500
 
@@ -328,6 +328,26 @@ def test_unported_paths_raise(corpus, what):
           "no_int8": {"pallas_int8": False},
           "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
     rows = 64 if what == "odd_panel_rows" else None
+    if what in ("insert", "topk", "freeze"):
+        # ported: the streaming path, held against the fp64 oracle
+        e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()), "cpu",
+                               chunk_dim=128)
+        e.build(to_pt(corpus))
+        q = corpus.row(0)
+        qv = pt.SparseVector(q.size, q.indices, q.values)
+        sims = brute_force_sims(corpus)[0]
+        if what == "topk":
+            got = e.topk([("q", qv)], 3)["q"]
+            np.testing.assert_allclose([s for _, s in got],
+                                       np.sort(sims)[::-1][:3], atol=1e-12)
+            return
+        if what == "freeze":
+            e.freeze()
+        out = e.insert([("q", qv)], tau=0.5).output["q"]
+        want = {str(r) for r in np.flatnonzero(sims >= 0.5)}
+        assert set(out) == want  # the insert's own row is not its pair
+        assert e.n_rows == corpus.n_rows + (what == "insert")
+        return
     if what in ("use_pallas_off", "no_int8", "odd_panel_rows"):
         # ported: these configurations join through the stripes
         e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu",
@@ -361,7 +381,8 @@ def test_device_must_be_explicit():
 def test_ooc_bench_report_on_cpu():
     """The out-of-core bench's join runs end to end at a small size (its
     command line refuses a machine without CUDA), with the stripe join of
-    ``--stripes`` beside it; --stream is not ported."""
+    ``--stripes`` beside it, and so does ``--stream`` with the router's
+    A/B."""
     rep = pt_ooc.run_ooc(600, device="cpu", chunk_dim=1024,
                          compare_stripes=True)
     assert rep["device"] == "cpu" and rep["panel_path"]
@@ -376,8 +397,31 @@ def test_ooc_bench_report_on_cpu():
     assert st["densify_passes"] == rep["n_chunks"]
     assert set(st["stages_s"]) >= {"slabs", "kernel", "epilogue", "compact",
                                    "d2h", "rescore"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item B"):
-        pt_ooc.main(["600", "--stream", "4"])
+    # --stream: streamed inserts on the resident route, then the router's
+    # A/B beyond the slab budget, every output against the fp64 oracle
+    rep = pt_ooc.run_ooc(400, device="cpu", chunk_dim=1024, stream_rows=96,
+                         stream_batch=(32, 48), stream_only=True)
+    assert rep["stream"]["48"]["batches"] == 2
+    assert rep["stream"]["48"]["parity"] is True
+    s = rep["stream"]["32"]
+    assert "join_seconds" not in rep and "router_ab" not in rep
+    assert (s["rows"], s["batch"], s["batches"]) == (96, 32, 3)
+    assert s["routes"] == {"resident_slabs": 3} and s["parity"] is True
+    assert s["median_batch_seconds"] > 0 and s["vectors_per_sec"] > 0
+    assert set(s["stages_ms_per_batch"]) >= {"admit", "prepare", "append",
+                                             "product", "compact", "d2h",
+                                             "rescore"}
+    rep = pt_ooc.run_ooc(400, device="cpu", chunk_dim=1024, stream_rows=64,
+                         stream_batch=(32,), stream_only=True,
+                         router_ab=True, slab_budget_mb=0)
+    assert rep["stream"]["32"]["parity"] is True
+    assert rep["stream"]["32"]["match_path"] in ("host_spgemm",
+                                                 "device_paneled")
+    ab = rep["router_ab"]["32"]
+    assert ab["router_choice"] in ("host_spgemm", "device_paneled")
+    assert ab["host_spgemm_batch_seconds"] > 0
+    assert ab["device_paneled_batch_seconds"] > 0
+    assert ab["parity"] is True and isinstance(ab["router_correct"], bool)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="needs a CUDA device"):
             pt_ooc.main(["600", "--stripes"])

@@ -629,3 +629,61 @@ def _tf32_probe(ctx, flags):
             flags.append(torch.backends.cuda.matmul.allow_tf32)
             yield
     return probe
+
+
+@pytest.mark.parametrize("budget", [7168, 0])
+def test_chunked_stream_on_cuda_equals_cpu(budget):
+    """The chunked streaming path on the card and on the CPU, batch for
+    batch: the resident route (``budget`` 7,168 MiB) or the paneled route
+    (0): outputs equal (fp64 similarities equal), entry buffers and the
+    resident stack equal, every match's scores fp32; then ``topk``, a
+    frozen match and the join of the streamed index (the cross-panel
+    kernel launched on the card) equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    csr = synthetic_corpus(3000, seed=1)
+    engs = {}
+    for dev in ("cuda", "cpu"):
+        e = ChunkedAllPairs(AllPairsConfig(match_slab_budget_mb=budget), dev,
+                            panel_rows=1024)
+        e._host_stream_match = False
+        a = int(csr.indptr[2000])
+        e.build(CSRMatrix(2000, csr.n_cols, csr.indptr[:2001],
+                          csr.indices[:a], csr.data[:a]))
+        engs[dev] = e
+    s = 2000
+    for bs in (1, 32, 256, 256, 256, 199):
+        outs = {dev: e.insert([(str(i), csr.row(i)) for i in range(s, s + bs)],
+                              tau=0.8).output for dev, e in engs.items()}
+        assert outs["cuda"] == outs["cpu"]
+        route = {dev: e.last_route for dev, e in engs.items()}
+        assert route["cuda"] == route["cpu"] == (
+            "resident_slabs" if budget else "device_paneled")
+        for a, b in zip(engs["cuda"]._ent, engs["cpu"]._ent):
+            assert torch.equal(a.cpu(), b)
+        if budget:
+            assert torch.equal(engs["cuda"]._mslab.cpu(), engs["cpu"]._mslab)
+        s += bs
+    assert s == 3000
+    q = [(f"q{i}", csr.row(i)) for i in range(0, 3000, 97)]
+    tops = {dev: e.topk(q, 5) for dev, e in engs.items()}
+    assert {k: [r for r, _ in v] for k, v in tops["cuda"].items()} == {
+        k: [r for r, _ in v] for k, v in tops["cpu"].items()}
+    before = ts.LAUNCHES["panel_score_bits_int8"]
+    joins = {dev: e.all_pairs(0.8).pair_set() for dev, e in engs.items()}
+    assert ts.LAUNCHES["panel_score_bits_int8"] - before == 6  # 3 panels
+    assert joins["cuda"] == joins["cpu"]
+    for e in engs.values():
+        e.freeze()
+    frozen = {dev: e.insert(q, tau=0.8).output for dev, e in engs.items()}
+    assert frozen["cuda"] == frozen["cpu"] and frozen["cpu"]
+    stack = engs["cuda"]._match_slabs()
+    if stack is not None:
+        e, a = engs["cuda"], int(csr.indptr[8])
+        qb = e._bucket_queries(e.compact.map_csr(e._drop_unmapped(
+            CSRMatrix(8, csr.n_cols, csr.indptr[:9], csr.indices[:a],
+                      csr.data[:a]))), 8)
+        sc = chunked_ops.chunk_scores(lambda c: stack[c], qb, stack.shape[0],
+                                      stack.shape[2], 8, stack.dtype,
+                                      "default")
+        assert sc.dtype == torch.float32

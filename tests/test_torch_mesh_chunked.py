@@ -412,7 +412,7 @@ def test_unported_paths_raise(corpus, what):
         assert not e._single_slab_ok(None) and not e._panel_ok()
         assert e.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
         return
-    item = {"insert": "item B", "topk": "item B", "freeze": "item B",
+    item = {"insert": "item G.1", "topk": "item G.1", "freeze": "item G.1",
             "save": "item C"}[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         e = pt.MeshChunkedAllPairs(
