@@ -13,10 +13,16 @@ engine's streaming path (``Engine.insert`` matched online, ``topk``,
 join behind it) and its streaming path (``insert`` on the resident, host,
 paneled and rebuild routes, ``topk``, ``freeze``), their single-host mesh
 variants ``MeshChunkedAllPairs`` (chunk axis sharded; its join only) and
-``MeshEngine`` (rows, dims or a 2-D mesh), and
-loading each engine from the JAX package's checkpoints.  Entry points run
-on the card (``"cuda"``, or a mesh over the cards) unless the caller names
-the CPU.
+``MeshEngine`` (rows, dims or a 2-D mesh); checkpoints (``save`` and
+``load`` in the JAX package's format, so either package restores the
+other's) and ``profile_dir`` tracing (``torch.profiler``); the ETL
+(``etl``: TF-IDF hashing, the vector store); the serving stack
+(``serve``: ``SimilarityServer``, the newline-JSON ``RpcServer``, the
+client), the load generator (``bench.loadgen``) and the command line
+(``python -m apsim_tpu_torch.cli``, ``apsim-torch``).  Not yet: multi-host
+replicated serving, the chunked mesh's streaming and the rows / dims
+mesh's streaming over more than one shard.  Entry points run on the card
+(``"cuda"``, or a mesh over the cards) unless the caller names the CPU.
 """
 
 from .config import AllPairsConfig, load_config

@@ -163,9 +163,9 @@ class AllPairsConfig:
                                        # bf16); beyond it the engine falls
                                        # back to the per-batch rebuild.  0
                                        # disables the cache.
-    profile_dir: str = ""              # when set, capture a jax.profiler
-                                       # trace around every all_pairs/insert
-                                       # (view with TensorBoard/xprof);
+    profile_dir: str = ""              # when set, write a torch.profiler
+                                       # trace of every all_pairs/insert
+                                       # (Chrome trace JSON: Perfetto);
                                        # per-stage wall timings are always
                                        # collected in stats["timings"]
     tls_cert: str = ""                 # PEM cert path: serve TLS when both

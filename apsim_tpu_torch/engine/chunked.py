@@ -51,12 +51,13 @@ decides the output.  ``topk`` is the provably exact k-nearest query (fetch
 grown until the margin proof holds, fp64 re-rank); ``freeze`` turns inserts
 into frozen-index matching.
 
-``load`` reads the JAX package's checkpoints: a chunked-flavor checkpoint's
-``chunk_*`` arrays (the document frequencies of the host router among
-them) are placed as they are, any other is rebuilt from its CSR shadow, and
-the static max-weight map (``set_max_weight_map``) comes back with it.
-``save`` (ROADMAP item C) is not ported yet and raises
-``NotImplementedError``.
+``save`` writes the dense engine's checkpoint plus the ``chunk_*`` arrays
+of the JAX package's chunked flavor (the entry buffers' host mirror, the
+compact space, the document frequencies, the dormant archive), so either
+package restores the other's checkpoint.  ``load`` places a chunked-flavor
+checkpoint's arrays as they are and rebuilds any other from its CSR
+shadow; the static max-weight map (``set_max_weight_map``) comes back with
+it.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ from ..ops import tri_score as ts
 from ..utils.logging import Timer
 from ..vector.batch import (CSRMatrix, GrowableCSR, pack_coo_i32,
                             pow2_bucket, round_up)
-from .engine import (Engine, _as_csr, _CompletedInsert, _not_ported,
+from .engine import (Engine, _as_csr, _CompletedInsert,
                      assemble_topk, fetch_exact_topk)
 from .output import PairResult, SimilarityOutput
 
@@ -100,8 +101,6 @@ class ChunkedAllPairs:
             raise ValueError(f"unsupported device {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested, no CUDA")
-        if self.cfg.profile_dir:
-            raise _not_ported("profile_dir tracing", "item I")
         self.chunk_dim = int(chunk_dim)
         # panel-join row-block override (tests / tuning); None = cost model
         self.panel_rows = None if panel_rows is None else int(panel_rows)
@@ -168,6 +167,8 @@ class ChunkedAllPairs:
     _tau_eff = Engine._tau_eff
     set_max_weight_map = Engine.set_max_weight_map
     _restore_static_map = Engine._restore_static_map
+    # the profile_dir trace around every all_pairs / insert
+    _maybe_trace = Engine._maybe_trace
 
     @property
     def compact(self) -> CompactSpace:
@@ -634,7 +635,7 @@ class ChunkedAllPairs:
                 np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, np.float64), [],
             )
-        with self.timer.section("all_pairs"):
+        with self._maybe_trace(), self.timer.section("all_pairs"):
             tau_eff = self._tau_eff(tau)
             pairs = self._all_pairs_panel(tau_eff) if self._panel_ok() else None
             if pairs is None:  # refused by configuration, geometry or gate
@@ -1038,7 +1039,7 @@ class ChunkedAllPairs:
         joins the index first and then queries it, so intra-batch pairs
         come out both ways.  ``defer=True`` returns an object whose
         ``result()`` gives the output (the insert itself is synchronous)."""
-        with self.timer.section("insert"):
+        with self._maybe_trace(), self.timer.section("insert"):
             out = self._insert_impl(vectors, tau, bulk)
         return _CompletedInsert(out) if defer else out
 
@@ -1239,14 +1240,57 @@ class ChunkedAllPairs:
             return assemble_topk(qids, qi_idx, cand_idx, sims, k_eff,
                                  self.ids)
 
-    # ------------------------------------------------------- not ported yet
-    def save(self, path: str) -> None:
-        raise _not_ported("chunked save", "item C")
-
     # ------------------------------------------------------------- checkpoint
+    # The dense engine's on-disk format (one atomic npz of the host shadow
+    # + ids), so checkpoints are interchangeable across engine flavors.
+    save = Engine.save
+
+    def _extra_npz(self) -> dict:
+        """Chunked-flavor checkpoint extras, key for key and dtype for
+        dtype those of the JAX package: the host mirror of the per-chunk
+        entry buffers and every host structure the build pass derives, so
+        ``restore`` is a device placement instead of a rebuild.  All keys
+        are ``chunk_``-prefixed; other flavors ignore them."""
+        if self._ent_host is None:
+            return {}
+        rows2d, cols2d, vals2d = self._ent_host
+        dorm_map = self._dormant_of_ext
+        has_map = dorm_map is not None
+        return {
+            "chunk_rows2d": rows2d,
+            "chunk_cols2d": cols2d,
+            "chunk_vals2d": vals2d,
+            "chunk_counts": self._counts,
+            "chunk_geom": np.array(
+                [self._n_chunks, self._chunk_cap, self.chunk_dim,
+                 int(self.cfg.dormant_dims)], np.int64,
+            ),
+            "chunk_ext_of_col": self._compact.ext_of_col,
+            "chunk_base": np.array(
+                [self._compact._base, self._compact.dim_bucket], np.int64
+            ),
+            "chunk_ext_df": (np.empty(0, np.int64) if self._ext_df is None
+                             else self._ext_df),
+            "chunk_max_norm": np.array([self._max_norm], np.float64),
+            "chunk_dorm_rows": self._dorm_rows,
+            "chunk_dorm_dims": self._dorm_dims,
+            "chunk_dorm_vals": self._dorm_vals,
+            # _dormant_of_ext stored sparse (dims with a live archive slot);
+            # an int32 over vector_dim would be 4 MB of mostly -1
+            "chunk_dorm_map_dims": (
+                np.nonzero(dorm_map >= 0)[0] if has_map
+                else np.empty(0, np.int64)
+            ),
+            "chunk_dorm_map_idx": (
+                dorm_map[dorm_map >= 0] if has_map
+                else np.empty(0, np.int32)
+            ),
+            "chunk_dorm_has_map": np.array([int(has_map)], np.int64),
+        }
+
     def restore(self, path: str) -> None:
-        """Restore this (empty) engine from a JAX-package checkpoint of
-        either flavor.  A chunked checkpoint's entry-buffer layout
+        """Restore this (empty) engine from a checkpoint of either package
+        and either flavor.  A chunked checkpoint's entry-buffer layout
         (``chunk_*`` arrays) is placed as it is; a dense-flavor checkpoint,
         or one whose geometry differs from this engine's (``chunk_dim``,
         dormancy), is rebuilt from its CSR shadow."""
@@ -1317,8 +1361,8 @@ class ChunkedAllPairs:
     @classmethod
     def load(cls, path: str, config: AllPairsConfig | None = None,
              **kw) -> "ChunkedAllPairs":
-        """Engine restored from a checkpoint written by the JAX package's
-        ``Engine.save`` or ``ChunkedAllPairs.save``; ``kw`` goes to the
+        """Engine restored from a checkpoint written by ``Engine.save`` or
+        ``ChunkedAllPairs.save`` of either package; ``kw`` goes to the
         constructor (``device``, ``chunk_dim``, ... ; the mesh subclass:
         ``mesh``)."""
         eng = cls(Engine.checkpoint_engine_config(path, config), **kw)

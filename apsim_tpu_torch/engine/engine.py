@@ -23,13 +23,17 @@ activation and a rollback on device failure; ``defer=True`` leaves the
 candidates' D2H copy and fp64 rescore to ``PendingInsert.result``.
 ``topk`` is the provably exact k-nearest query (device fetch grown until
 the margin proof holds, then an fp64 re-rank); ``freeze`` turns inserts
-into frozen-index matching.  ``load`` reads the JAX package's
-``index.npz`` checkpoints, its static max-weight map included.  ``save`` is
-not ported yet and raises ``NotImplementedError``.
+into frozen-index matching.  ``save`` writes the JAX package's checkpoint
+format (one atomic ``index.npz`` from the host shadow, ``meta.json``
+beside it), so a checkpoint written by either package restores in the
+other; ``load`` reads it, the static max-weight map included.  With
+``profile_dir`` set, every ``all_pairs`` and ``insert`` writes a
+``torch.profiler`` trace there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -43,17 +47,24 @@ from ..index.compact import CompactSpace
 from ..ops import rescore as rescore_ops
 from ..ops import score as score_ops
 from ..ops import tri_score
-from ..utils.logging import Timer, get_logger
+from ..utils.logging import Timer, get_logger, profile_trace
 from ..vector.batch import CSRMatrix, pack_coo_i32, round_up
 from ..vector.sparse import SparseVector
 from .output import PairResult, SimilarityOutput
 
 __all__ = ["Engine", "BuildStats", "PendingInsert", "assemble_topk",
-           "fetch_exact_topk"]
+           "fetch_exact_topk", "plain_stats"]
 
 
 class BuildStats(dict):
     pass
+
+
+def plain_stats(stats: dict) -> dict:
+    """``stats`` with every NumPy or torch scalar as a Python number, so
+    it survives ``json.dumps`` (checkpoints, the ``stats`` RPC)."""
+    return {k: v.item() if hasattr(v, "item") else v
+            for k, v in stats.items()}
 
 
 def _not_ported(what: str, item: str):
@@ -173,8 +184,6 @@ class Engine:
             raise ValueError(f"unsupported device {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested, no CUDA")
-        if self.cfg.profile_dir:
-            raise _not_ported("profile_dir tracing", "item I")
         self.compact = CompactSpace(self.cfg.vector_dim, self.cfg.dim_bucket)
         self.x = None  # device [row_cap, dim_cap] (property: see below)
         self.n_rows = 0
@@ -202,6 +211,12 @@ class Engine:
             "pairs_emitted": 0,
             "insert_batches": 0,
             "dormant_dims": 0,
+            # the JAX package's dispatch-path mix: its fused 1- and 2-tile
+            # append+match windows and the separate scatter + match; the
+            # port's insert is always the last (keys kept for its stats RPC)
+            "insert_fused": 0,
+            "insert_fused2": 0,
+            "insert_slowpath": 0,
         }
         self.timer = Timer()  # per-stage wall timings
         # int8 scoring state: demoted-to-bf16 flag + whether the last
@@ -483,8 +498,16 @@ class Engine:
                 np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, np.float64), [],
             )
-        with self.timer.section("all_pairs"):
+        with self._maybe_trace(), self.timer.section("all_pairs"):
             return self._all_pairs_timed(tau)
+
+    def _maybe_trace(self):
+        """A ``torch.profiler`` trace into ``profile_dir`` when it is set
+        (the card's activity too on a CUDA engine); no-op otherwise."""
+        if not self.cfg.profile_dir:
+            return contextlib.nullcontext()
+        return profile_trace(self.cfg.profile_dir,
+                             cuda=self.device.type == "cuda")
 
     def _all_pairs_timed(self, tau: float) -> PairResult:
         tau_eff = self._tau_eff(tau)
@@ -644,7 +667,7 @@ class Engine:
         path only — WriteWorkerActor.scala:185-202 vs :153-161) but still
         matches online.  ``defer=True`` returns an object whose ``result()``
         gives the output (``PendingInsert``)."""
-        with self.timer.section("insert"):
+        with self._maybe_trace(), self.timer.section("insert"):
             return self._insert_impl(vectors, tau, bulk, defer)
 
     def _insert_impl(self, vectors, tau, bulk, defer):
@@ -704,6 +727,7 @@ class Engine:
         never pays an O(index) recast."""
         tau_eff = self._tau_eff(tau)
         kept = self._kept_bf16()
+        self.stats["insert_slowpath"] += 1
         with self.timer.section("append"):
             if act is not None:
                 self._scatter_activation(act)
@@ -1195,10 +1219,6 @@ class Engine:
     def frozen(self) -> bool:
         return self._frozen
 
-    # ------------------------------------------------------- not ported yet
-    def save(self, path: str) -> None:
-        raise _not_ported("save", "item C")
-
     # ------------------------------------------------------------ dormant dims
     def _drop_unmapped(self, csr: CSRMatrix) -> CSRMatrix:
         """Remove components in dims absent from the device index."""
@@ -1242,9 +1262,62 @@ class Engine:
         return self._drop_unmapped(csr)
 
     # ------------------------------------------------------------- checkpoint
+    def save(self, path: str) -> None:
+        """Checkpoint = host CSR shadow + id table + max-weight maps +
+        stats, in the JAX package's format (either package restores the
+        other's).  Written from the host shadow, never from device tensors.
+
+        Crash-safe: all restore state lives in ONE npz (meta embedded as a
+        JSON string) swapped into place with ``os.replace``; ``meta.json``
+        is a human-readable mirror written second, so a crash at any point
+        leaves either the old or the new snapshot, never a torn mix."""
+        os.makedirs(path, exist_ok=True)
+        shadow = self.shadow_csr()
+        meta = {
+            "ids": self.ids,
+            "n_rows": self.n_rows,
+            "config": {
+                "vector_dim": self.cfg.vector_dim,
+                "similarity_threshold": self.cfg.similarity_threshold,
+                "dtype": self.cfg.dtype,
+            },
+            "stats": plain_stats(self.stats),
+        }
+        static = self._static_max_weights
+        npz_tmp = os.path.join(path, ".index.npz.tmp")
+        with open(npz_tmp, "wb") as f:
+            # the compact column order is not stored: restore re-derives it
+            # from the CSR (df-ordered), as every reader does.  Uncompressed:
+            # fp64 TF-IDF data hardly compresses, and zlib would dominate
+            np.savez(
+                f,
+                indptr=shadow.indptr,
+                indices=shadow.indices,
+                data=shadow.data,
+                max_weights=self.max_weights,
+                static_max_weights=(np.empty(0) if static is None
+                                    else static),
+                shape=np.array([shadow.n_rows, shadow.n_cols], np.int64),
+                meta_json=np.array(json.dumps(meta)),
+                **self._extra_npz(),
+            )
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(npz_tmp, os.path.join(path, "index.npz"))
+        meta_tmp = os.path.join(path, ".meta.json.tmp")
+        with open(meta_tmp, "w", encoding="utf-8") as f:
+            json.dump(meta, f)
+        os.replace(meta_tmp, os.path.join(path, "meta.json"))
+
+    def _extra_npz(self) -> dict:
+        """Flavor-specific checkpoint arrays (the chunked engine stores its
+        entry-buffer mirror here so restore skips the build pass).  Every
+        reader ignores keys it does not know."""
+        return {}
+
     @staticmethod
     def read_checkpoint(path: str):
-        """Host-only read of a JAX-package checkpoint: (csr, ids,
+        """Host-only read of a checkpoint of either package: (csr, ids,
         max_weights, config_dict)."""
         z = np.load(os.path.join(path, "index.npz"))
         if "meta_json" in z:  # self-contained snapshot (atomic save path)
@@ -1319,8 +1392,8 @@ class Engine:
     @classmethod
     def load(cls, path: str, config: AllPairsConfig | None = None,
              **kw) -> "Engine":
-        """Engine rebuilt from a checkpoint written by the JAX package's
-        ``Engine.save``; ``kw`` goes to the constructor (``device``; the
+        """Engine rebuilt from a checkpoint written by ``save`` of either
+        package; ``kw`` goes to the constructor (``device``; the
         mesh subclass: ``mesh``)."""
         eng = cls(cls.checkpoint_engine_config(path, config), **kw)
         eng.restore(path)

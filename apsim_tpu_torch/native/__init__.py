@@ -3,10 +3,12 @@ file, a copy of the JAX package's source).
 
 Builds the shared library on first use with g++ (``-ffp-contract=off``, so
 the fp64 rescore's sums are the same as the reference package's) into
-``build/apsim_tpu_torch/``, keyed by a content hash.  Only the two rescore
-entry points are bound here; the source's hashing and padding helpers serve
-paths that are not ported yet.  Both entry points return None when no
-compiler is available, and the caller takes its NumPy path.
+``build/apsim_tpu_torch/``, keyed by a content hash.  Bound here: the two
+rescore entry points and the ETL's tokenizer / hasher (``hash_corpus``,
+``crc32``); the source's padding helper serves no ported path.  Without a
+compiler the rescore and hashing entry points return None and the caller
+takes its NumPy / pure-Python path, and ``crc32`` falls back to
+``zlib.crc32`` (the same checksum).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 from ..utils.build import build_shared_lib
 
 __all__ = ["get_lib", "native_available", "native_pair_dots",
-           "native_group_dots"]
+           "native_group_dots", "hash_corpus", "crc32"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "apsim_native.cpp")
 _lock = threading.Lock()
@@ -52,6 +54,13 @@ def get_lib():
                   file=sys.stderr)
             return None
         lib = ctypes.CDLL(so)
+        lib.apsim_crc32.restype = ctypes.c_uint32
+        lib.apsim_crc32.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+        lib.apsim_hash_corpus.restype = ctypes.c_int64
+        lib.apsim_hash_corpus.argtypes = [
+            ctypes.c_char_p, _I64, ctypes.c_int64, ctypes.c_uint32, _I64,
+            _I32, _F64, ctypes.c_int64,
+        ]
         lib.apsim_pair_dots.restype = None
         lib.apsim_pair_dots.argtypes = [
             _I64, _I32, _F64, _I64, _I32, _F64, _I64, _I64, ctypes.c_int64,
@@ -67,6 +76,44 @@ def get_lib():
 
 def native_available() -> bool:
     return get_lib() is not None
+
+
+def crc32(data: bytes) -> int:
+    lib = get_lib()
+    if lib is None:
+        import zlib
+
+        return zlib.crc32(data)
+    return int(lib.apsim_crc32(data, len(data)))
+
+
+def hash_corpus(docs: list[str], num_features: int):
+    """Native HashingTF over a document list -> (indptr, indices, values):
+    ASCII-whitespace tokens, CRC32 mod ``num_features``, per-document
+    counts in ascending feature order.  None if the native library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    blobs = [d.encode("utf-8") for d in docs]
+    offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+    for i, b in enumerate(blobs):
+        offsets[i + 1] = offsets[i] + len(b)
+    text = b"".join(blobs)
+    # worst-case nnz = token count <= bytes/2 + n_docs; start smaller and
+    # double when the library reports the buffer too small
+    cap = max(int(offsets[-1] // 4) + len(blobs) + 16, 1024)
+    while True:
+        indptr = np.zeros(len(blobs) + 1, dtype=np.int64)
+        indices = np.empty(cap, dtype=np.int32)
+        values = np.empty(cap, dtype=np.float64)
+        nnz = lib.apsim_hash_corpus(
+            text, offsets, len(blobs), num_features, indptr, indices, values,
+            cap,
+        )
+        if nnz >= 0:
+            return indptr, indices[:nnz].copy(), values[:nnz].copy()
+        cap *= 2
 
 
 def _check_rows(rows: np.ndarray, indptr, name: str) -> None:

@@ -114,6 +114,35 @@ result line):
    bs = 1, 32 and 256 with the stage split at 256, eight bs = 256 batches
    pipelined one deep with ``defer=True``, ``topk`` and frozen matching.
 
+9. The chunked engine's streaming path on phase 5's corpus: 9a builds on
+   90,000 rows and streams the rest on the resident route (the streamed
+   union, the join of the streamed index with kernel 3, top-k and frozen
+   matching against fp64 oracles), 9b beyond the slab budget (the router,
+   column growth, both routes forced), then each route's timings.
+
+10. Checkpoints, the server and the command line, on the card.  10a:
+    phase 8's streamed dense index (checkpointed right after its join) is
+    restored with ``Engine.load``; its join launches kernel 1 (counters
+    zeroed just before), equals the fp64 oracle, and kernel 1 equals its
+    plain version bit for bit at the restored operands; phase 9a's
+    streamed chunked index is restored with its ``build`` made to raise
+    (the fast path must place the saved buffers), and its join launches
+    kernel 3 and equals the oracle.  Save, restore and build seconds and
+    the npz sizes are printed.  10b: phase 3's rows go into a
+    ``VectorStore`` table; ``SimilarityServer`` + ``RpcServer`` on
+    127.0.0.1 bulk-load the first 24,576 rows through a load RPC, four
+    ``ClientConnection``s stream the other 8,192 concurrently (batches of
+    1, 32, 256) while a subscriber collects the pushed outputs; the pushed
+    pairs and the ``all_pairs`` RPC (kernel 1 launched) equal the oracle,
+    the ``topk`` RPC for 256 queries equals ``engine.topk`` id for id, and
+    the checkpoint ``close()`` writes restores into a second server with
+    the same join.  10c: ``python -m apsim_tpu_torch.cli`` in subprocesses:
+    ``etl`` of a seeded 3,000-document text corpus, ``build`` and
+    ``join`` on the card (the join's output equals an in-process join of
+    the same store), ``serve`` driven by ``bench`` (the load generator;
+    its insert -> first-result latencies printed), stopped with SIGINT;
+    the checkpoint it writes on the way out loads.
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -125,8 +154,13 @@ The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -854,12 +888,14 @@ def check_frozen(eng, fq, fs: torch.Tensor, fpicks, label: str) -> None:
 
 
 def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
-                 smi: str) -> None:
+                 smi: str, ckpt: str) -> dict:
     """Phase 8: build on the first 24,576 rows of phase 3's corpus, stream
     every other row through ``insert``, then hold the union of the outputs,
     the join of the streamed index (and kernel 1 at its operands), the kept
     bf16 copy, ``topk``, frozen matching and ``dims_step`` against fp64
-    oracles; then time the streaming entry points."""
+    oracles; then time the streaming entry points.  The streamed index is
+    checkpointed to ``ckpt`` right after its join (phase 10 restores it);
+    returns the save's record."""
     t_phase = time.perf_counter()
     eng = Engine(AllPairsConfig(), dev)
     log(f"phase 8 build, {STREAM_BUILD} rows: "
@@ -911,6 +947,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
     kernels[0].update(stream_join_launches=launches["score_bits_int8"],
                       stream_max_abs_err=rec["max_abs_err"])
     del bi, bj
+    saved = save_checkpoint(eng, ckpt, "phase 8 streamed dense index")
 
     key, kept = eng._bf16_cache
     if key != (id(eng.x), eng.x._version) or not torch.equal(
@@ -1017,6 +1054,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                 PEAK_FP32)}
     rec["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 8 timings: {json.dumps(rec)}")
+    return saved
 
 
 # ---------------------------------------- phase 9: the chunked streaming path
@@ -1090,10 +1128,11 @@ def stream_rows(eng: ChunkedAllPairs, csr: CSRMatrix, lo: int, sizes,
 
 
 def chunked_stream_resident(dev, csr: CSRMatrix, want: set, kernels: list,
-                            qsets, smi: str) -> dict:
+                            qsets, smi: str, ckpt: str) -> dict:
     """Phase 9a: the resident route at 100,000 rows: build on 90,000, stream
     the rest, gate, join (kernel 3), top-k and frozen matching against fp64
-    oracles; then the route's timings.  Returns the timing record."""
+    oracles; then the route's timings.  The streamed index is checkpointed
+    to ``ckpt`` right after its join.  Returns the save's record."""
     eng = ChunkedAllPairs(AllPairsConfig(), dev)
     log(f"phase 9a build, {CSTREAM_BUILD} rows: "
         f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
@@ -1138,6 +1177,7 @@ def chunked_stream_resident(dev, csr: CSRMatrix, want: set, kernels: list,
     k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
     k3.update(stream_join_launches=launches["panel_score_bits_int8"],
               stream_max_abs_err=max(r["max_abs_err"] for r in recs))
+    saved = save_checkpoint(eng, ckpt, "phase 9a streamed chunked index")
 
     queries, sq, fq, fs, fpicks = qsets
     check_topk(eng, queries, sq, "phase 9a")
@@ -1182,7 +1222,7 @@ def chunked_stream_resident(dev, csr: CSRMatrix, want: set, kernels: list,
                 PEAK_BF16)}
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"phase 9a timings: {json.dumps(rec)}")
-    return rec
+    return saved
 
 
 STREAM_SPLIT = ("insert", "admit", "prepare", "append", "match_slabs",
@@ -1340,19 +1380,403 @@ def chunked_stream_beyond(dev, csr: CSRMatrix, want: set, qsets,
 
 
 def chunked_stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
-                         smi: str) -> None:
-    """Phase 9: the chunked engine's streaming path on phase 5's corpus."""
+                         smi: str, ckpt: str) -> dict:
+    """Phase 9: the chunked engine's streaming path on phase 5's corpus;
+    returns the record of 9a's checkpoint save."""
     t_phase = time.perf_counter()
     qsets = query_sets(csr, dev)
     torch.cuda.empty_cache()
-    chunked_stream_resident(dev, csr, want, kernels, qsets, smi)
+    saved = chunked_stream_resident(dev, csr, want, kernels, qsets, smi, ckpt)
     torch.cuda.empty_cache()
     chunked_stream_beyond(dev, csr, want, qsets, smi)
     torch.cuda.empty_cache()
     log(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
+    return saved
+
+
+# ------------------------- phase 10: checkpoints, the server, the command line
+CLI_DOCS = 3_000
+
+
+def save_checkpoint(eng, path: str, label: str) -> dict:
+    """``eng.save(path)`` timed (host clock), with the npz's size."""
+    t0 = time.perf_counter()
+    eng.save(path)
+    rec = {"rows": eng.n_rows, "row_cap": eng.row_cap,
+           "save_seconds": time.perf_counter() - t0,
+           "npz_bytes": os.path.getsize(os.path.join(path, "index.npz")),
+           "path": path}
+    log(f"{label}: checkpoint saved: {json.dumps(rec)}")
+    return rec
+
+
+def restore_phase(dev, saved8, saved9, want32: set, want: set,
+                  kernels: list, smi: str) -> dict:
+    """Phase 10a: restore phase 8's dense and phase 9a's chunked checkpoint
+    on the card; each join equals the fp64 oracle and launches its kernel
+    (kernel 1 also bit for bit against its plain version at the restored
+    operands); the chunked restore takes the fast path (no build pass)."""
+    (ck8, build32), (ck9, build100k) = saved8, saved9
+    rec = {"card": smi}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine.load(ck8["path"], device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if eng.n_rows != ck8["rows"] or eng.ids != [str(i)
+                                                for i in range(eng.n_rows)]:
+        raise AssertionError(f"dense restore: {eng.n_rows} rows")
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    launches = dict(ts.LAUNCHES)
+    if launches["score_bits_int8"] < 1 or not eng._used_int8:
+        raise AssertionError(f"restored dense join: launches {launches}")
+    check_parity(res, want32, "phase 10a join of the restored dense index")
+    tm, tn = eng._tiles()
+    bi, bj = blocks(eng.row_cap, tm, tn, dev)
+    cmp = compare("int8", eng._operands(True), bi, bj, eng._tau_eff(TAU),
+                  tm, tn, timed=False)
+    kernels[0].update(restore_join_launches=launches["score_bits_int8"],
+                      restore_max_abs_err=cmp["max_abs_err"])
+    rec["dense"] = {
+        "rows": eng.n_rows, "saved_row_cap": ck8["row_cap"],
+        "restored_row_cap": eng.row_cap, "save_seconds": ck8["save_seconds"],
+        "restore_seconds": restore_s,
+        "build_seconds": build32["build_seconds"],
+        "npz_bytes": ck8["npz_bytes"], "kernel_vs_plain": cmp}
+    del eng, res, bi, bj
+    torch.cuda.empty_cache()
+
+    cfg = Engine.checkpoint_engine_config(ck9["path"])
+    ceng = ChunkedAllPairs(cfg, dev)
+
+    def no_build(*a, **k):
+        raise AssertionError("the chunked restore fell back to a build pass")
+
+    ceng.build = no_build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ceng.restore(ck9["path"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if ceng.n_rows != ck9["rows"] or ceng._ent_host is None:
+        raise AssertionError(f"chunked restore: {ceng.n_rows} rows")
+    zero_launches()
+    res = ceng.all_pairs(TAU)
+    launches = dict(ts.LAUNCHES)
+    if launches["panel_score_bits_int8"] < 1:
+        raise AssertionError(f"restored chunked join: launches {launches}")
+    check_parity(res, want, "phase 10a join of the restored chunked index")
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k3["restore_join_launches"] = launches["panel_score_bits_int8"]
+    rec["chunked"] = {
+        "rows": ceng.n_rows, "save_seconds": ck9["save_seconds"],
+        "restore_seconds": restore_s, "fast_path": True,
+        "build_seconds": build100k["build_seconds"],
+        "npz_bytes": ck9["npz_bytes"]}
+    log(f"phase 10a checkpoints: {json.dumps(rec)}")
+    return rec
+
+
+def wait_for(pred, timeout: float, what: str) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def server_phase(dev, work: str, csr: CSRMatrix, want32: set,
+                 kernels: list) -> dict:
+    """Phase 10b: the server in-process on the card.  Phase 3's rows go
+    into a store table; a load RPC bulk-loads the first three quarters
+    (rows 0-24,575 of 32,768), four clients
+    stream the rest concurrently (batches of 1, 32 and 256), a subscriber
+    collects the pushed outputs; then the pushed pairs, the all_pairs RPC
+    (kernel 1) and the topk RPC (against ``engine.topk``) are checked, and
+    the checkpoint written on close restores into a second server."""
+    from apsim_tpu_torch.etl.store import VectorStore
+    from apsim_tpu_torch.serve import (ClientConnection, RpcServer,
+                                       SimilarityServer)
+
+    ids = [str(i) for i in range(csr.n_rows)]
+    n_load = csr.n_rows * 3 // 4
+    t0 = time.perf_counter()
+    store = VectorStore(os.path.join(work, "store"), run_mode="PRODUCT")
+    store.write("P3", csr, ids)
+    rec = {"store_write_seconds": time.perf_counter() - t0}
+    cfg = AllPairsConfig(checkpoint_dir=os.path.join(work, "serve_ckpt"))
+    sim = SimilarityServer(None, cfg, store=store, device=dev)
+    if sim.engine.device != dev:
+        raise AssertionError(f"server engine on {sim.engine.device}")
+    rpc = RpcServer(sim, "127.0.0.1", 0).start()
+    addr = [f"{rpc.host}:{rpc.port}"]
+    pushed: set = set()
+    lock = threading.Lock()
+
+    def on_output(out, moment) -> None:
+        got = {(min(int(q), int(c)), max(int(q), int(c)))
+               for q, cands in out.items() for c in cands}
+        with lock:
+            pushed.update(got)
+
+    clients = []
+    try:
+        sub = ClientConnection(addr)
+        clients.append(sub)
+        sub.subscribe_outputs(on_output)
+        cc = ClientConnection(addr)
+        clients.append(cc)
+        t0 = time.perf_counter()
+        cc.load_data("P3", 0, n_load - 1)
+        cc.flush()
+        rec["load_rpc_seconds"] = time.perf_counter() - t0
+        if cc.stats()["n_rows"] != n_load:
+            raise AssertionError(f"load RPC: {cc.stats()['n_rows']} rows")
+        rows = np.arange(n_load, csr.n_rows)
+        errors = []
+
+        def stream(part) -> None:
+            try:
+                c = ClientConnection(addr)
+                sizes = [1] * 16 + [32] * 16
+                s, k = 0, 0
+                while s < part.size:
+                    bs = sizes[k] if k < len(sizes) else 256
+                    c.insert_new_vector([(ids[r], csr.row(int(r)))
+                                         for r in part[s:s + bs]])
+                    s, k = s + bs, k + 1
+                c.flush()
+                c.close()
+            except Exception as e:  # surfaced after the join below
+                errors.append(e)
+
+        threads = [threading.Thread(target=stream, args=(rows[k::4],))
+                   for k in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        cc.flush()
+        rec["stream_seconds"] = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        st = cc.stats()
+        json.dumps(st)
+        if (st["n_rows"], st["errors"], st["vectors_dropped_admission"]) != (
+                csr.n_rows, 0, 0):
+            raise AssertionError(f"served stream: stats {st}")
+        wait_for(lambda: len(pushed) >= len(want32), 60,
+                 "the pushed outputs")
+        time.sleep(0.2)
+        with lock:
+            if pushed != want32:
+                raise AssertionError(
+                    f"pushed pairs differ from the fp64 oracle: "
+                    f"{len(pushed - want32)} extra, "
+                    f"{len(want32 - pushed)} missing")
+        log(f"phase 10b served stream: load RPC of {n_load} rows, "
+            f"{rows.size} rows from 4 clients; {len(pushed)} pushed pairs "
+            f"equal the fp64 oracle")
+        zero_launches()
+        t0 = time.perf_counter()
+        pairs = cc.all_pairs(TAU)
+        rec["all_pairs_rpc_seconds"] = time.perf_counter() - t0
+        launches = dict(ts.LAUNCHES)
+        got = {(min(int(a), int(b)), max(int(a), int(b))) for a, b, _ in pairs}
+        if launches["score_bits_int8"] < 1 or got != want32:
+            raise AssertionError(
+                f"all_pairs RPC: launches {launches}, {len(got ^ want32)} "
+                f"pairs off the fp64 oracle")
+        kernels[0]["serve_join_launches"] = launches["score_bits_int8"]
+        log(f"phase 10b all_pairs RPC: {len(got)} pairs equal the fp64 "
+            f"oracle; launches {launches}")
+        qsrc = synthetic_corpus(128, seed=23)
+        queries = ([(f"t{r}", csr.row(int(r)))
+                    for r in range(3, csr.n_rows, csr.n_rows // 128)][:128]
+                   + [(f"s{i}", qsrc.row(i)) for i in range(128)])
+        t0 = time.perf_counter()
+        tk = cc.topk(queries, 10)
+        rec["topk_rpc_seconds"] = time.perf_counter() - t0
+        with sim._engine_scope():
+            direct = sim.engine.topk(queries, 10)
+        for qid, _ in queries:
+            a, b = tk[qid], direct[qid]
+            if [c for c, _ in a] != [c for c, _ in b] or any(
+                    abs(x - y) > 1e-12 for (_, x), (_, y) in zip(a, b)):
+                raise AssertionError(f"topk RPC differs for {qid}")
+        log(f"phase 10b topk RPC: {len(queries)} queries equal engine.topk "
+            f"id for id")
+    finally:
+        for c in clients:
+            c.close()
+        t0 = time.perf_counter()
+        rpc.close()
+        rec["close_seconds"] = time.perf_counter() - t0
+    if not os.path.exists(os.path.join(cfg.checkpoint_dir, "index.npz")):
+        raise AssertionError("close() wrote no checkpoint")
+    t0 = time.perf_counter()
+    sim2 = SimilarityServer(None, cfg, device=dev)
+    rec["restore_seconds"] = time.perf_counter() - t0
+    try:
+        if sim2.stats()["n_rows"] != csr.n_rows:
+            raise AssertionError(f"restored server: {sim2.stats()['n_rows']}")
+        res = sim2.all_pairs(TAU)
+        got = {(min(int(a), int(b)), max(int(a), int(b)))
+               for a, b, _ in res.id_pairs()}
+        if got != want32:
+            raise AssertionError("the restored server's join differs")
+    finally:
+        sim2.close()
+    log(f"phase 10b restored server: {csr.n_rows} rows, join equal to the "
+        f"fp64 oracle; timings {json.dumps(rec)}")
+    return rec
+
+
+def text_corpus(root: str, n: int, seed: int = 10) -> None:
+    """``n`` seeded documents of Zipf-distributed words, one file each;
+    every 25th document repeats an earlier one, every 25th (offset 12)
+    repeats one with a word appended (pairs above and below 0.8)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        if i % 25 == 24:
+            text = docs[int(rng.integers(0, i))]
+        elif i % 25 == 12:
+            text = docs[int(rng.integers(0, i))] + " extra"
+        else:
+            k = int(rng.integers(20, 200))
+            text = " ".join(f"w{j}" for j in rng.zipf(1.3, size=k))
+        docs.append(text)
+        sub = os.path.join(root, f"box{i % 10}")
+        os.makedirs(sub, exist_ok=True)
+        with open(os.path.join(sub, f"{i}."), "w") as f:
+            f.write(text)
+
+
+def cli(args, **kw):
+    """``python -m apsim_tpu_torch.cli args`` from the repository root."""
+    cmd = [sys.executable, "-m", "apsim_tpu_torch.cli"] + args
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300, **kw)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:1])} failed: {proc.stderr}")
+    return proc, time.perf_counter() - t0
+
+
+def cli_phase(dev, work: str) -> dict:
+    """Phase 10c: the command line in subprocesses: ``etl`` of a seeded
+    text corpus; then, side by side, ``build`` and ``join`` on the card
+    (join output equal to an in-process join of the same store) and
+    ``serve`` on the card driven by ``bench`` (the load generator),
+    stopped with SIGINT; the checkpoint it writes on the way out loads."""
+    from apsim_tpu_torch.etl.store import VectorStore
+
+    docs, store = os.path.join(work, "docs"), os.path.join(work, "cli_store")
+    text_corpus(docs, CLI_DOCS)
+    rec = {}
+    _, rec["etl_seconds"] = cli(["etl", docs, "--store", store, "--table",
+                                 "T"])
+    ck = os.path.join(work, "cli_ckpt")
+    out = os.path.join(work, "pairs.tsv")
+    errors = []
+
+    def build_join() -> None:
+        try:
+            _, rec["build_seconds"] = cli(
+                ["build", "--store", store, "--table", "T", "--checkpoint",
+                 ck, "--device", dev.type])
+            _, rec["join_seconds"] = cli(
+                ["join", "--checkpoint", ck, "--tau", str(TAU), "--device",
+                 dev.type, "--out", out])
+        except Exception as e:  # surfaced after the serve leg
+            errors.append(e)
+
+    side = threading.Thread(target=build_join)
+    side.start()
+    sck = os.path.join(work, "cli_serve_ckpt")
+    cmd = [sys.executable, "-m", "apsim_tpu_torch.cli", "serve", "--port",
+           "0", "--store", store, "--table", "T", "--checkpoint-dir", sck,
+           "--device", dev.type]
+    err_path = os.path.join(work, "serve.err")
+    err = open(err_path, "w")
+    srv = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                           stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def serve_err() -> str:
+        err.flush()
+        with open(err_path) as f:
+            return f.read()[-4000:]
+
+    try:
+        line = srv.stdout.readline()
+        if not line.startswith("serving on "):
+            raise AssertionError(f"serve: {line!r} {serve_err()}")
+        addr = line.split()[-1]
+        proc, rec["bench_seconds"] = cli(
+            ["bench", "--remote", addr, "--store", store, "--table", "T",
+             "--total-message-count", "100", "--children-num", "4",
+             "--write-batching-ms", "5"])
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        if rep.get("messages") != 400:
+            raise AssertionError(f"bench: {rep}")
+        rec["loadgen"] = rep
+        log(f"phase 10c load generator, insert -> first result: "
+            f"{json.dumps(rep)}")
+        t0 = time.perf_counter()
+        srv.send_signal(signal.SIGINT)
+        rc = srv.wait(timeout=120)
+        rec["sigint_to_exit_seconds"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"serve exited {rc}: {serve_err()}")
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+        err.close()
+        side.join()
+    if errors:
+        raise errors[0]
+    back = Engine.load(sck, device=dev)
+    if back.n_rows != CLI_DOCS:
+        raise AssertionError(f"serve's checkpoint: {back.n_rows} rows")
+    log(f"phase 10c serve stopped by SIGINT; its checkpoint loads with "
+        f"{back.n_rows} rows")
+    del back
+    with open(out) as f:
+        lines = sorted(f.read().splitlines())
+    csr, ids = VectorStore(store).read("T")
+    eng = Engine(AllPairsConfig(), dev)
+    eng.build(csr, ids)
+    want = sorted(f"{a}\t{b}\t{s:.6f}" for a, b, s in
+                  eng.all_pairs(TAU).id_pairs())
+    if lines != want or not want:
+        raise AssertionError(f"cli join: {len(lines)} lines, in-process "
+                             f"{len(want)}")
+    log(f"phase 10c etl of {CLI_DOCS} documents, build and join on the "
+        f"card: {len(lines)} pairs equal an in-process join of the store; "
+        f"timings {json.dumps(rec)}")
+    return rec
+
+
+def serving_phase(dev, work: str, csr: CSRMatrix, want32: set, want: set,
+                  kernels: list, smi: str, saved8, saved9) -> None:
+    """Phase 10: checkpoints (10a), the server in-process (10b) and the
+    command line in subprocesses (10c), all on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    restore_phase(dev, saved8, saved9, want32, want, kernels, smi)
+    torch.cuda.empty_cache()
+    server_phase(dev, work, csr, want32, kernels)
+    torch.cuda.empty_cache()
+    cli_phase(dev, work)
+    log(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -1399,7 +1823,8 @@ def main() -> int:
     eng8 = Engine(AllPairsConfig(), dev)
     eng16 = Engine(AllPairsConfig(pallas_int8=False), dev)
     zero_launches()
-    log(f"build int8 engine: {json.dumps(eng8.build(big_csr))}")
+    build32 = eng8.build(big_csr)
+    log(f"build int8 engine: {json.dumps(build32)}")
     j8 = timed_join(eng8, "main path int8, 32768 rows")
     log(f"build bf16 engine: {json.dumps(eng16.build(enron_csr))}")
     j16 = timed_join(eng16, "main path bf16, 8586 rows")
@@ -1474,7 +1899,8 @@ def main() -> int:
     eng = ChunkedAllPairs(AllPairsConfig(), dev)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    log(f"build chunked engine: {json.dumps(eng.build(ooc_csr))}")
+    build100k = eng.build(ooc_csr)
+    log(f"build chunked engine: {json.dumps(build100k)}")
     jr = ooc_join(eng, f"out-of-core path, resident sweep, {OOC_ROWS} rows",
                   reps=3)
     ooc_launches = dict(ts.LAUNCHES)
@@ -1683,11 +2109,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 8: the streaming path (insert, join, topk, frozen match)
-    stream_phase(dev, big_csr, want32, kernels, smi)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        saved8 = stream_phase(dev, big_csr, want32, kernels, smi,
+                              os.path.join(work, "dense"))
 
-    # ---- phase 9: the chunked engine's streaming path on phase 5's corpus
-    chunked_stream_phase(dev, ooc_csr, want, kernels, smi)
+        # ---- phase 9: the chunked engine's streaming path on phase 5's
+        # corpus
+        saved9 = chunked_stream_phase(dev, ooc_csr, want, kernels, smi,
+                                      os.path.join(work, "chunked"))
 
+        # ---- phase 10: checkpoints, the server, the command line
+        serving_phase(dev, work, big_csr, want32, want, kernels, smi,
+                      (saved8, build32), (saved9, build100k))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ depend on the tiles, which ``test_candidates_equal_jax_under_jax_tiles``
 shows.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -323,11 +325,30 @@ def test_super_tile_rule_equals_jax(n_rows, override):
     "insert", "topk", "freeze", "save", "use_pallas_off", "no_int8",
     "profile_dir", "odd_panel_rows",
 ])
-def test_unported_paths_raise(corpus, what):
+def test_unported_paths_raise(corpus, what, tmp_path):
     kw = {"use_pallas_off": {"use_pallas": "off"},
           "no_int8": {"pallas_int8": False},
-          "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
+          "profile_dir": {"profile_dir": str(tmp_path / "trace")}}.get(
+              what, {})
     rows = 64 if what == "odd_panel_rows" else None
+    if what in ("save", "profile_dir"):
+        # ported: checkpoints (item C; the JAX package takes its fast path
+        # on them) and the torch.profiler trace of every join (item I)
+        e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu",
+                               chunk_dim=128)
+        e.build(to_pt(corpus))
+        want = brute_force_pairs(corpus, 0.5)
+        assert e.all_pairs(0.5).pair_set() == want
+        if what == "profile_dir":
+            assert len(os.listdir(tmp_path / "trace")) == 1
+            return
+        e.save(str(tmp_path / "ck"))
+        j = apsim_tpu.engine.ChunkedAllPairs(
+            apsim_tpu.AllPairsConfig(**cfg_kw()), chunk_dim=128)
+        assert j._fast_restorable(np.load(tmp_path / "ck" / "index.npz"))
+        j.restore(str(tmp_path / "ck"))
+        assert j.all_pairs(0.5).pair_set() == want
+        return
     if what in ("insert", "topk", "freeze"):
         # ported: the streaming path, held against the fp64 oracle
         e = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()), "cpu",
@@ -362,8 +383,7 @@ def test_unported_paths_raise(corpus, what):
         e.build(to_pt(corpus))
         {"insert": lambda: e.insert([("q", corpus.row(0))]),
          "topk": lambda: e.topk([("q", corpus.row(0))], 3),
-         "freeze": e.freeze,
-         "save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
+         "freeze": e.freeze}.get(what, e.all_pairs)()
 
 
 def test_device_must_be_explicit():

@@ -249,10 +249,25 @@ def test_rectangle_join_of_a_loaded_checkpoint(corpus, tmp_path):
     "insert", "topk", "freeze", "save", "use_pallas_off", "highest",
     "profile_dir",
 ])
-def test_unported_paths_raise(corpus, what):
+def test_unported_paths_raise(corpus, what, tmp_path):
     kw = {"use_pallas_off": {"use_pallas": "off"},
           "highest": {"matmul_precision": "highest"},
-          "profile_dir": {"profile_dir": "/nonexistent"}}.get(what, {})
+          "profile_dir": {"profile_dir": str(tmp_path / "trace")}}.get(
+              what, {})
+    if what in ("save", "profile_dir"):
+        # ported: checkpoints (item C, the JAX package restores them) and
+        # the torch.profiler trace of every join (item I)
+        e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
+        e.build(to_pt(corpus))
+        want = brute_force_pairs(corpus, 0.7)
+        assert e.all_pairs(0.7).pair_set() == want
+        if what == "profile_dir":
+            assert len(os.listdir(tmp_path / "trace")) == 1
+            return
+        e.save(str(tmp_path / "ck"))
+        j = apsim_tpu.Engine.load(str(tmp_path / "ck"))
+        assert j.all_pairs(0.7).pair_set() == want
+        return
     if what in ("use_pallas_off", "highest"):
         # ported: these configurations join through the full rectangle
         e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
@@ -282,10 +297,7 @@ def test_unported_paths_raise(corpus, what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         e = pt.Engine(pt.AllPairsConfig(**cfg_kw(**kw)), "cpu")
         e.build(to_pt(corpus))
-        {"save": lambda: e.save("/nonexistent")}.get(what, e.all_pairs)()
-    if what == "save":
-        with pytest.raises(NotImplementedError, match="item C"):
-            e.save("/nonexistent")
+        e.all_pairs()
 
 
 def test_device_must_be_explicit():

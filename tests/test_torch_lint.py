@@ -35,6 +35,14 @@ def test_port_imports_no_jax():
     banned = {"jax", "jaxlib", "flax", "apsim_tpu"}
     sources = port_sources()
     assert len(sources) > 20
+    rel = {os.path.relpath(p, REPO) for p in sources}
+    for need in ("apsim_tpu_torch/cli.py", "apsim_tpu_torch/etl/tfidf.py",
+                 "apsim_tpu_torch/etl/store.py",
+                 "apsim_tpu_torch/serve/server.py",
+                 "apsim_tpu_torch/serve/rpc.py",
+                 "apsim_tpu_torch/serve/client.py",
+                 "apsim_tpu_torch/bench/loadgen.py"):
+        assert need in rel, need
     bad = []
     for path in sources:
         for node in ast.walk(ast.parse(open(path).read(), path)):
@@ -46,3 +54,18 @@ def test_port_imports_no_jax():
             bad += [(os.path.relpath(path, REPO), n) for n in names
                     if n.split(".")[0] in banned]
     assert not bad, bad
+
+
+def test_serving_path_imports_leave_jax_out():
+    """Importing the CLI, the ETL, the serving stack and the bench
+    helpers (in a fresh interpreter) loads no JAX and nothing of the JAX
+    package."""
+    mods = ("apsim_tpu_torch.cli", "apsim_tpu_torch.etl",
+            "apsim_tpu_torch.serve", "apsim_tpu_torch.bench.loadgen",
+            "apsim_tpu_torch.bench.data",
+            "apsim_tpu_torch.bench.restore_probe")
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in "
+            f"{mods!r}]; bad = [m for m in sys.modules if m.split('.')[0] "
+            f"in ('jax', 'jaxlib', 'apsim_tpu')]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)

@@ -400,7 +400,7 @@ def test_load_jax_checkpoint_into_stripe_engine(corpus, tmp_path):
     "insert", "topk", "freeze", "save", "use_pallas_off", "no_int8",
     "odd_panel_rows",
 ])
-def test_unported_paths_raise(corpus, what):
+def test_unported_paths_raise(corpus, what, tmp_path):
     kw = {"use_pallas_off": {"use_pallas": "off"},
           "no_int8": {"pallas_int8": False}}.get(what, {})
     if what in ("use_pallas_off", "no_int8", "odd_panel_rows"):
@@ -412,8 +412,25 @@ def test_unported_paths_raise(corpus, what):
         assert not e._single_slab_ok(None) and not e._panel_ok()
         assert e.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
         return
-    item = {"insert": "item G.1", "topk": "item G.1", "freeze": "item G.1",
-            "save": "item C"}[what]
+    if what == "save":
+        # ported (item C): the chunked checkpoint of the whole entry
+        # buffers; the port's mesh and the JAX package's restore it
+        e = pt.MeshChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()),
+                                   mesh=cpu_mesh(8), chunk_dim=32,
+                                   panel_rows=128)
+        e.build(to_pt(corpus))
+        e.save(str(tmp_path))
+        want = brute_force_pairs(corpus, 0.5)
+        back = pt.MeshChunkedAllPairs.load(
+            str(tmp_path), pt.AllPairsConfig(**cfg_kw()), mesh=cpu_mesh(8),
+            chunk_dim=32, panel_rows=128)
+        assert back._n_chunks == e._n_chunks
+        assert back.all_pairs(0.5).pair_set() == want
+        assert apsim_tpu.Engine.load(str(tmp_path)).all_pairs(
+            0.5).pair_set() == want
+        return
+    item = {"insert": "item G.1", "topk": "item G.1",
+            "freeze": "item G.1"}[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         e = pt.MeshChunkedAllPairs(
             pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8),
@@ -422,5 +439,4 @@ def test_unported_paths_raise(corpus, what):
         assert not e._single_slab_ok(None)
         {"insert": lambda: e.insert([("q", corpus.row(0))]),
          "topk": lambda: e.topk([("q", corpus.row(0))], 3),
-         "freeze": e.freeze,
-         "save": lambda: e.save("/nonexistent")}[what]()
+         "freeze": e.freeze}[what]()
