@@ -283,10 +283,13 @@ class ChunkedAllPairs:
             for a in self._ent_host
         )
         self._counts = np.asarray(counts, np.int64)
-        self._counts_dev = torch.from_numpy(
-            self._counts.astype(np.int32)
-        ).to(self.device)
+        self._counts_dev = self._place_counts(self._counts)
         self._new_corpus()
+
+    def _place_counts(self, counts: np.ndarray):
+        """The device copy of the chunk counts (int32; the mesh subclass
+        keeps one per shard)."""
+        return torch.from_numpy(counts.astype(np.int32)).to(self.device)
 
     def _new_corpus(self) -> None:
         """Release every state derived from the previous corpus' entry
@@ -698,21 +701,21 @@ class ChunkedAllPairs:
         coo5[3] = local[order]
         coo5[4] = np.asarray(vals)[order].astype(np.float32).view(np.int32)
         if chunk.size:
-            self._op_append(torch.from_numpy(coo5).to(self.device), tail)
+            self._op_append(coo5, tail)
             r, c, v = self._ent_host
             r[ch, slot] = coo5[2]
             c[ch, slot] = coo5[3]
             v[ch, slot] = coo5[4].view(np.float32)
         self._counts = self._counts + add
-        self._counts_dev = torch.from_numpy(
-            self._counts.astype(np.int32)
-        ).to(self.device)
+        self._counts_dev = self._place_counts(self._counts)
 
-    def _op_append(self, coo5: torch.Tensor, tail: bool) -> None:
-        """Set one packed ``[5, n]`` device batch into the entry buffers and
-        keep the resident stack and the sorted state in step.  A stack of
-        another geometry (row capacity or chunk width moved) is dropped, not
-        grown: the next match rebuilds it, so the card never holds two."""
+    def _op_append(self, coo5: np.ndarray, tail: bool) -> None:
+        """Set one packed ``[5, n]`` host batch (sorted by chunk) into the
+        entry buffers in one H2D copy and keep the resident stack and the
+        sorted state in step.  A stack of another geometry (row capacity or
+        chunk width moved) is dropped, not grown: the next match rebuilds
+        it, so the card never holds two."""
+        coo5 = torch.from_numpy(coo5).to(self.device)
         ch, slot, row, local = coo5[0], coo5[1], coo5[2], coo5[3]
         val = coo5[4].view(torch.float32)
         chunked_ops.append_entries(*self._ent, ch, slot, row, local, val)
@@ -727,9 +730,7 @@ class ChunkedAllPairs:
     def _grow_entries(self, new_cap: int) -> None:
         """Double the per-chunk capacity on the device and in the host
         mirror (new slots carry the pad row)."""
-        self._ent = chunked_ops.grow_entry_cap(
-            *self._ent, new_cap=new_cap, pad_row=panel_ops.PAD_ROW
-        )
+        self._ent = self._op_grow(new_cap)
         self._ent_gen += 1
         r, c, v = self._ent_host
         grow = new_cap - r.shape[1]
@@ -737,6 +738,12 @@ class ChunkedAllPairs:
             np.pad(r, ((0, 0), (0, grow)), constant_values=panel_ops.PAD_ROW),
             np.pad(c, ((0, 0), (0, grow))),
             np.pad(v, ((0, 0), (0, grow))),
+        )
+
+    def _op_grow(self, new_cap: int):
+        """The entry buffers padded to ``new_cap`` slots per chunk."""
+        return chunked_ops.grow_entry_cap(
+            *self._ent, new_cap=new_cap, pad_row=panel_ops.PAD_ROW
         )
 
     def _activate_dormant(self, ext_dims: np.ndarray) -> None:

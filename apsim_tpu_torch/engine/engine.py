@@ -732,25 +732,36 @@ class Engine:
             if act is not None:
                 self._scatter_activation(act)
                 self._commit_activation(act)
-            rows_b = np.repeat(
-                np.arange(compact_csr.n_rows, dtype=np.int64),
-                np.diff(compact_csr.indptr),
-            )
-            coo = pack_coo_i32(rows_b, compact_csr.indices, compact_csr.data,
-                               self.row_cap - n0)
-            score_ops.append_rows(self.x, coo, n0)
+            self._append_batch(compact_csr, n0)
             if kept is not None:
                 self._keep_in_step(kept, n0, act)
             self._sync()
-        xo = self._rect_operand()
-        n1 = min(n0 + round_up(self.n_rows - n0, 8), self.row_cap)
-        rows, cols = score_ops.match_rows_extract(
-            xo, xo[n0:n1], n0, self.n_rows, tau_eff,
-            self.cfg.matmul_precision, timer=self.timer,
-        )
+        rows, cols = self._match_batch(n0, tau_eff)
         self.stats["candidates_scored"] += self.n_rows * (self.n_rows - n0)
         pending = PendingInsert(self, rows, cols, tau)
         return pending if defer else pending.result()
+
+    def _append_batch(self, compact_csr: CSRMatrix, n0: int) -> None:
+        """Add the batch's compact rows into the index at rows ``n0`` on
+        (the mesh engine: into the blocks that own them)."""
+        rows_b = np.repeat(
+            np.arange(compact_csr.n_rows, dtype=np.int64),
+            np.diff(compact_csr.indptr),
+        )
+        coo = pack_coo_i32(rows_b, compact_csr.indices, compact_csr.data,
+                           self.row_cap - n0)
+        score_ops.append_rows(self.x, coo, n0)
+
+    def _match_batch(self, n0: int, tau_eff):
+        """Device ``(rows, cols)`` candidates of the index rows ``[n0,
+        n_rows)`` (the batch just appended) against the live index; the
+        query height is rounded up to 8 rows."""
+        xo = self._rect_operand()
+        n1 = min(n0 + round_up(self.n_rows - n0, 8), self.row_cap)
+        return score_ops.match_rows_extract(
+            xo, xo[n0:n1], n0, self.n_rows, tau_eff,
+            self.cfg.matmul_precision, timer=self.timer,
+        )
 
     def _kept_bf16(self) -> torch.Tensor | None:
         """The cached bf16 copy of the index when the products multiply it
@@ -980,19 +991,25 @@ class Engine:
         while new_row_cap < need_rows:
             new_row_cap = max(new_row_cap * 2, self._row_quantum())
         new_dim_cap = self.compact.capacity
+        if (new_row_cap, new_dim_cap) != (self.row_cap, self.dim_cap):
+            self._resize_index(new_row_cap, new_dim_cap)
+
+    def _resize_index(self, row_cap: int, dim_cap: int) -> None:
+        """A ``[row_cap, dim_cap]`` index holding the current one in its
+        top-left corner (a zero one before any build)."""
         if self.x is None:
             self.x = score_ops.new_index_matrix(
-                new_row_cap, new_dim_cap, self.cfg.dtype, self.device
+                row_cap, dim_cap, self.cfg.dtype, self.device
             )
-        elif new_row_cap != self.row_cap or new_dim_cap != self.dim_cap:
-            self.x = score_ops.grow(self.x, new_row_cap, new_dim_cap)
+        else:
+            self.x = score_ops.grow(self.x, row_cap, dim_cap)
 
     # ------------------------------------------------------- frozen matching
     def _match_external(
         self, csr: CSRMatrix, qids: List[str], tau: float
     ) -> SimilarityOutput:
         """Frozen-index matching: queries are scored but not indexed."""
-        if self.x is None:
+        if self.row_cap == 0:
             return SimilarityOutput({}, time.time())
         qn = csr.row_norms()
         if qn.size and float(qn.max()) > self._max_norm:
@@ -1009,11 +1026,8 @@ class Engine:
             if saved is not None:
                 self._max_norm = saved
         with self.timer.section("frozen_product"):
-            q = self._dense_queries(compact)
-            rows, qcols = score_ops.queries_match_extract(
-                self._rect_operand()[: self.n_rows], q, tau_eff,
-                self.cfg.matmul_precision,
-            )
+            rows, qcols = self._frozen_candidates(
+                self._dense_queries(compact), tau_eff)
             rows, qcols = rows.cpu().numpy(), qcols.cpu().numpy()
         self.stats["candidates_scored"] += self.n_rows * len(qids)
         # queries sharing a dormant dim with an indexed row: the device score
@@ -1040,17 +1054,26 @@ class Engine:
         self.stats["pairs_emitted"] += sum(len(v) for v in out.values())
         return SimilarityOutput(out, time.time())
 
+    def _frozen_candidates(self, q: torch.Tensor, tau_eff):
+        """Device ``(index rows, query rows)`` of every live index row
+        against the dense queries ``q`` with a score ``>= tau_eff``."""
+        return score_ops.queries_match_extract(
+            self._rect_operand()[: self.n_rows], q, tau_eff,
+            self.cfg.matmul_precision,
+        )
+
     def _dense_queries(self, compact: CSRMatrix) -> torch.Tensor:
-        """The query batch densified on the device in the index's dtype,
-        from one packed COO."""
+        """The query batch densified on the (lead) device in the index's
+        dtype, from one packed COO."""
         rows_b = np.repeat(
             np.arange(compact.n_rows, dtype=np.int64),
             np.diff(compact.indptr),
         )
         coo = pack_coo_i32(rows_b, compact.indices, compact.data,
                            compact.n_rows)
-        return score_ops.densify_rows(coo, compact.n_rows, self.dim_cap,
-                                      self.x.dtype, self.device)
+        return score_ops.densify_rows(
+            coo, compact.n_rows, self.dim_cap,
+            score_ops.index_dtype(self.cfg.dtype), self.device)
 
     # ------------------------------------------------- dormant dim activation
     def _activate_dormant(self, ext_dims: np.ndarray, collect: bool = False):
@@ -1175,10 +1198,9 @@ class Engine:
             return {}
         compact = self.compact.map_csr(self._drop_unmapped(csr), extend=False)
         q = self._dense_queries(compact)
-        xs = self.x[: round_up(self.n_rows, 8)]
 
         def fetch(kf: int):
-            s, r = score_ops.topk_scores(xs, q, self.n_rows, kf, "highest")
+            s, r = self._topk_scores(q, kf)
             return s.cpu().numpy(), r.cpu().numpy()
 
         q_norms = csr.row_norms()
@@ -1205,6 +1227,12 @@ class Engine:
         with self.timer.section("topk_assemble"):
             return assemble_topk(qids, qi_idx, cand_idx, sims, k_eff,
                                  self.ids)
+
+    def _topk_scores(self, q: torch.Tensor, kf: int):
+        """Device top ``kf`` true fp32 scores per dense query and their
+        index rows, descending."""
+        xs = self.x[: round_up(self.n_rows, 8)]
+        return score_ops.topk_scores(xs, q, self.n_rows, kf, "highest")
 
     # ----------------------------------------------------------------- freeze
     def freeze(self) -> None:

@@ -432,22 +432,31 @@ def append_match_slabs(stack, chunk, row, local, val) -> None:
 
 
 def chunk_scores(slab_of, q, n_chunks: int, width: int, q_rows: int,
-                 sdt, precision: str, queries_lead: bool = False):
+                 sdt, precision: str, queries_lead: bool = False,
+                 timer=None):
     """``Σ_c slab_c · qslab_cᵀ``: fp32 ``[row_cap, q_rows]`` scores, or
     ``[q_rows, row_cap]`` with ``queries_lead`` (top-k), the counterpart of
     ``_chunk_score_loop``.  ``slab_of(c)`` is the index side of chunk ``c``
     (``densify_chunk`` or a layer of the resident stack); ``q`` is the
     chunk-bucketed query batch ``(rows2d, cols2d, vals2d, counts)``,
     densified per chunk in ``sdt``.  Every product is ``score.score_tile``
-    (fp32 result whatever the operands), accumulated in fp32."""
+    (fp32 result whatever the operands), accumulated in fp32.  With a
+    ``Timer`` each chunk's densifies are timed as "slabs" and its product
+    and accumulate as "product", each stage ending with the device idle."""
     acc = None
     for c in range(n_chunks):
-        slab = slab_of(c)
-        qslab = densify_chunk(*q, c, q_rows, width, sdt)
-        a, b = (qslab, slab) if queries_lead else (slab, qslab)
-        part = score_ops.score_tile(a, b, precision)
-        acc = part if acc is None else acc.add_(part)
-        del part, slab, qslab
+        with ts._section(timer, "slabs"):
+            slab = slab_of(c)
+            qslab = densify_chunk(*q, c, q_rows, width, sdt)
+            if timer is not None:
+                _sync(slab)
+        with ts._section(timer, "product"):
+            a, b = (qslab, slab) if queries_lead else (slab, qslab)
+            part = score_ops.score_tile(a, b, precision)
+            acc = part if acc is None else acc.add_(part)
+            del part, slab, qslab
+            if timer is not None:
+                _sync(acc)
     return acc
 
 

@@ -32,7 +32,7 @@ import torch
 from . import tri_score as ts
 
 __all__ = [
-    "new_index_matrix", "scatter_coo", "MIN_TAU_EFF",
+    "index_dtype", "new_index_matrix", "scatter_coo", "MIN_TAU_EFF",
     "true_fp32_matmul", "rounds_to_bf16", "score_operand", "score_tile",
     "upper_buckets", "allpairs_extract", "append_rows", "scatter_entries",
     "grow", "match_rows_extract", "densify_rows", "queries_match_extract",
@@ -44,6 +44,11 @@ __all__ = [
 MIN_TAU_EFF = 1e-30
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def index_dtype(dtype: str) -> torch.dtype:
+    """The torch dtype of the configured index dtype name."""
+    return _DTYPES[dtype]
 
 
 def new_index_matrix(

@@ -1,5 +1,5 @@
 """Mesh-sharded out-of-core engine: the counterpart of
-``apsim_tpu/parallel/chunked_mesh.py`` (the batch-join slice).
+``apsim_tpu/parallel/chunked_mesh.py``.
 
 The chunk axis of :class:`~apsim_tpu_torch.engine.chunked.ChunkedAllPairs`'
 entry buffers is the shard axis: shard s owns a contiguous block of
@@ -9,17 +9,23 @@ A row panel's int8 slab is therefore column-sharded, and a panel pair's
 score is the exact int32 sum of the shards' partial dots (kernel 4,
 ``ops/panel_mesh.py``), on which the quantization-bound epilogue and the
 compaction run once.  The host side (compact space, shadow CSR, rescore,
-the sweeps, checkpoints) is inherited; only placement, the panel geometry
-and the panel ops are rerouted.
+the sweeps, checkpoints, the insert's bookkeeping) is inherited; only
+placement, the panel geometry and the device ops are rerouted.
 
 The stripe join (``pallas_int8=False``, ``use_pallas="off"``, a tripped
 int32 gate) runs sharded too (``ops/chunked_mesh.py``): every shard scores
 the stripe over its own chunks and the partial accumulators are summed
-before the one epilogue.  ``insert``, ``topk`` and ``freeze`` raise
-``NotImplementedError`` (ROADMAP item G.1): the entry buffers are split per
-shard, so the single-device streaming match must not run on them; ``save``
-(item C) raises as in the single-device engine.  The single-slab tier never
-applies: slabs are shard-split.
+before the one epilogue.
+
+Streaming (``insert``, ``defer``, ``topk``, ``freeze`` and frozen
+matching, dormant activation) is the single-device engine's with four
+device hooks rerouted to ``ops/chunked_mesh.py``: an append gives each
+shard the entries of its chunk block, a capacity growth pads each shard's
+buffers, and the match and top-k sum the shards' partial scores before the
+one epilogue.  As in the JAX package the resident stack, the paneled route
+and the host router are off, so every match takes the rebuild route
+(``last_route == "device_rebuild"``): each insert densifies every chunk.
+The single-slab tier never applies: slabs are shard-split.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import torch
 
 from ..config import AllPairsConfig
 from ..engine.chunked import INT8_NNZ_GATE, ChunkedAllPairs
-from ..engine.engine import _not_ported
 from ..ops import chunked_mesh as cm_ops
+from ..ops import panel as panel_ops
 from ..ops import panel_mesh
 from ..vector.batch import round_up
 from .collectives import sync
@@ -45,12 +51,14 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     Same public API as :class:`ChunkedAllPairs`; ``mesh`` defaults to one
     over the visible cards (``config.mesh_shape`` may pin a smaller one).
     ``_ent`` holds per-shard lists: ``(rows, cols, vals)``, each a list of
-    ``[n_chunks / n_shards, chunk_cap]`` tensors on the shards' devices.
+    ``[n_chunks / n_shards, chunk_cap]`` tensors on the shards' devices;
+    ``_counts_dev`` is a per-shard list too.
 
     One shard still takes the mesh path (kernel 4, then the bound epilogue
     in eager PyTorch), which costs more than ``ChunkedAllPairs``' fused
-    kernel 3: 1.565 s against 0.922 s for the warm join of
-    ``synthetic_corpus(100000, seed=0)`` on an H100 80GB HBM3 at 700 W."""
+    kernel 3: 0.871 s against 0.347 s for the warm join of
+    ``synthetic_corpus(100000, seed=0)`` on an NVIDIA H100 80GB HBM3 at a
+    700 W power limit (``chip_smoke.py`` phases 5 and 6)."""
 
     def __init__(self, config: AllPairsConfig | None = None,
                  mesh: Mesh | None = None, chunk_dim: int = 2048,
@@ -78,33 +86,54 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
 
     def _place(self, rows2d, cols2d, vals2d, counts) -> None:
         self._ent_host = (rows2d, cols2d, vals2d)
-        n_local = rows2d.shape[0] // self.n_shards
-        counts = np.asarray(counts, np.int64)
-
-        def split(a):
-            return [
-                torch.from_numpy(np.ascontiguousarray(
-                    a[s * n_local:(s + 1) * n_local])).to(dev)
-                for s, dev in enumerate(self.mesh.devices)
-            ]
-
-        self._ent = tuple(split(a) for a in self._ent_host)
-        self._counts = counts
-        self._counts_dev = split(counts.astype(np.int32))
+        self._ent = tuple(self._split(a) for a in self._ent_host)
+        self._counts = np.asarray(counts, np.int64)
+        self._counts_dev = self._place_counts(self._counts)
         self._new_corpus()
 
-    # ------------------------------------------------------ not ported yet
-    def insert(self, vectors, tau=None, bulk=False, defer=False):
-        raise _not_ported("mesh chunked streaming insert", "item G.1")
+    def _split(self, a: np.ndarray) -> list:
+        """A host array over the chunk axis cut into the shards' blocks,
+        each on its shard's device."""
+        n_local = a.shape[0] // self.n_shards
+        return [torch.from_numpy(np.ascontiguousarray(
+                    a[s * n_local:(s + 1) * n_local])).to(dev)
+                for s, dev in enumerate(self.mesh.devices)]
 
-    def topk(self, queries, k: int):
-        raise _not_ported("mesh chunked topk", "item G.1")
+    def _place_counts(self, counts: np.ndarray) -> list:
+        return self._split(counts.astype(np.int32))
 
-    def freeze(self) -> None:
-        raise _not_ported("mesh chunked freeze", "item G.1")
+    # -------------------------------------------------------------- streaming
+    # the routes the entry buffers' shard split rules out (JAX's
+    # ``_match_slab_cache_ok = False``): every match densifies its slabs
+    def _match_slabs(self):
+        return None
 
-    def unfreeze(self) -> None:
-        raise _not_ported("mesh chunked unfreeze", "item G.1")
+    def _paneled_ok(self) -> bool:
+        return False
+
+    def _use_host_match(self, q_ext_indices) -> bool:
+        return False
+
+    def _op_append(self, coo5: np.ndarray, tail: bool) -> None:
+        cm_ops.mesh_append_entries(self.mesh, *self._ent, coo5)
+
+    def _op_grow(self, new_cap: int):
+        return cm_ops.mesh_grow_entry_cap(*self._ent, new_cap,
+                                          panel_ops.PAD_ROW)
+
+    def _run_match(self, ccsr, q_base: int, q_rows: int, tau_eff):
+        return cm_ops.mesh_match_extract(
+            self.mesh, *self._ent, self._local_counts(),
+            self._bucket_queries(ccsr, q_rows), q_base, tau_eff,
+            self.row_cap, self._chunk_width, q_rows,
+            self.cfg.matmul_precision, timer=self.timer,
+        )
+
+    def _op_topk(self, q, q_rows: int, kf: int):
+        return cm_ops.mesh_topk(
+            self.mesh, *self._ent, self._local_counts(), q, self.n_rows,
+            self.row_cap, self._chunk_width, q_rows, kf, "highest",
+        )
 
     # ----------------------------------------------------- mesh stripe join
     def _local_counts(self) -> list:

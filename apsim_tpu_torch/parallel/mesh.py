@@ -28,8 +28,20 @@ case (the dims and 2-D layouts, and a rows mesh whose kernel path is
 refused: demoted, gated, ``matmul_precision="highest"``,
 ``use_pallas="off"``, ``pallas_int8=False``) joins through the rectangle
 over the mesh (``ops/mesh_score.py``).  With one shard it is ``Engine``,
-kernel path, streaming inserts, top-k and all; with more, ``insert`` and
-``topk`` raise (ROADMAP item G.2: the block-wise insert and top-k).
+kernel path, streaming inserts, top-k and all.
+
+With more shards the streaming path (``insert`` with ``defer``, admission,
+dormant activation, growth and rollback; ``topk``; ``freeze`` and frozen
+matching) is ``Engine``'s with its device steps done block-wise: a batch
+row is added to the row block that owns it, its entries split over the
+column blocks; an activated entry goes to the block that owns its (row,
+col); growth lays the grown grid out with the old contents moved to the
+blocks that now own them (capacities follow ``Engine``'s law); the match,
+the frozen match and top-k are ``ops/mesh_score.py``'s products (the
+query's column blocks on every scoring device, per-block partials summed
+over the column blocks).  The bf16 operand copies the products multiply
+(``_rect_blocks``) take each batch's rows and activated entries, so a
+micro-batch recasts no block.
 """
 
 from __future__ import annotations
@@ -41,13 +53,13 @@ import numpy as np
 import torch
 
 from ..config import AllPairsConfig
-from ..engine.engine import Engine, _not_ported
+from ..engine.engine import Engine
 from ..engine.chunked import INT8_NNZ_GATE
 from ..ops import mesh_pallas
 from ..ops import mesh_score
+from ..ops import score as score_ops
 from ..ops import tri_score as ts
-from ..ops.score import new_index_matrix, score_operand
-from ..vector.batch import round_up
+from ..vector.batch import pack_coo_i32, round_up
 from .collectives import sync
 
 __all__ = ["AXIS", "Mesh", "make_mesh", "MeshEngine"]
@@ -184,19 +196,6 @@ class MeshEngine(Engine):
             self.x_blocks = [] if val is None else [val]
             self._block_operands = None
 
-    # ------------------------------------------------ streaming (one shard)
-    def insert(self, vectors, tau=None, bulk=False, defer=False):
-        if self.n_shards > 1:
-            raise _not_ported("MeshEngine.insert over more than one shard",
-                              "item G.2")
-        return super().insert(vectors, tau, bulk, defer)
-
-    def topk(self, queries, k):
-        if self.n_shards > 1:
-            raise _not_ported("MeshEngine.topk over more than one shard",
-                              "item G.2")
-        return super().topk(queries, k)
-
     @property
     def row_cap(self) -> int:
         return sum(int(b.shape[0]) for b in self.x_blocks[::self.grid[1]])
@@ -221,22 +220,154 @@ class MeshEngine(Engine):
         self.x_blocks = []
         for s, dev in enumerate(self.mesh.devices):
             r, d = divmod(s, nd)
-            blk = new_index_matrix(hb, wb, self.cfg.dtype, dev)
+            blk = score_ops.new_index_matrix(hb, wb, self.cfg.dtype, dev)
             self._scatter_rows(blk, compact_csr, r * hb, d * wb)
             self.x_blocks.append(blk)
         return None
 
-    # ------------------------------------------------ rectangle over the mesh
+    # ------------------------------------------------------- block-wise upkeep
+    def _block_geom(self):
+        """``(nr, nd, hb, wb)``: the grid and the block height and width."""
+        nr, nd = self.grid
+        return nr, nd, self.row_cap // nr, self.dim_cap // nd
+
+    def _resize_index(self, row_cap: int, dim_cap: int) -> None:
+        """The grown grid: ``[row_cap / nr, dim_cap / nd]`` blocks, each
+        built on its shard's device and given the part of every old block
+        that lies inside it (rows move between row blocks when ``row_cap``
+        grows, columns between column blocks when ``dim_cap`` does)."""
+        if self.n_shards == 1:
+            return super()._resize_index(row_cap, dim_cap)
+        nr, nd = self.grid
+        if row_cap % nr or dim_cap % nd:
+            raise ValueError(
+                f"index [{row_cap}, {dim_cap}] does not split over a "
+                f"{nr} x {nd} grid of shards"
+            )
+        old, (_, _, ohb, owb) = self.x_blocks, self._block_geom()
+        hb, wb = row_cap // nr, dim_cap // nd
+        blocks = []
+        for s, dev in enumerate(self.mesh.devices):
+            r, d = divmod(s, nd)
+            blk = score_ops.new_index_matrix(hb, wb, self.cfg.dtype, dev)
+            for t, ob in enumerate(old):
+                orr, od = divmod(t, nd)
+                a0, a1 = max(r * hb, orr * ohb), min((r + 1) * hb,
+                                                      (orr + 1) * ohb)
+                b0, b1 = max(d * wb, od * owb), min((d + 1) * wb,
+                                                    (od + 1) * owb)
+                if a0 < a1 and b0 < b1:
+                    blk[a0 - r * hb:a1 - r * hb, b0 - d * wb:b1 - d * wb] = (
+                        ob[a0 - orr * ohb:a1 - orr * ohb,
+                           b0 - od * owb:b1 - od * owb].to(dev))
+            blocks.append(blk)
+        self.x_blocks = blocks
+        self._block_operands = None
+
+    def _by_block(self, rows: np.ndarray, cols: np.ndarray):
+        """For every block that owns some of the host entries ``(rows,
+        cols)`` (global): ``(shard, selection, block rows, block cols)``."""
+        nr, nd, hb, wb = self._block_geom()
+        owner = (rows // hb) * nd + cols // wb
+        for s in np.unique(owner):
+            sel = np.flatnonzero(owner == s)
+            r, d = divmod(int(s), nd)
+            yield int(s), sel, rows[sel] - r * hb, cols[sel] - d * wb
+
+    def _append_batch(self, compact_csr, n0: int) -> None:
+        if self.n_shards == 1:
+            return super()._append_batch(compact_csr, n0)
+        rows = n0 + np.repeat(np.arange(compact_csr.n_rows, dtype=np.int64),
+                              np.diff(compact_csr.indptr))
+        cols = compact_csr.indices.astype(np.int64)
+        for s, sel, br, bc in self._by_block(rows, cols):
+            blk = self.x_blocks[s]
+            score_ops.append_rows(blk, pack_coo_i32(
+                br, bc, compact_csr.data[sel], blk.shape[0]), 0)
+
+    def _scatter_activation(self, act) -> None:
+        if self.n_shards == 1:
+            return super()._scatter_activation(act)
+        rows = np.asarray(act[0], np.int64)
+        cols = np.asarray(act[1], np.int64)
+        vals = np.asarray(act[2])
+        for s, sel, br, bc in self._by_block(rows, cols):
+            score_ops.scatter_entries(self.x_blocks[s], br, bc, vals[sel])
+
+    def _blocks_key(self):
+        return tuple((id(b), b._version) for b in self.x_blocks)
+
+    def _kept_bf16(self):
+        """The cached bf16 copies of the blocks when the products multiply
+        them and they are in step with the blocks; else None (a copy out
+        of step is dropped)."""
+        if self.n_shards == 1:
+            return super()._kept_bf16()
+        cached = self._block_operands
+        if cached is None or not score_ops.rounds_to_bf16(
+                self.x_blocks[0], self.cfg.matmul_precision):
+            return None
+        if cached[0] != self._blocks_key():
+            self._block_operands = None
+            return None
+        return cached[1]
+
+    def _keep_in_step(self, kept, n0: int, act) -> None:
+        """Write the batch's rows ``[n0, n_rows)`` and the activated
+        entries of every block into its bf16 copy and re-key the copies;
+        each element rounds on its own, so every copy stays equal to a
+        fresh cast of its block."""
+        if self.n_shards == 1:
+            return super()._keep_in_step(kept, n0, act)
+        nr, nd, hb, _ = self._block_geom()
+        for s, (blk, cp) in enumerate(zip(self.x_blocks, kept)):
+            r0 = (s // nd) * hb
+            a, b = max(n0, r0) - r0, min(self.n_rows, r0 + hb) - r0
+            if a < b:
+                cp[a:b] = blk[a:b].to(torch.bfloat16)
+        if act is not None:
+            for s, _, br, bc in self._by_block(np.asarray(act[0], np.int64),
+                                               np.asarray(act[1], np.int64)):
+                r = torch.from_numpy(br).to(kept[s].device)
+                c = torch.from_numpy(bc).to(kept[s].device)
+                kept[s][r, c] = self.x_blocks[s][r, c].to(torch.bfloat16)
+        self._block_operands = (self._blocks_key(), kept)
+
+    # ----------------------------------------------------- products over the grid
     def _rect_blocks(self) -> list:
-        """Every block as the rectangle multiplies it
+        """Every block as the products multiply it
         (``score.score_operand``), cached per index state."""
-        key = tuple((id(b), b._version) for b in self.x_blocks)
+        key = self._blocks_key()
         if self._block_operands is None or self._block_operands[0] != key:
             self._block_operands = (key, [
-                score_operand(b, self.cfg.matmul_precision)
+                score_ops.score_operand(b, self.cfg.matmul_precision)
                 for b in self.x_blocks
             ])
         return self._block_operands[1]
+
+    def _match_batch(self, n0: int, tau_eff):
+        if self.n_shards == 1:
+            return super()._match_batch(n0, tau_eff)
+        n1 = min(n0 + round_up(self.n_rows - n0, 8), self.row_cap)
+        return mesh_score.mesh_match_rows_extract(
+            self._rect_blocks(), self.grid, self.mesh.devices, n0, n1,
+            self.n_rows, tau_eff, self.cfg.matmul_precision,
+            timer=self.timer,
+        )
+
+    def _frozen_candidates(self, q, tau_eff):
+        if self.n_shards == 1:
+            return super()._frozen_candidates(q, tau_eff)
+        return mesh_score.mesh_queries_match_extract(
+            self._rect_blocks(), self.grid, self.mesh.devices, q,
+            self.n_rows, tau_eff, self.cfg.matmul_precision,
+        )
+
+    def _topk_scores(self, q, kf: int):
+        if self.n_shards == 1:
+            return super()._topk_scores(q, kf)
+        return mesh_score.mesh_topk_scores(
+            self.x_blocks, self.grid, self.mesh.devices, q, self.n_rows, kf)
 
     def _all_pairs_rect(self, tau_eff):
         if self.n_shards == 1:

@@ -143,6 +143,32 @@ result line):
     its insert -> first-result latencies printed), stopped with SIGINT;
     the checkpoint it writes on the way out loads.
 
+11. The meshes' streaming path, their shards on the one card.  11a:
+    ``MeshEngine`` over ``make_mesh(4, devices=[card] * 4)`` with
+    ``shard_axis="rows"``, then ``"dims"``, then a ``(2, 2)`` mesh, each
+    built on phase 8's first 24,576 rows with the rest streamed on phase
+    8's schedule (row_cap 24,576 -> 49,152): the build join and every
+    insert's output equal the fp64 oracle; the join of the streamed index
+    equals it (the rows layout launches kernel 3 four times, counters
+    zeroed just before, and kernel 3 equals its plain version bit for bit
+    at shards 0 and 3 of that join, shard 0 timed); every block equals
+    phase 8's streamed ``x`` on its live rows and is zero past them;
+    phase 8's top-k and frozen queries pass ``check_topk`` /
+    ``check_frozen``.  11c, on the rows layout: ``SimilarityServer`` +
+    ``RpcServer`` over the streamed mesh, two clients stream 2,048 fresh
+    rows, the pushed pairs equal the fp64 oracle.  Then each layout's
+    insert (bs = 1, 32, 256, stage split at 256), top-k and frozen-match
+    timings.  11b: ``MeshChunkedAllPairs`` over 8 shards of the card on
+    phase 5's corpus: build 90,000 rows, stream the rest with phase 9a's
+    batch sizes (every match on the rebuild route); the union, the join
+    of the streamed index (kernel 4 eight times per panel pair; kernel 4
+    exactly its plain version at pair (0, last) of shard 0, timed beside
+    ``torch._int_mm``), top-k and frozen matching against fp64; batches of
+    rows inside the fullest chunk until every shard's per-chunk capacity
+    doubles (asserted; each batch against the fp64 oracle, and the join
+    after it); then the timings with the stage split (slabs, product,
+    reduce, compact).
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -177,6 +203,7 @@ from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import mesh_pallas, panel_mesh
 from apsim_tpu_torch.ops import score as score_ops
 from apsim_tpu_torch.parallel.collectives import all_gather
+from apsim_tpu_torch.vector.batch import round_up
 
 TAU = 0.8
 BF16_BAND = 1e-5  # |plain fp32 score - tau_eff| allowed where bf16 bits differ
@@ -541,10 +568,11 @@ def edge_phase(dev) -> None:
             f"block tile {ts.thread_block_tile(m, n)}: exact")
 
 
-def compare_rows_shard(eng: MeshEngine, s: int) -> dict:
+def compare_rows_shard(eng: MeshEngine, s: int, timed: bool = False) -> dict:
     """The cross-panel kernel vs its plain version on shard ``s``'s launch
     of the rows mesh join: the all-gathered int8 index and aux, the shard's
-    striped schedule and its valid flags, zero offsets, the path's tiles."""
+    striped schedule and its valid flags, zero offsets, the path's tiles
+    (``timed``: with its time, its plain version's and its bound)."""
     dev = eng.mesh.devices[s]
     tm, tn = eng._mesh_rows_geom()
     bi, bj, va = (torch.from_numpy(a[s]).to(dev) for a in
@@ -554,7 +582,11 @@ def compare_rows_shard(eng: MeshEngine, s: int) -> dict:
     ag = all_gather([a for _, a in qa], 1, dev).contiguous()
     del qa
     args = (qg, qg, ag, ag, bi, bj, (0, 0), eng._tau_eff(TAU), tm, tn)
-    rec = compare_cross(args, va, f"rows mesh shard {s}", timed=False)
+    rec = compare_cross(args, va, f"rows mesh shard {s}", timed=timed)
+    if timed:  # the live blocks only; the gathered copy read once
+        live = va > 0
+        rec.update(score_bound((qg,), 4 * ag.numel(), bi[live], bj[live],
+                               tm, tn, (0, 0), PEAK_INT8))
     return {"shard": s, "live_blocks": int(va.sum()), **rec}
 
 
@@ -894,8 +926,10 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
     the join of the streamed index (and kernel 1 at its operands), the kept
     bf16 copy, ``topk``, frozen matching and ``dims_step`` against fp64
     oracles; then time the streaming entry points.  The streamed index is
-    checkpointed to ``ckpt`` right after its join (phase 10 restores it);
-    returns the save's record."""
+    checkpointed to ``ckpt`` right after its join (phase 10 restores it).
+    Returns the save's record, and for phase 11 a host copy of the live
+    rows of the streamed ``x`` and the top-k and frozen-match query sets
+    with their fp64 scores (on the host)."""
     t_phase = time.perf_counter()
     eng = Engine(AllPairsConfig(), dev)
     log(f"phase 8 build, {STREAM_BUILD} rows: "
@@ -924,6 +958,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
         raise AssertionError(
             f"streamed union differs from the fp64 oracle: "
             f"{len(union - want)} extra, {len(want - union)} missing")
+    x8 = eng.x[:eng.n_rows].cpu()  # phase 11's meshes must equal it
     log(f"phase 8 stream: {n_batches} inserts of rows {STREAM_BUILD}-"
         f"{csr.n_rows - 1} in {stream_s:.3f} s; (row_cap, dim_cap) {caps0} -> "
         f"{(eng.row_cap, eng.dim_cap)}; build join + every insert's output: "
@@ -966,6 +1001,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
     qd = torch.cat([d[torch.from_numpy(picks).to(dev)], dense64(qsrc, dev)])
     sq = qd @ d.T
     check_topk(eng, queries, sq, "phase 8")
+    sq_host = sq.cpu()
     del sq, qd
 
     # frozen matching: queries are scored, not indexed
@@ -976,6 +1012,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
     fd = torch.cat([d[torch.from_numpy(fpicks).to(dev)], dense64(fsrc, dev)])
     fs = fd @ d.T
     check_frozen(eng, fq, fs, fpicks, "phase 8")
+    qsets = (queries, sq_host, fq, fs.cpu(), fpicks)
     dims_step(eng, csr, d, want)
     del d, fd, fs
     torch.cuda.empty_cache()
@@ -1054,7 +1091,7 @@ def stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                 PEAK_FP32)}
     rec["phase_seconds"] = time.perf_counter() - t_phase
     log(f"phase 8 timings: {json.dumps(rec)}")
-    return saved
+    return saved, x8, qsets
 
 
 # ---------------------------------------- phase 9: the chunked streaming path
@@ -1101,22 +1138,24 @@ def query_sets(csr: CSRMatrix, dev):
     return queries, scores[0], fq, scores[1], fpicks
 
 
-def stream_rows(eng: ChunkedAllPairs, csr: CSRMatrix, lo: int, sizes,
-                route=None):
+def stream_rows(eng, csr: CSRMatrix, lo: int, sizes, route=None,
+                beyond_budget: bool = False):
     """Insert rows ``[lo, n_rows)`` of ``csr`` (ids: row numbers) in batches
-    of ``sizes``, then of 256; ``route`` (if given) must be each batch's.
-    Returns the union of the outputs, the routes taken, the row
-    capacities seen, the batch count and the seconds."""
+    of ``sizes``, then of 256; ``route`` (if given) must be each batch's;
+    with ``beyond_budget`` each batch must find the chunked engine beyond
+    its slab budget.  Returns the union of the outputs, the routes taken
+    (chunked engines), the row capacities seen, the batch count and the
+    seconds."""
     union, routes, caps = set(), [], [eng.row_cap]
     s, nb = lo, 0
     t0 = time.perf_counter()
     while s < csr.n_rows:
         bs = sizes[nb] if nb < len(sizes) else 256
         e = min(s + bs, csr.n_rows)
-        if route is None and not eng._paneled_ok():
+        if beyond_budget and not eng._paneled_ok():
             raise AssertionError(f"batch at row {s}: not beyond the budget")
         out = eng.insert([(str(i), csr.row(i)) for i in range(s, e)], tau=TAU)
-        routes.append(eng.last_route)
+        routes.append(getattr(eng, "last_route", None))
         if route is not None and eng.last_route != route:
             raise AssertionError(f"batch at row {s} took {eng.last_route}, "
                                  f"not {route}")
@@ -1230,12 +1269,13 @@ STREAM_SPLIT = ("insert", "admit", "prepare", "append", "match_slabs",
                 "rescore")
 
 
-def stream_timings(eng: ChunkedAllPairs, extra: CSRMatrix, sizes, route,
-                   reps: int = 9, cursor=None) -> dict:
+def stream_timings(eng, extra: CSRMatrix, sizes, route, reps: int = 9,
+                   cursor=None, split=STREAM_SPLIT) -> dict:
     """Insert latency (host clock, warm: two batches first, then the
     median of ``reps``) and vectors/s at each batch size of ``sizes`` on
-    rows of ``extra``, every batch on ``route``, with the stage split per
-    batch at the largest size."""
+    rows of ``extra``, every batch on ``route`` (a chunked engine's; None:
+    no route), with the stage split (``split``'s sections) per batch at
+    the largest size."""
     cursor = cursor if cursor is not None else [0]
     rec = {}
     for bs in sizes:
@@ -1252,7 +1292,7 @@ def stream_timings(eng: ChunkedAllPairs, extra: CSRMatrix, sizes, route,
 
         def one():
             eng.insert(next(it), tau=TAU)
-            if eng.last_route != route:
+            if route is not None and eng.last_route != route:
                 raise AssertionError(f"timed batch took {eng.last_route}")
 
         ms = median_host_ms(one, reps)
@@ -1261,7 +1301,7 @@ def stream_timings(eng: ChunkedAllPairs, extra: CSRMatrix, sizes, route,
         if bs == sizes[-1]:
             rec[f"stages_ms_per_batch_bs{bs}"] = {
                 k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0))
-                / reps * 1e3 for k in STREAM_SPLIT}
+                / reps * 1e3 for k in split}
     return rec
 
 
@@ -1278,7 +1318,8 @@ def chunked_stream_beyond(dev, csr: CSRMatrix, want: set, qsets,
     log(f"phase 9b build, {CSTREAM_BUILD} rows: "
         f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
     res = eng.all_pairs(TAU)
-    union, routes, caps, nb, secs = stream_rows(eng, csr, CSTREAM_BUILD, [])
+    union, routes, caps, nb, secs = stream_rows(eng, csr, CSTREAM_BUILD, [],
+                                                beyond_budget=True)
     union |= set(zip(res.i.tolist(), res.j.tolist()))
     if union != want:
         raise AssertionError(
@@ -1382,7 +1423,8 @@ def chunked_stream_beyond(dev, csr: CSRMatrix, want: set, qsets,
 def chunked_stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
                          smi: str, ckpt: str) -> dict:
     """Phase 9: the chunked engine's streaming path on phase 5's corpus;
-    returns the record of 9a's checkpoint save."""
+    returns the record of 9a's checkpoint save and, for phase 11, the
+    query sets with their fp64 scores on the host."""
     t_phase = time.perf_counter()
     qsets = query_sets(csr, dev)
     torch.cuda.empty_cache()
@@ -1391,7 +1433,8 @@ def chunked_stream_phase(dev, csr: CSRMatrix, want: set, kernels: list,
     chunked_stream_beyond(dev, csr, want, qsets, smi)
     torch.cuda.empty_cache()
     log(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
-    return saved
+    queries, sq, fq, fs, fpicks = qsets
+    return saved, (queries, sq.cpu(), fq, fs.cpu(), fpicks)
 
 
 # ------------------------- phase 10: checkpoints, the server, the command line
@@ -1775,6 +1818,330 @@ def serving_phase(dev, work: str, csr: CSRMatrix, want32: set, want: set,
     log(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# ------------------------ phase 11: the meshes' streaming path, one card
+MESH_LAYOUTS = (("rows", 4, "rows"), ("dims", 4, "dims"),
+                ("2-D", (2, 2), "dims"))
+MESH_SPLIT = ("insert", "admit", "prepare", "append", "gather", "product",
+              "reduce", "compact", "d2h", "rescore")
+CMESH_SPLIT = ("insert", "admit", "prepare", "append", "slabs", "product",
+               "reduce", "compact", "d2h", "rescore")
+SERVE_ROWS = 2_048
+TIMED_BATCHES = (1, 32, 256)
+
+
+def mesh_query_timings(eng, queries, fq, reps: int = 9) -> dict:
+    """``topk(k=10)`` and frozen-match latency and queries/s (host clock,
+    warm, median of ``reps``)."""
+    eng.topk(queries, 10)
+    rec = {"topk_ms": median_host_ms(lambda: eng.topk(queries, 10), reps)}
+    rec["topk_queries_per_s"] = len(queries) / rec["topk_ms"] * 1e3
+    eng.freeze()
+    eng.insert(fq, tau=TAU)
+    rec["frozen_ms"] = median_host_ms(lambda: eng.insert(fq, tau=TAU), reps)
+    rec["frozen_queries_per_s"] = len(fq) / rec["frozen_ms"] * 1e3
+    eng.unfreeze()
+    return rec
+
+
+def check_blocks(eng: MeshEngine, x8: torch.Tensor, label: str) -> None:
+    """Every block of the streamed mesh equals phase 8's streamed ``x`` on
+    its live rows and columns, bit for bit, and is zero past them."""
+    nr, nd = eng.grid
+    hb, wb = eng.row_cap // nr, eng.dim_cap // nd
+    if eng.dim_cap != x8.shape[1]:
+        raise AssertionError(f"{label}: dim_cap {eng.dim_cap}, phase 8's "
+                             f"{x8.shape[1]}")
+    for s, blk in enumerate(eng.x_blocks):
+        r, d = divmod(s, nd)
+        live = min(max(eng.n_rows - r * hb, 0), hb)
+        if not torch.equal(blk[:live], x8[r * hb:r * hb + live,
+                                          d * wb:(d + 1) * wb]) or bool(
+                blk[live:].any()):
+            raise AssertionError(f"{label}: block {s} differs from phase "
+                                 f"8's streamed x")
+    log(f"{label}: {len(eng.x_blocks)} blocks of [{hb}, {wb}] equal phase "
+        f"8's streamed x on its {eng.n_rows} live rows, bit for bit")
+
+
+def serve_mesh(dev, eng: MeshEngine, csr: CSRMatrix) -> dict:
+    """Phase 11c: ``SimilarityServer`` + ``RpcServer`` in-process over the
+    streamed rows mesh; two clients stream ``SERVE_ROWS`` fresh rows (ids
+    ``f<i>``) while a subscriber collects the pushed outputs, which must
+    equal the fp64 oracle of the fresh rows against the index and each
+    other."""
+    from apsim_tpu_torch.serve import (ClientConnection, RpcServer,
+                                       SimilarityServer)
+
+    fresh = synthetic_corpus(SERVE_ROWS, seed=31)
+    n0 = eng.n_rows
+    ids = [str(i) for i in range(n0)] + [f"f{i}" for i in range(SERVE_ROWS)]
+    want = {(min(ids[a], ids[b]), max(ids[a], ids[b]))
+            for a, b in batch_oracle([csr], fresh, n0, TAU, dev)}
+    sim = SimilarityServer(eng, eng.cfg, device=dev)
+    rpc = RpcServer(sim, "127.0.0.1", 0).start()
+    addr = [f"{rpc.host}:{rpc.port}"]
+    pushed: set = set()
+    lock = threading.Lock()
+    errors = []
+
+    def on_output(out, moment) -> None:
+        with lock:
+            pushed.update((min(q, c), max(q, c))
+                          for q, cands in out.items() for c in cands)
+
+    def stream(part) -> None:
+        try:
+            c = ClientConnection(addr)
+            for s in range(0, part.size, 64):
+                c.insert_new_vector([(f"f{i}", fresh.row(int(i)))
+                                     for i in part[s:s + 64]])
+            c.flush()
+            c.close()
+        except Exception as e:  # surfaced after the join below
+            errors.append(e)
+
+    rec = {}
+    sub = ClientConnection(addr)
+    try:
+        sub.subscribe_outputs(on_output)
+        rows = np.arange(SERVE_ROWS)
+        threads = [threading.Thread(target=stream, args=(rows[k::2],))
+                   for k in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        wait_for(lambda: sim.stats()["n_rows"] == n0 + SERVE_ROWS, 60,
+                 "the served rows")
+        rec["stream_seconds"] = time.perf_counter() - t0
+        wait_for(lambda: len(pushed) >= len(want), 60, "the pushed outputs")
+        time.sleep(0.2)
+        with lock:
+            if pushed != want or not want:
+                raise AssertionError(
+                    f"phase 11c pushed pairs differ from the fp64 oracle: "
+                    f"{len(pushed - want)} extra, {len(want - pushed)} "
+                    f"missing")
+    finally:
+        sub.close()
+        rpc.close()
+    rec.update(rows=SERVE_ROWS, pairs=len(want))
+    log(f"phase 11c server over the rows mesh: 2 clients streamed "
+        f"{SERVE_ROWS} fresh rows; {len(want)} pushed pairs equal the fp64 "
+        f"oracle; {json.dumps(rec)}")
+    return rec
+
+
+def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
+                      kernels: list, smi: str, layout: str, shape,
+                      axis: str) -> None:
+    """Phase 11a, one layout: ``MeshEngine`` over 4 shards of the card,
+    built on phase 8's first 24,576 rows, the rest streamed with phase 8's
+    schedule; the union, the join of the streamed index (rows: kernel 3
+    once per shard, and bit for bit against its plain version at shard 0's
+    and shard 3's streamed operands), the blocks against phase 8's ``x``,
+    top-k and frozen matching; the rows layout then serves (11c); then the
+    timings."""
+    label = f"phase 11a {layout} mesh, 4 shards on one card"
+    eng = MeshEngine(AllPairsConfig(shard_axis=axis,
+                                    similarity_threshold=TAU),
+                     mesh=make_mesh(shape, devices=[dev] * 4))
+    log(f"{label} build, {STREAM_BUILD} rows: "
+        f"{json.dumps(eng.build(csr_rows(csr, 0, STREAM_BUILD)))}")
+    caps0 = (eng.row_cap, eng.dim_cap)
+    res = eng.all_pairs(TAU)
+    union, _, _, nb, secs = stream_rows(eng, csr, STREAM_BUILD,
+                                        [1] * 16 + [32] * 16)
+    union |= set(zip(res.i.tolist(), res.j.tolist()))
+    if eng.n_rows != csr.n_rows or eng.row_cap != 2 * STREAM_BUILD:
+        raise AssertionError(f"{label}: n_rows {eng.n_rows}, row_cap "
+                             f"{eng.row_cap}")
+    if union != want32:
+        raise AssertionError(f"{label}: streamed union differs from the "
+                             f"fp64 oracle: {len(union - want32)} extra, "
+                             f"{len(want32 - union)} missing")
+    log(f"{label} stream: {nb} inserts in {secs:.3f} s; (row_cap, dim_cap) "
+        f"{caps0} -> {(eng.row_cap, eng.dim_cap)}; build join + every "
+        f"insert's output: {len(union)} pairs equal the fp64 oracle")
+    zero_launches()
+    res = eng.all_pairs(TAU)
+    launches = dict(ts.LAUNCHES)
+    expect = {k: 0 for k in launches}
+    if axis == "rows":
+        expect["panel_score_bits_int8"] = 4
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    check_parity(res, want32, f"{label} join of the streamed index")
+    if axis == "rows":
+        recs = [compare_rows_shard(eng, s, timed=s == 0) for s in (0, 3)]
+        log(f"{label} kernel 3 vs plain at the streamed operands: "
+            f"{json.dumps(recs)}")
+        k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+        k3.update({"mesh_stream_join_launches": launches[
+            "panel_score_bits_int8"],
+            **{f"mesh_stream_{k}": recs[0][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")},
+            "mesh_stream_max_abs_err": max(r["max_abs_err"] for r in recs)})
+    check_blocks(eng, x8, label)
+    queries, sq, fq, fs, fpicks = qsets8
+    check_topk(eng, queries, sq, label)
+    check_frozen(eng, fq, fs, fpicks, label)
+    if axis == "rows":
+        serve_mesh(dev, eng, csr)
+    rec = {"card": smi, "layout": layout, "rows": eng.n_rows,
+           "row_cap": eng.row_cap, "dim_cap": eng.dim_cap,
+           "stream_seconds": secs, "stream_batches": nb}
+    rec.update(stream_timings(eng, synthetic_corpus(4096, seed=13),
+                              TIMED_BATCHES, None, split=MESH_SPLIT))
+    rec.update(mesh_query_timings(eng, queries, fq))
+    if eng.row_cap != 2 * STREAM_BUILD:
+        raise AssertionError(f"{label}: the timing inserts grew the index")
+    log(f"{label} timings: {json.dumps(rec)}")
+
+
+def capacity_rows(eng: MeshChunkedAllPairs, seed: int = 41):
+    """Batches of 256 rows whose entries all lie in the fullest chunk (192
+    of its dims each, every 16th row a copy of the one before), enough to
+    pass its capacity: the streamed corpus alone fills no chunk past its
+    power-of-two capacity, so this batch series makes the growth
+    happen."""
+    c = int(np.argmax(eng._counts))
+    dims = eng.compact.ext_of_col[c::eng._n_chunks]
+    need = eng._chunk_cap - int(eng._counts[c]) + 1
+    n = round_up(-(-need // 192), 256)
+    rng = np.random.default_rng(seed)
+    vecs = []
+    for i in range(n):
+        if i % 16 == 15:
+            vecs.append(vecs[-1])
+            continue
+        d = np.sort(rng.choice(dims, 192, replace=False)).astype(np.int32)
+        v = rng.random(192) + 0.05
+        vecs.append(SparseVector(1 << 20, d, v / np.linalg.norm(v)))
+    return c, [vecs[s:s + 256] for s in range(0, n, 256)]
+
+
+def mesh_chunked_stream(dev, csr: CSRMatrix, want: set, qsets9,
+                        kernels: list, smi: str) -> None:
+    """Phase 11b: ``MeshChunkedAllPairs`` over 8 shards of the card on
+    phase 5's corpus: build 90,000 rows, stream the rest with phase 9a's
+    batch sizes (every match on the rebuild route); the union, the join of
+    the streamed index (kernel 4 eight times per panel pair, and exactly
+    its plain version at one panel pair of shard 0's operands), top-k and
+    frozen matching against fp64; a per-chunk capacity growth on every
+    shard (asserted) with each batch against fp64 and the join after it;
+    then the timings with the stage split."""
+    label = "phase 11b chunked mesh, 8 shards on one card"
+    eng = MeshChunkedAllPairs(AllPairsConfig(),
+                              mesh=make_mesh(8, devices=[dev] * 8))
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{label} build, {CSTREAM_BUILD} rows: "
+        f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
+    res = eng.all_pairs(TAU)
+    union, _, caps, nb, secs = stream_rows(
+        eng, csr, CSTREAM_BUILD, [1] * 8 + [32] * 8, "device_rebuild")
+    union |= set(zip(res.i.tolist(), res.j.tolist()))
+    if union != want:
+        raise AssertionError(f"{label}: streamed union differs from the "
+                             f"fp64 oracle: {len(union - want)} extra, "
+                             f"{len(want - union)} missing")
+    log(f"{label} stream: {nb} inserts of rows {CSTREAM_BUILD}-"
+        f"{csr.n_rows - 1} in {secs:.3f} s, every one on the rebuild route; "
+        f"row_cap {caps}; {len(union)} pairs equal the fp64 oracle")
+
+    def join(want_pairs: set, what: str) -> int:
+        zero_launches()
+        res = eng.all_pairs(TAU)
+        launches = dict(ts.LAUNCHES)
+        geom = eng._panel_geom()
+        expect = {k: 0 for k in launches}
+        expect["int8_matmul"] = 8 * geom[3] * (geom[3] + 1) // 2
+        if launches != expect:
+            raise AssertionError(f"{label} {what}: launches {launches}, "
+                                 f"expected {expect}")
+        check_parity(res, want_pairs, f"{label} {what}")
+        return launches["int8_matmul"]
+
+    n_launch = join(want, "join of the streamed index")
+    st = eng._panel_state()
+    last = eng._panel_geom()[3] - 1
+    x0, xl = eng._build_slab(st, 0), eng._build_slab(st, last)
+    mm = compare_mm(x0[0], xl[0], f"{label}, pair (0, {last}), shard 0")
+    del st, x0, xl
+    k4 = next(k for k in kernels if k["name"] == "int8_matmul")
+    k4.update({"mesh_stream_join_launches": n_launch,
+               **{f"mesh_stream_{k}": mm[k] for k in (
+                   "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "max_abs_err")}})
+    queries, sq, fq, fs, fpicks = qsets9
+    check_topk(eng, queries, sq, label)
+    check_frozen(eng, fq, fs, fpicks, label)
+    if eng.last_route != "device_rebuild":
+        raise AssertionError(f"{label}: frozen match took {eng.last_route}")
+
+    cap0 = eng._chunk_cap
+    c, batches = capacity_rows(eng)
+    index, grown = [csr], set()
+    for vs in batches:
+        n0 = eng.n_rows
+        out = eng.insert([(str(n0 + i), v) for i, v in enumerate(vs)],
+                         tau=TAU)
+        part = CSRMatrix.from_vectors(vs, csr.n_cols)
+        want_b = batch_oracle(index, part, n0, TAU, dev)
+        if pairs_of(out) != want_b or eng.last_route != "device_rebuild":
+            raise AssertionError(f"{label} capacity batch at row {n0}: "
+                                 f"{len(pairs_of(out) ^ want_b)} pairs off "
+                                 f"the fp64 oracle, route {eng.last_route}")
+        grown |= want_b
+        index.append(part)
+    shapes = {tuple(t.shape) for t in eng._ent[0]}
+    if eng._chunk_cap != 2 * cap0 or shapes != {(eng._n_chunks // 8,
+                                                 eng._chunk_cap)}:
+        raise AssertionError(f"{label}: chunk capacity {cap0} -> "
+                             f"{eng._chunk_cap}, shard buffers {shapes}")
+    log(f"{label} capacity growth: {len(batches)} batches of 256 rows into "
+        f"chunk {c} grew every shard's per-chunk capacity {cap0} -> "
+        f"{eng._chunk_cap}; {len(grown)} new pairs equal the fp64 oracle")
+    join(want | grown, "join after the capacity growth")
+
+    rec = {"card": smi, "rows": eng.n_rows, "row_cap": eng.row_cap,
+           "n_chunks": eng._n_chunks, "chunk_cap": eng._chunk_cap,
+           "stream_seconds": secs, "stream_batches": nb}
+    rec.update(stream_timings(eng, synthetic_corpus(4096, seed=13),
+                              TIMED_BATCHES, "device_rebuild",
+                              split=CMESH_SPLIT))
+    rec.update(mesh_query_timings(eng, queries, fq))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"{label} timings: {json.dumps(rec)}")
+
+
+def mesh_stream_phase(dev, big_csr: CSRMatrix, want32: set, x8, qsets8,
+                      ooc_csr: CSRMatrix, want: set, qsets9, kernels: list,
+                      smi: str) -> None:
+    """Phase 11: the meshes' streaming path, their shards on the one card
+    (11a the dense mesh in three layouts, 11c the server over its rows
+    layout, 11b the chunked mesh)."""
+    t_phase = time.perf_counter()
+    x8 = x8.to(dev)
+    q8 = (qsets8[0], qsets8[1].to(dev), qsets8[2], qsets8[3].to(dev),
+          qsets8[4])
+    for layout, shape, axis in MESH_LAYOUTS:
+        mesh_dense_stream(dev, big_csr, want32, x8, q8, kernels, smi,
+                          layout, shape, axis)
+        torch.cuda.empty_cache()
+    del x8, q8
+    torch.cuda.empty_cache()
+    q9 = (qsets9[0], qsets9[1].to(dev), qsets9[2], qsets9[3].to(dev),
+          qsets9[4])
+    mesh_chunked_stream(dev, ooc_csr, want, q9, kernels, smi)
+    torch.cuda.empty_cache()
+    log(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2111,17 +2478,21 @@ def main() -> int:
     # ---- phase 8: the streaming path (insert, join, topk, frozen match)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        saved8 = stream_phase(dev, big_csr, want32, kernels, smi,
-                              os.path.join(work, "dense"))
+        saved8, x8, qsets8 = stream_phase(dev, big_csr, want32, kernels,
+                                          smi, os.path.join(work, "dense"))
 
         # ---- phase 9: the chunked engine's streaming path on phase 5's
         # corpus
-        saved9 = chunked_stream_phase(dev, ooc_csr, want, kernels, smi,
-                                      os.path.join(work, "chunked"))
+        saved9, qsets9 = chunked_stream_phase(
+            dev, ooc_csr, want, kernels, smi, os.path.join(work, "chunked"))
 
         # ---- phase 10: checkpoints, the server, the command line
         serving_phase(dev, work, big_csr, want32, want, kernels, smi,
                       (saved8, build32), (saved9, build100k))
+
+        # ---- phase 11: the meshes' streaming path, shards on the one card
+        mesh_stream_phase(dev, big_csr, want32, x8, qsets8, ooc_csr, want,
+                          qsets9, kernels, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -20,7 +20,9 @@ product in every int32.  The streaming path on the card gives the CPU
 engine's outputs (fp64 similarities equal), index and top-k lists; the
 bf16 copy that inserts keep in step equals a fresh cast bit for bit; the
 match's scores are fp32; ``topk`` multiplies with TF32 off and leaves
-``allow_tf32`` as it found it.
+``allow_tf32`` as it found it.  The meshes' streaming over four shards of
+the card gives the CPU meshes' outputs, blocks and entry buffers, and the
+bf16 copies of the blocks that inserts keep equal fresh casts bit for bit.
 """
 
 import numpy as np
@@ -687,3 +689,99 @@ def test_chunked_stream_on_cuda_equals_cpu(budget):
                                       stack.shape[2], 8, stack.dtype,
                                       "default")
         assert sc.dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape, axis", [(4, "rows"), (4, "dims"),
+                                         ((2, 2), "dims")])
+def test_mesh_stream_on_cuda_equals_cpu(card, mesh_csr, shape, axis):
+    """``MeshEngine`` over four shards of the card and of the CPU, the
+    phase-8 stream in small (batches of 1, 32, 256, one with new dims,
+    copies of shifted rows that activate dormant entries): outputs,
+    capacities and blocks equal the CPU mesh's after every batch, and the
+    bf16 copies the inserts keep equal fresh casts of their blocks bit for
+    bit (re-keyed to the blocks' versions); then ``topk``, a frozen match
+    and the join of the streamed index equal (the rows layout launches
+    kernel 3 once per shard)."""
+    cfg = AllPairsConfig(row_bucket=1024, dim_bucket=2048, shard_axis=axis)
+    engs = {d: MeshEngine(cfg, mesh=make_mesh(shape, devices=[d] * 4))
+            for d in ("cuda", "cpu")}
+    for e in engs.values():
+        e.build(_head(mesh_csr, 2000))
+    copies = []
+    for i in range(2291, 2323, 2):
+        v = mesh_csr.row(i)
+        copies.append((f"c{i}", SparseVector(v.size, v.indices + 40000,
+                                             v.values)))
+    s = 2000
+    for bs, shift in ((1, 0), (32, 0), (256, 0), (300, 40000), (256, 0),
+                      (len(copies), None)):
+        g, c = engs["cuda"], engs["cpu"]
+        if shift is None:
+            outs = {d: e.insert(copies, tau=0.8).output
+                    for d, e in engs.items()}
+        else:
+            outs = {d: _stream(e, mesh_csr, s, bs, shift).output
+                    for d, e in engs.items()}
+            s += bs
+        assert outs["cuda"] == outs["cpu"]
+        assert (g.row_cap, g.dim_cap) == (c.row_cap, c.dim_cap)
+        assert g.stats["dormant_dims"] == c.stats["dormant_dims"]
+        for a, b in zip(g.x_blocks, c.x_blocks):
+            assert torch.equal(a.cpu(), b)
+        key, kept = g._block_operands
+        assert key == g._blocks_key()
+        for blk, cp in zip(g.x_blocks, kept):
+            assert torch.equal(cp, blk.to(torch.bfloat16))
+    assert engs["cuda"].row_cap == 4096
+    q = [(f"q{i}", mesh_csr.row(i)) for i in range(0, 3000, 97)]
+    tops = {d: e.topk(q, 5) for d, e in engs.items()}
+    assert {k: [r for r, _ in v] for k, v in tops["cuda"].items()} == {
+        k: [r for r, _ in v] for k, v in tops["cpu"].items()}
+    before = ts.LAUNCHES["panel_score_bits_int8"]
+    joins = {d: e.all_pairs(0.8).pair_set() for d, e in engs.items()}
+    launched = ts.LAUNCHES["panel_score_bits_int8"] - before
+    assert launched == (4 if axis == "rows" and shape == 4 else 0)
+    assert joins["cuda"] == joins["cpu"] and joins["cpu"]
+    for e in engs.values():
+        e.freeze()
+    frozen = {d: e.insert(q, tau=0.8).output for d, e in engs.items()}
+    assert frozen["cuda"] == frozen["cpu"] and frozen["cpu"]
+
+
+def test_mesh_chunked_stream_on_cuda_equals_cpu(card, mesh_csr):
+    """``MeshChunkedAllPairs`` over four shards of the card and of the
+    CPU, batch for batch: outputs equal, every shard's entry buffers equal,
+    every match on the rebuild route; then ``topk``, a frozen match and the
+    join of the streamed index (kernel 4 once per shard per panel pair on
+    the card) equal."""
+    engs = {}
+    for d in ("cuda", "cpu"):
+        e = MeshChunkedAllPairs(AllPairsConfig(),
+                                mesh=make_mesh(4, devices=[d] * 4),
+                                panel_rows=1024)
+        e.build(_head(mesh_csr, 2000))
+        engs[d] = e
+    s = 2000
+    for bs in (1, 32, 256, 256, 256, 199):
+        outs = {d: e.insert([(str(i), mesh_csr.row(i))
+                             for i in range(s, s + bs)], tau=0.8).output
+                for d, e in engs.items()}
+        assert outs["cuda"] == outs["cpu"]
+        assert {e.last_route for e in engs.values()} == {"device_rebuild"}
+        for a, b in zip(engs["cuda"]._ent, engs["cpu"]._ent):
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+        s += bs
+    q = [(f"q{i}", mesh_csr.row(i)) for i in range(0, 3000, 97)]
+    tops = {d: e.topk(q, 5) for d, e in engs.items()}
+    assert {k: [r for r, _ in v] for k, v in tops["cuda"].items()} == {
+        k: [r for r, _ in v] for k, v in tops["cpu"].items()}
+    n_panels = engs["cuda"]._panel_geom()[3]
+    before = ts.LAUNCHES["int8_matmul"]
+    joins = {d: e.all_pairs(0.8).pair_set() for d, e in engs.items()}
+    assert ts.LAUNCHES["int8_matmul"] - before == (
+        4 * n_panels * (n_panels + 1) // 2)
+    assert joins["cuda"] == joins["cpu"] and joins["cpu"]
+    for e in engs.values():
+        e.freeze()
+    frozen = {d: e.insert(q, tau=0.8).output for d, e in engs.items()}
+    assert frozen["cuda"] == frozen["cpu"] and frozen["cpu"]

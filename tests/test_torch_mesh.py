@@ -355,13 +355,21 @@ def test_unported_paths_raise(corpus, what, tmp_path):
         j = apsim_tpu.Engine.load(str(tmp_path))
         assert j.all_pairs(0.5).pair_set() == brute_force_pairs(corpus, 0.5)
         return
-    item = {"insert": "item G.2", "topk": "item G.2"}[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        e = pt.MeshEngine(pt.AllPairsConfig(**cfg_kw(**kw)),
-                          mesh=cpu_mesh(8))
-        e.build(to_pt(corpus))
-        {"insert": lambda: e.insert([("q", corpus.row(0))]),
-         "topk": lambda: e.topk([("q", corpus.row(0))], 3)}[what]()
+    # ported (item G.2): insert and top-k over the 8 row blocks
+    e = pt.MeshEngine(pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8))
+    e.build(to_pt(corpus))
+    sims = corpus.to_dense() @ corpus.to_dense()[0]
+    if what == "insert":
+        out = e.insert([("q", corpus.row(0))], tau=0.5).output["q"]
+        assert set(out) == {str(i) for i in np.nonzero(sims >= 0.5)[0]}
+        assert e.n_rows == corpus.n_rows + 1 and e._kernel_ok()
+        assert e.all_pairs(0.5).pair_set() == brute_force_pairs(
+            e.shadow_csr(), 0.5, e.ids)
+    else:
+        got = e.topk([("q", corpus.row(0))], 3)["q"]
+        assert [c for c, _ in got][0] == "0" and len(got) == 3
+        assert np.allclose([s for _, s in got], np.sort(sims)[::-1][:3],
+                           atol=1e-12)
 
 
 def test_unknown_shard_axis_raises():

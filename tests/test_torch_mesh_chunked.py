@@ -429,14 +429,24 @@ def test_unported_paths_raise(corpus, what, tmp_path):
         assert apsim_tpu.Engine.load(str(tmp_path)).all_pairs(
             0.5).pair_set() == want
         return
-    item = {"insert": "item G.1", "topk": "item G.1",
-            "freeze": "item G.1"}[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        e = pt.MeshChunkedAllPairs(
-            pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8),
-            chunk_dim=32, panel_rows=128)
-        e.build(to_pt(corpus))
-        assert not e._single_slab_ok(None)
-        {"insert": lambda: e.insert([("q", corpus.row(0))]),
-         "topk": lambda: e.topk([("q", corpus.row(0))], 3),
-         "freeze": e.freeze}[what]()
+    # ported (item G.1): insert, top-k and freeze over the 8 chunk blocks
+    e = pt.MeshChunkedAllPairs(
+        pt.AllPairsConfig(**cfg_kw(**kw)), mesh=cpu_mesh(8),
+        chunk_dim=32, panel_rows=128)
+    e.build(to_pt(corpus))
+    assert not e._single_slab_ok(None)
+    sims = corpus.to_dense() @ corpus.to_dense()[0]
+    near = {str(i) for i in np.nonzero(sims >= 0.5)[0]}
+    if what == "topk":
+        got = e.topk([("q", corpus.row(0))], 3)["q"]
+        assert [c for c, _ in got][0] == "0" and len(got) == 3
+        assert np.allclose([s for _, s in got], np.sort(sims)[::-1][:3],
+                           atol=1e-12)
+        return
+    if what == "freeze":
+        e.freeze()
+    out = e.insert([("q", corpus.row(0))], tau=0.5).output["q"]
+    assert set(out) == near and e.last_route == "device_rebuild"
+    assert e.n_rows == corpus.n_rows + (what == "insert")
+    assert e.all_pairs(0.5).pair_set() == brute_force_pairs(
+        e.shadow_csr(), 0.5, e.ids)
