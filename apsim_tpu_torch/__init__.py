@@ -3,26 +3,29 @@
 The port of the JAX package ``apsim_tpu`` (which stays as its reference) to
 PyTorch with hand-written Hopper kernels.  This package imports ``torch``
 and never ``jax`` or ``apsim_tpu``: the host-only modules it shares with the
-JAX package are copies.  Ported so far: ``Engine.build`` and the exact
+JAX package are copies.  Ported: ``Engine.build`` and the exact
 thresholded ``Engine.all_pairs`` join (the upper-triangle kernels, and the
 full-rectangle join for every configuration they refuse), the dense
 engine's streaming path (``Engine.insert`` matched online, ``topk``,
 ``freeze`` and frozen matching, admission and dormant-dim activation;
-``OutputBatcher``), the out-of-core
-``ChunkedAllPairs.build`` + ``all_pairs`` (block-panel join, and the stripe
-join behind it) and its streaming path (``insert`` on the resident, host,
-paneled and rebuild routes, ``topk``, ``freeze``), their single-host mesh
-variants ``MeshChunkedAllPairs`` (chunk axis sharded; its join only) and
-``MeshEngine`` (rows, dims or a 2-D mesh); checkpoints (``save`` and
-``load`` in the JAX package's format, so either package restores the
-other's) and ``profile_dir`` tracing (``torch.profiler``); the ETL
-(``etl``: TF-IDF hashing, the vector store); the serving stack
-(``serve``: ``SimilarityServer``, the newline-JSON ``RpcServer``, the
-client), the load generator (``bench.loadgen``) and the command line
-(``python -m apsim_tpu_torch.cli``, ``apsim-torch``).  Not yet: multi-host
-replicated serving, the chunked mesh's streaming and the rows / dims
-mesh's streaming over more than one shard.  Entry points run on the card
-(``"cuda"``, or a mesh over the cards) unless the caller names the CPU.
+``OutputBatcher``), the out-of-core ``ChunkedAllPairs.build`` +
+``all_pairs`` (block-panel join, and the stripe join behind it) and its
+streaming path (``insert`` on the resident, host, paneled and rebuild
+routes, ``topk``, ``freeze``), the mesh variants ``MeshChunkedAllPairs``
+(chunk axis sharded) and ``MeshEngine`` (rows, dims or a 2-D mesh), their
+joins and their streaming at any shard count, on one process or over
+several (``parallel.init_multihost`` and ``global_mesh`` on
+``torch.distributed``); checkpoints (``save`` and ``load`` in the JAX
+package's format, so either package restores the other's) and
+``profile_dir`` tracing (``torch.profiler``); the ETL (``etl``: TF-IDF
+hashing, the vector store); the serving stack (``serve``:
+``SimilarityServer``, the newline-JSON ``RpcServer``, the client, and the
+replicated op log of ``serve.replica`` that serves one index from several
+processes), the load generator (``bench.loadgen``) and the command line
+(``python -m apsim_tpu_torch.cli``, ``apsim-torch``; ``serve --replicate``).
+Not ported: the JAX package's bench probes and suite.  Entry points run on
+the card (``"cuda"``, or a mesh over the cards) unless the caller names the
+CPU.
 """
 
 from .config import AllPairsConfig, load_config
@@ -31,7 +34,8 @@ from .engine.engine import Engine, PendingInsert
 from .engine.output import OutputBatcher, PairResult, SimilarityOutput
 from .parallel import MeshChunkedAllPairs, MeshEngine, make_mesh
 from .vector.batch import CSRMatrix
-from .vector.sparse import SparseVector, Vectors
+from .vector.sparse import (DenseVector, SparseVector, Vectors,
+                            parse_vector)
 
 __version__ = "0.1.0"
 
@@ -48,6 +52,8 @@ __all__ = [
     "PairResult",
     "SimilarityOutput",
     "SparseVector",
+    "DenseVector",
     "Vectors",
+    "parse_vector",
     "CSRMatrix",
 ]

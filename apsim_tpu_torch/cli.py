@@ -19,13 +19,19 @@ Every subcommand that builds an engine takes ``--device {cuda,cpu}``
 (default ``cuda``): without CUDA the default raises, it never falls back to
 the CPU.  ``--mesh`` spans every visible card (on the CPU, ``--mesh-shape``
 shards of the CPU).  ``serve`` blocks until SIGINT and checkpoints on the
-way out; ``--replicate`` (multi-host serving) is not ported yet.
+way out.  Run in several processes (``MASTER_ADDR`` / ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK`` set, as ``torchrun`` sets them), ``serve
+--replicate HOST:PORT`` serves one index from all of them: rank 0 serves
+RPC and ships every engine call through the op log at ``HOST:PORT``, the
+others replay it (``serve/replica.py``); ``--mesh`` then lays one mesh over
+every process's devices (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -119,15 +125,28 @@ def _engine_cls(args, use_mesh: bool):
 
 def _new_engine(args, cls, cfg):
     """An empty engine of ``cls`` on ``--device``: the mesh flavors span
-    every visible card, or ``mesh_shape`` shards of the CPU."""
+    every visible card, or ``mesh_shape`` shards of the CPU.  In a group
+    of several processes the mesh is the global one: each process puts
+    its share of ``mesh_shape`` (one shard by default) on its card, or on
+    the CPU."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
-    from .parallel import MeshChunkedAllPairs, MeshEngine, make_mesh
+    from .parallel import (MeshChunkedAllPairs, MeshEngine, global_mesh,
+                           make_mesh)
 
     dev = torch.device(args.device)
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    if multi and dev.type == "cuda":  # this process's card
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
     if cls in (MeshEngine, MeshChunkedAllPairs):
         shape = cfg.mesh_shape or None
+        if multi:
+            world = dist.get_world_size()
+            per = max(1, int(np.prod(shape or (world,))) // world)
+            return cls(cfg, mesh=global_mesh(shape, devices=[dev] * per))
         devices = (None if dev.type == "cuda"
                    else ["cpu"] * int(np.prod(shape or (1,))))
         return cls(cfg, mesh=make_mesh(shape, devices=devices))
@@ -189,29 +208,95 @@ def cmd_topk(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from .engine.engine import Engine, _not_ported
-    from .etl.store import VectorStore
-    from .serve import RpcServer, SimilarityServer
+    from .parallel import init_multihost
 
-    if args.replicate:
-        raise _not_ported("multi-host replicated serving (--replicate)",
-                          "item G.3")
     cfg = _load_cfg(args)
     if args.checkpoint_dir:
         cfg = cfg.replace(
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_interval_s=args.checkpoint_interval,
         )
+    # multi-process: join the process group first (a no-op unless
+    # MASTER_ADDR is set — the seed-node analog); the mesh flavors then
+    # span every process's devices
+    init_multihost(backend=args.dist_backend
+                   or ("gloo" if args.device == "cpu" else None))
+    import torch.distributed as dist
+
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    if multi and not args.replicate:
+        raise SystemExit(
+            "multi-process serving needs --replicate HOST:PORT (the "
+            "coordinator's op-log address)"
+        )
+    try:
+        return _serve(args, cfg, multi)
+    finally:
+        if multi:
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, multi: bool) -> int:
+    """``serve`` after the process group is joined: a follower replays the
+    op log; the coordinator (or the only process) serves RPC."""
+    import torch.distributed as dist
+
+    from .engine.engine import Engine
+    from .etl.store import VectorStore
+    from .parallel import is_coordinator
+    from .serve import RpcServer, SimilarityServer
+
     cfg, use_mesh = _mesh_cfg(args, cfg)
     store = (
         VectorStore(args.store, run_mode=cfg.run_mode)
         if args.store else None
     )
     cls = _engine_cls(args, use_mesh)
-    # plain dense: let the server construct (and checkpoint-load) the
-    # engine; other flavors are caller-provided and restored by the server
-    # if a checkpoint exists
-    engine = None if cls is Engine else _new_engine(args, cls, cfg)
+    leader = None
+    if multi:
+        host, port = args.replicate.rsplit(":", 1)
+        # every process builds its replica (over the global mesh for the
+        # mesh flavors); device work runs in lockstep via the op log
+        engine = _new_engine(args, cls, cfg)
+        if not is_coordinator():
+            from .serve.replica import follow
+
+            print("follower: replaying op log", flush=True)
+            # the follower's store (same --store path: shared volume /
+            # filesystem) lets bulk loads replicate as a table name +
+            # content hash instead of the corpus itself
+            n, clean = follow(
+                engine, host, int(port), cfg.auth_token, store=store,
+            )
+            if not clean:
+                # leader died mid-log: this replica holds its full state —
+                # exit nonzero so a supervisor restarts it as the new
+                # coordinator (its engine can be re-served as-is)
+                print(
+                    f"follower: LEADER LOST after {n} ops; replica state "
+                    "is complete and promotable", flush=True,
+                )
+                return 1
+            print(f"follower: leader closed after {n} ops", flush=True)
+            return 0
+        from .serve.replica import OpLogLeader
+
+        n_followers = dist.get_world_size() - 1
+        leader = OpLogLeader(
+            engine, host=host, port=int(port), n_followers=n_followers,
+            auth_token=cfg.auth_token,
+        )
+        print(
+            f"op log on {leader.host}:{leader.port}; waiting for "
+            f"{n_followers} follower(s)", flush=True,
+        )
+        leader.wait_followers()
+        engine = leader
+    else:
+        # plain dense: let the server construct (and checkpoint-load) the
+        # engine; other flavors are caller-provided and restored by the
+        # server if a checkpoint exists
+        engine = None if cls is Engine else _new_engine(args, cls, cfg)
     sim = SimilarityServer(engine, cfg, store=store, device=args.device)
     rpc = RpcServer(sim, host=args.host, port=args.port).start()
     print(f"serving on {rpc.host}:{rpc.port}", flush=True)
@@ -223,6 +308,8 @@ def cmd_serve(args) -> int:
         pass
     finally:
         rpc.close()
+        if leader is not None:
+            leader.close()
     return 0
 
 
@@ -348,8 +435,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint-interval", type=float, default=60.0,
                     dest="checkpoint_interval")
     sp.add_argument("--replicate", default=None,
-                    help="multi-host: op-log address HOST:PORT (not ported "
-                         "yet: raises)")
+                    help="multi-process: the coordinator's op-log address "
+                         "HOST:PORT (rank 0 listens, the others follow)")
+    sp.add_argument("--dist-backend", default=None, dest="dist_backend",
+                    choices=("nccl", "gloo"),
+                    help="torch.distributed backend of a multi-process "
+                         "serve (default: nccl on the card, gloo with "
+                         "--device cpu; two ranks on one card need gloo)")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("client")

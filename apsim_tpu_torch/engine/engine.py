@@ -67,13 +67,6 @@ def plain_stats(stats: dict) -> dict:
             for k, v in stats.items()}
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to apsim_tpu_torch yet (ROADMAP.md, queue 1, "
-        f"{item}); use the JAX package apsim_tpu for it"
-    )
-
-
 def _as_csr(
     vectors: Sequence[Tuple[str, SparseVector]] | CSRMatrix,
     ids: Sequence[str] | None,

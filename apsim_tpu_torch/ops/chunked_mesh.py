@@ -11,7 +11,10 @@ the lead device (``psum``), and the one epilogue runs there.  The int32 sum
 is exact in any order; the fp32 sum adds one rounding per shard to a row's
 accumulation, inside the engine's margin like any other order of the same
 additions.  The JAX functions replicate the epilogue on every device; this
-computes it once.
+computes it once.  On a mesh over several processes each process holds
+and scores its own shards; the fp32 sum runs in shard order across them
+(bit for bit the one-process sum) and ends on the last shard's process,
+which runs the epilogue and shares its outputs, as does the int32 sum.
 
   - the stripe join: ``mesh_stripe_extract`` (bf16 or fp32 slabs) and
     ``mesh_stripe_extract_int8``;
@@ -26,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import psum, sync
+from ..parallel.collectives import psum, share, sum_home, sync
 from . import chunked as chunked_ops
 from . import tri_score as ts
 
@@ -35,11 +38,18 @@ __all__ = ["mesh_stripe_extract", "mesh_stripe_extract_int8",
            "mesh_append_entries", "mesh_grow_entry_cap"]
 
 
-def _summed(mesh, parts, timer):
+def _reduced(mesh, parts, epilogue, timer):
+    """``epilogue`` (a tuple of tensors out) of the sum of the shards'
+    partials ``parts``, on every process: the sum ("reduce") on the home
+    shard's process, which runs the epilogue; its outputs then cross to
+    the others (on one process nothing crosses)."""
+    home = sum_home(mesh)
     with ts._section(timer, "reduce"):
-        total = psum(parts, mesh.devices[0])
-        sync(mesh.devices)
-    return total
+        total = psum(parts, mesh.lead, mesh, to=home)
+        sync(mesh)
+    out = None if total is None else epilogue(total)
+    del total
+    return share([out], [mesh.ranks[home]], mesh.lead, mesh)[0]
 
 
 def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
@@ -47,17 +57,17 @@ def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
                         super_tile: int, precision: str = "default",
                         timer=None):
     """Candidates ``(rows, cols)`` (int64, exact length, on the lead
-    device) of one query stripe; the buffers are per-shard lists, ``counts``
-    a per-shard list of host arrays or tensors.  Stages "slabs", "kernel",
-    "reduce", "epilogue", "compact"."""
+    device) of one query stripe; the buffers are per-shard lists (None for
+    another process's shard), ``counts`` a per-shard list of host arrays
+    or tensors.  Stages "slabs", "kernel", "reduce", "epilogue",
+    "compact"."""
     parts = [
-        chunked_ops.stripe_scores(r, c, v, n, q0, row_cap, chunk_dim,
-                                  super_tile, precision, timer)
+        None if r is None else chunked_ops.stripe_scores(
+            r, c, v, n, q0, row_cap, chunk_dim, super_tile, precision, timer)
         for r, c, v, n in zip(rows2d, cols2d, vals2d, counts)
     ]
-    s = _summed(mesh, parts, timer)
-    del parts
-    return chunked_ops.join_epilogue_bits(s, q0, tau_eff, timer)
+    return _reduced(mesh, parts, lambda s: chunked_ops.join_epilogue_bits(
+        s, q0, tau_eff, timer), timer)
 
 
 def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
@@ -68,13 +78,12 @@ def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
     shared per-pair quantization-bound epilogue with the global ``aux``
     (on the lead device)."""
     parts = [
-        chunked_ops.stripe_dots_int8(r, c, q, n, q0, row_cap, chunk_dim,
-                                     super_tile, timer)
+        None if r is None else chunked_ops.stripe_dots_int8(
+            r, c, q, n, q0, row_cap, chunk_dim, super_tile, timer)
         for r, c, q, n in zip(rows2d, cols2d, q2d, counts)
     ]
-    d = _summed(mesh, parts, timer)
-    del parts
-    return chunked_ops.int8_join_epilogue(d, aux, q0, tau_eff, timer)
+    return _reduced(mesh, parts, lambda d: chunked_ops.int8_join_epilogue(
+        d, aux, q0, tau_eff, timer), timer)
 
 
 # ------------------------------------------------------------ streaming
@@ -83,10 +92,14 @@ def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
 def _split_queries(mesh, q, n_local: int) -> list:
     """A chunk-bucketed query batch ``(rows2d, cols2d, vals2d, counts)``
     (``ChunkedAllPairs._bucket_queries``: buffers on the lead device,
-    counts on the host) cut into each shard's chunk block on its device."""
+    counts on the host) cut into each shard's chunk block on its device
+    (None for another process's shard)."""
     r2, c2, v2, cnts = q
     out = []
     for s, dev in enumerate(mesh.devices):
+        if not mesh.is_local(s):
+            out.append(None)
+            continue
         sl = slice(s * n_local, (s + 1) * n_local)
         out.append((r2[sl].to(dev), c2[sl].to(dev), v2[sl].to(dev),
                     cnts[sl]))
@@ -95,20 +108,23 @@ def _split_queries(mesh, q, n_local: int) -> list:
 
 def _partial_scores(mesh, rows2d, cols2d, vals2d, counts, q, width: int,
                     row_cap: int, q_rows: int, precision: str,
-                    queries_lead: bool, timer):
+                    queries_lead: bool, timer) -> list:
     """Every shard's ``chunk_scores`` over its own chunks (slabs densified
-    from its buffers), summed on the lead device ("reduce")."""
+    from its buffers); None for another process's shard."""
     sdt = chunked_ops.slab_dtype(precision)
-    qs = _split_queries(mesh, q, rows2d[0].shape[0])
+    n_local = next(r for r in rows2d if r is not None).shape[0]
+    qs = _split_queries(mesh, q, n_local)
     parts = []
     for r, c, v, n, qq in zip(rows2d, cols2d, vals2d, counts, qs):
+        if r is None:
+            parts.append(None)
+            continue
         parts.append(chunked_ops.chunk_scores(
             lambda k, r=r, c=c, v=v, n=n: chunked_ops.densify_chunk(
                 r, c, v, n, k, row_cap, width, sdt),
             qq, r.shape[0], width, q_rows, sdt, precision, queries_lead,
             timer))
-    del qs
-    return _summed(mesh, parts, timer)
+    return parts
 
 
 def mesh_match_extract(mesh, rows2d, cols2d, vals2d, counts, q, q_base: int,
@@ -117,15 +133,19 @@ def mesh_match_extract(mesh, rows2d, cols2d, vals2d, counts, q, q_base: int,
     """Streaming match of a chunk-bucketed query batch ``q`` against the
     whole sharded index (``mesh_match_extract`` of the JAX package without
     caps and head): each shard's partial fp32 ``[row_cap, q_rows]`` block,
-    the ``psum`` on the lead device, then ``chunked.match_extract`` once
-    there (threshold, the batch's own cells excluded on ``q_base``, exact
-    length).  ``counts``: per-shard host arrays.  Returns device int64
-    ``(index rows, query locals)`` on the lead device.  Stages "slabs",
-    "product", "reduce", "compact"."""
-    s = _partial_scores(mesh, rows2d, cols2d, vals2d, counts, q, width,
-                        row_cap, q_rows, precision, False, timer)
-    with ts._section(timer, "compact"):
-        return chunked_ops.match_extract(s, q_base, tau_eff)
+    the ``psum``, then ``chunked.match_extract`` once (threshold, the
+    batch's own cells excluded on ``q_base``, exact length).  ``counts``:
+    per-shard host arrays.  Returns device int64 ``(index rows, query
+    locals)`` on the lead device.  Stages "slabs", "product", "reduce",
+    "compact"."""
+    parts = _partial_scores(mesh, rows2d, cols2d, vals2d, counts, q, width,
+                            row_cap, q_rows, precision, False, timer)
+
+    def extract(s):
+        with ts._section(timer, "compact"):
+            return chunked_ops.match_extract(s, q_base, tau_eff)
+
+    return _reduced(mesh, parts, extract, timer)
 
 
 def mesh_topk(mesh, rows2d, cols2d, vals2d, counts, q, n_rows: int,
@@ -136,22 +156,23 @@ def mesh_topk(mesh, rows2d, cols2d, vals2d, counts, q, n_rows: int,
     shards' partial ``[q_rows, row_cap]`` scores summed, rows ``>= n_rows``
     masked to ``-inf``, one ``torch.topk``.  At ``"highest"`` the slabs are
     fp32 and every product is a true fp32 one (``score.score_tile``)."""
-    s = _partial_scores(mesh, rows2d, cols2d, vals2d, counts, q, width,
-                        row_cap, q_rows, precision, True, None)
-    return chunked_ops._topk(s, n_rows, k)
+    parts = _partial_scores(mesh, rows2d, cols2d, vals2d, counts, q, width,
+                            row_cap, q_rows, precision, True, None)
+    return _reduced(mesh, parts,
+                    lambda s: tuple(chunked_ops._topk(s, n_rows, k)), None)
 
 
 def mesh_append_entries(mesh, rows2d, cols2d, vals2d, coo5: np.ndarray):
     """Set a packed ``[5, n]`` host batch (chunk / slot / row / local /
     fp32 value bits, global chunk ids) into the per-shard buffers in
-    place: each shard takes the entries of its own chunk block, localized,
-    in one H2D copy.  The selection is made on the host before the scatter
-    (torch has no drop mode for the foreign entries)."""
-    n_local = rows2d[0].shape[0]
+    place: each shard of this process takes the entries of its own chunk
+    block, localized, in one H2D copy.  The selection is made on the host
+    before the scatter (torch has no drop mode for the foreign entries)."""
+    n_local = next(r for r in rows2d if r is not None).shape[0]
     owner = coo5[0] // n_local
     for s, dev in enumerate(mesh.devices):
         own = owner == s
-        if not own.any():
+        if rows2d[s] is None or not own.any():
             continue
         part = np.ascontiguousarray(coo5[:, own])
         part[0] -= s * n_local
@@ -162,8 +183,10 @@ def mesh_append_entries(mesh, rows2d, cols2d, vals2d, coo5: np.ndarray):
 
 def mesh_grow_entry_cap(rows2d, cols2d, vals2d, new_cap: int, pad_row: int):
     """Every shard's buffers padded to ``new_cap`` slots on its own device
-    (``chunked.grow_entry_cap`` per shard; no data crosses shards).
-    Returns the three per-shard lists."""
-    grown = [chunked_ops.grow_entry_cap(r, c, v, new_cap, pad_row)
+    (``chunked.grow_entry_cap`` per shard; no data crosses shards; None
+    stays None for another process's shard).  Returns the three per-shard
+    lists."""
+    grown = [(None, None, None) if r is None else
+             chunked_ops.grow_entry_cap(r, c, v, new_cap, pad_row)
              for r, c, v in zip(rows2d, cols2d, vals2d)]
     return tuple(list(t) for t in zip(*grown))

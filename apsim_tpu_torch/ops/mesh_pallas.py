@@ -9,7 +9,9 @@ GLOBAL upper-triangle block schedule, reading both operands from the
 gathered copy.  The schedule is striped round-robin (shard d takes blocks
 d, d+n, d+2n, ...), so shards are balanced to one block and only
 ``row_cap`` must tile.  No sum crosses shards; each shard's hits compact to
-exact-length global (row, col) lists.
+exact-length global (row, col) lists.  On a mesh over several processes
+each process quantizes and scores its own shards only; the int8 rows and
+the candidate lists cross processes.
 
 Exactness is the dense kernel's contract: int8 scores plus the per-pair
 quantization bound form a proven candidate superset at ``tau_eff``, and the
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..parallel.collectives import all_gather, sync
+from ..parallel.collectives import all_gather, share, sync
 from . import panel as panel_ops
 from . import tri_score as ts
 
@@ -50,31 +52,45 @@ def mesh_rows_extract_int8(mesh, x_blocks, bi, bj, valid, tau_eff, tm: int,
 
     ``x_blocks`` holds each shard's row block (on its device), ``bi`` /
     ``bj`` / ``valid`` each shard's int32 schedule (``rows_schedule``) on
-    that device.  In order: ``quantize_rows`` per shard, ``all_gather`` of
-    q and aux (stage "operands"); kernel 3 per shard on the gathered copy
-    ("kernel", one launch per shard); exact-length compaction ("compact").
-    Returns one ``(row, col)`` int64 pair of global candidate lists per
-    shard.  Shards on one device share one gathered copy; shards on
-    distinct devices each hold their own, as under JAX."""
+    that device; on a mesh over several processes the other processes'
+    entries are None.  In order: ``quantize_rows`` per shard, ``all_gather``
+    of q and aux (stage "operands"); kernel 3 per shard on the gathered
+    copy ("kernel", one launch per shard of this process); exact-length
+    compaction ("compact").  Returns one ``(row, col)`` int64 pair of
+    global candidate lists per shard, every shard's on every process (on
+    the lead device where they came from another process).  Shards on one
+    device share one gathered copy; shards on distinct devices each hold
+    their own, as under JAX."""
     devices = list(mesh.devices)
+    mine = mesh.local_shards
     with ts._section(timer, "operands"):
-        qa = [ts.quantize_rows(x) for x in x_blocks]
-        gathered = {
-            dev: (all_gather([q for q, _ in qa], 0, dev),
-                  all_gather([a for _, a in qa], 1, dev).contiguous())
-            for dev in dict.fromkeys(devices)
-        }
+        qa = {s: ts.quantize_rows(x_blocks[s]) for s in mine}
+        q_parts = [qa[s][0] if s in qa else None for s in range(mesh.size)]
+        a_parts = [qa[s][1] if s in qa else None for s in range(mesh.size)]
         del qa
-        sync(devices)
+        if mesh.n_procs == 1:
+            gathered = {
+                dev: (all_gather(q_parts, 0, dev),
+                      all_gather(a_parts, 1, dev).contiguous())
+                for dev in dict.fromkeys(devices)
+            }
+        else:  # across processes once, then to this process's devices
+            qg = all_gather(q_parts, 0, mesh.lead, mesh)
+            ag = all_gather(a_parts, 1, mesh.lead, mesh).contiguous()
+            gathered = {dev: (qg.to(dev), ag.to(dev))
+                        for dev in mesh.local_devices}
+        del q_parts, a_parts
+        sync(mesh)
     with ts._section(timer, "kernel"):
-        bits = []
-        for s, dev in enumerate(devices):
-            qg, auxg = gathered[dev]
-            bits.append(panel_ops.panel_score_bits_int8(
+        bits = {}
+        for s in mine:
+            qg, auxg = gathered[devices[s]]
+            bits[s] = panel_ops.panel_score_bits_int8(
                 qg, qg, auxg, auxg, bi[s], bj[s], (0, 0), tau_eff, tm, tn,
                 valid=valid[s],
-            ))
-        sync(devices)
+            )
+        sync(mesh)
     with ts._section(timer, "compact"):
-        return [ts.compact_bits(gb, g64, cnt, bi[s], bj[s], tm, tn)
-                for s, (gb, g64, cnt) in enumerate(bits)]
+        found = [ts.compact_bits(*bits.pop(s), bi[s], bj[s], tm, tn)
+                 if s in bits else None for s in range(mesh.size)]
+        return share(found, mesh.ranks, mesh.lead, mesh)

@@ -3,8 +3,8 @@
 top-k on an index held as a grid of blocks.
 
 Under JAX the mesh engine calls the single-device ops on a sharded array
-and GSPMD places the work; the port's single-controller mesh
-(``parallel/mesh.py``) spells the same decomposition out.  The index is an
+and GSPMD places the work; the port's mesh (``parallel/mesh.py``) spells
+the same decomposition out.  The index is an
 ``(nr, nd)`` grid of blocks, block ``(r, d)`` holding rows block ``r`` and
 columns block ``d`` on its shard's device: ``(n, 1)`` is the rows layout,
 ``(1, n)`` the dims layout (the reference's posting partition), anything
@@ -23,6 +23,12 @@ offset added: the join's threshold + strict-upper mask, the streaming
 match's threshold + self-pair exclusion (``chunked.match_extract``), the
 frozen match's threshold, top-k's per-block ``torch.topk`` and merge.
 
+On a mesh over several processes each process scores the blocks it
+owns; a query block crosses only to the processes that score against it,
+a row block's partials are summed in shard order across processes (bit
+for bit the one-process sum) on the process of its last column block,
+which runs the epilogue, and the epilogue's lists cross to every process.
+
 The summed score differs from one device's only in the order of its fp32
 additions: each partial is an fp32 sum over a subset of the row's terms,
 and the sum of the partials is one more fp32 addition per column block, so
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import all_gather, psum, sync
+from ..parallel.collectives import all_gather, as_mesh, psum, share, sync
 from . import chunked as chunked_ops
 from . import score as score_ops
 from . import tri_score as ts
@@ -45,13 +51,34 @@ __all__ = ["gather_rows", "block_scores", "mesh_allpairs_extract",
            "mesh_topk_scores"]
 
 
-def gather_rows(blocks, grid, q0: int, q1: int, d: int, dev):
+def _block_shape(blocks):
+    """``(hb, wb)``: every block has the same shape; this process holds at
+    least one."""
+    return tuple(int(n) for n in next(
+        b for b in blocks if b is not None).shape)
+
+
+def gather_rows(blocks, grid, q0: int, q1: int, d: int, dev, mesh=None,
+                need=None):
     """Index rows ``[q0, q1)`` of column block ``d``, copied from the row
-    blocks that own them onto ``dev`` (``all_gather``)."""
+    blocks that own them onto ``dev`` (``all_gather``).  On a mesh over
+    several processes: on the processes owning a shard of ``need``, None
+    elsewhere."""
     nd = grid[1]
-    hb = int(blocks[0].shape[0])
-    return all_gather([blocks[o * nd + d][max(q0 - o * hb, 0):q1 - o * hb]
-                       for o in range(q0 // hb, (q1 - 1) // hb + 1)], 0, dev)
+    hb = _block_shape(blocks)[0]
+    own = range(q0 // hb, (q1 - 1) // hb + 1)
+    shards = [o * nd + d for o in own]
+    parts = [None if blocks[s] is None
+             else blocks[s][max(q0 - o * hb, 0):q1 - o * hb]
+             for o, s in zip(own, shards)]
+    return all_gather(parts, 0, dev, mesh, shards, need)
+
+
+def _home(mesh, r: int, nd: int) -> int:
+    """The shard whose device holds row block ``r``'s sum: its first on
+    one process, its last across processes (where the shard-order chain
+    of ``psum`` ends)."""
+    return r * nd + (nd - 1 if mesh.n_procs > 1 else 0)
 
 
 def block_scores(blocks, grid, devices, q_of, row_limit: int,
@@ -59,42 +86,77 @@ def block_scores(blocks, grid, devices, q_of, row_limit: int,
                  stage: str = "kernel") -> dict:
     """fp32 scores of every row block's live rows against a query,
     summed over the column blocks: ``{r: s}`` for each row block ``r`` with
-    rows below ``row_limit``, ``s`` of its rows ``[r * hb, min((r + 1) *
-    hb, row_limit))`` on ``devices[r * nd]``, ``[rows, q]`` (or ``[q,
-    rows]`` with ``queries_lead``).  ``q_of(dev, d)`` gives the query's
-    column block ``d`` on ``dev``.  Stages "gather", ``stage`` (the
-    products) and "reduce", each ending with every device idle."""
+    rows below ``row_limit`` whose sum this process holds, ``s`` of its
+    rows ``[r * hb, min((r + 1) * hb, row_limit))`` on the device of shard
+    ``_home(r)``, ``[rows, q]`` (or ``[q, rows]`` with ``queries_lead``).
+    ``devices`` is the mesh (or, on one process, its device list);
+    ``q_of(dev, d, need)`` gives the query's column block ``d`` on
+    ``dev``, ``need`` the shards that score against it.  On a mesh over
+    several processes a process scores its own blocks and holds the sums
+    whose home shard it owns.  Stages "gather", ``stage`` (the products)
+    and "reduce", each ending with this process's devices idle."""
+    mesh = as_mesh(devices)
+    devices = mesh.devices
     nr, nd = grid
-    hb = int(blocks[0].shape[0])
+    hb = _block_shape(blocks)[0]
     live = [r for r in range(nr) if r * hb < row_limit]
+    multi = mesh.n_procs > 1
     with ts._section(timer, "gather"):
         q = {}
-        for r in live:
+        if not multi:
+            for r in live:
+                for d in range(nd):
+                    dev = devices[r * nd + d]
+                    if (dev, d) not in q:
+                        q[dev, d] = q_of(dev, d, None)
+        else:  # one collective per column block, entered by every process
             for d in range(nd):
-                dev = devices[r * nd + d]
-                if (dev, d) not in q:
-                    q[dev, d] = q_of(dev, d)
-        sync(devices)
+                need = [r * nd + d for r in live]
+                qd = q_of(mesh.lead, d, need)
+                for s in need:
+                    if mesh.is_local(s) and (devices[s], d) not in q:
+                        q[devices[s], d] = qd.to(devices[s])
+        sync(mesh)
     with ts._section(timer, stage):
         parts = {}
         for r in live:
             parts[r] = []
             for d in range(nd):
-                a = blocks[r * nd + d][:row_limit - r * hb]
-                b = q[devices[r * nd + d], d]
+                s = r * nd + d
+                if blocks[s] is None:
+                    parts[r].append(None)
+                    continue
+                a = blocks[s][:row_limit - r * hb]
+                b = q[devices[s], d]
                 parts[r].append(score_ops.score_tile(
                     *((b, a) if queries_lead else (a, b)), precision))
-        sync(devices)
+        sync(mesh)
     del q
     with ts._section(timer, "reduce"):
-        sums = {r: psum(parts.pop(r), devices[r * nd]) for r in live}
-        sync(devices)
+        sums = {}
+        for r in live:
+            home = _home(mesh, r, nd)
+            s = psum(parts.pop(r), mesh.devices[home] if mesh.is_local(home)
+                     else mesh.lead, mesh,
+                     list(range(r * nd, (r + 1) * nd)), to=home)
+            if s is not None:
+                sums[r] = s
+        sync(mesh)
     return sums
+
+
+def _shared(mesh, grid, found: dict, keys):
+    """The per-key outputs ``found`` (computed where each key's row block
+    has its home) on every process, in ``keys`` order; a key is ``(...,
+    r)`` with its row block last."""
+    nd = grid[1]
+    owners = [mesh.ranks[_home(mesh, k[-1], nd)] for k in keys]
+    return share([found.get(k) for k in keys], owners, mesh.lead, mesh)
 
 
 def _on_lead(found, devices):
     """Per-block ``(rows, cols)`` lists concatenated on the lead device."""
-    lead = devices[0]
+    lead = as_mesh(devices).lead
     if not found:
         empty = torch.empty(0, dtype=torch.int64, device=lead)
         return empty, empty.clone()
@@ -102,38 +164,45 @@ def _on_lead(found, devices):
             torch.cat([c.to(lead) for _, c in found]))
 
 
+def _live(grid, hb: int, row_limit: int):
+    return [r for r in range(grid[0]) if r * hb < row_limit]
+
+
 def mesh_allpairs_extract(blocks, grid, devices, tau_eff, tile: int,
                           precision: str = "highest", group: int = 8,
                           timer=None):
     """Upper-triangle candidates of the whole index: a list of device int64
     ``(rows, cols)`` pairs with global coordinates and exact lengths, one
-    per (query tile, live row block), each on its row block's first device.
+    per (query tile, live row block), each on its row block's first device
+    (on the lead device for a pair from another process).
 
     ``blocks`` is the row-major list of the grid's operand blocks
-    (``score.score_operand`` already applied), ``grid = (nr, nd)``,
-    ``devices`` the mesh's devices in the same order.  Buckets and checks
-    are ``score.allpairs_extract``'s (``mode="upper"``): only row blocks
-    with rows below a bucket's end are scored.  One host synchronization
-    (``nonzero``) per query tile and live row block.  Stages: "gather",
-    "kernel", "reduce", "compact"."""
+    (``score.score_operand`` already applied; None for another process's),
+    ``grid = (nr, nd)``, ``devices`` the mesh (or its device list).
+    Buckets and checks are ``score.allpairs_extract``'s (``mode="upper"``):
+    only row blocks with rows below a bucket's end are scored.  One host
+    synchronization (``nonzero``) per query tile and live row block.
+    Stages: "gather", "kernel", "reduce", "compact"."""
+    mesh = as_mesh(devices)
     nr, nd = grid
-    hb = int(blocks[0].shape[0])
+    hb = _block_shape(blocks)[0]
     row_cap = nr * hb
     if row_cap % tile:
         raise ValueError(f"row_cap {row_cap} not a multiple of tile {tile}")
     if tile % group:
         raise ValueError(f"tile {tile} not a multiple of group {group}")
     tau_eff = float(tau_eff)
-    found, total = [], 0
+    found, keys, total = {}, [], 0
     for tb0, tb1 in score_ops.upper_buckets(row_cap // tile):
         prefix = tb1 * tile
         for t in range(tb0, tb1):
             q0 = t * tile
             sums = block_scores(
-                blocks, grid, devices,
-                lambda dev, d: gather_rows(blocks, grid, q0, q0 + tile, d,
-                                           dev),
+                blocks, grid, mesh,
+                lambda dev, d, need: gather_rows(
+                    blocks, grid, q0, q0 + tile, d, dev, mesh, need),
                 prefix, precision, timer=timer)
+            keys += [(t, r) for r in _live(grid, hb, prefix)]
             with ts._section(timer, "compact"):
                 for r in list(sums):
                     s = sums.pop(r)
@@ -144,8 +213,11 @@ def mesh_allpairs_extract(blocks, grid, devices, tau_eff, tile: int,
                     del s
                     total += hit.shape[0]
                     ts.check_pair_count(total)
-                    found.append((hit[:, 0] + r * hb, hit[:, 1] + q0))
-    return found
+                    found[t, r] = (hit[:, 0] + r * hb, hit[:, 1] + q0)
+    out = _shared(mesh, grid, found, keys)
+    if mesh.n_procs > 1:
+        ts.check_pair_count(sum(int(r.numel()) for r, _ in out))
+    return out
 
 
 def mesh_match_rows_extract(blocks, grid, devices, n0: int, n1: int,
@@ -158,24 +230,28 @@ def mesh_match_rows_extract(blocks, grid, devices, n0: int, n1: int,
     ``s >= tau_eff`` except the batch's own cells.  Device int64 ``(rows,
     cols)`` on the lead device, ``cols`` as global row ids (``>= n0``).
     Stages "gather", "product", "reduce", "compact"."""
-    hb = int(blocks[0].shape[0])
+    mesh = as_mesh(devices)
+    hb = _block_shape(blocks)[0]
     sums = block_scores(
-        blocks, grid, devices,
-        lambda dev, d: gather_rows(blocks, grid, n0, n1, d, dev),
+        blocks, grid, mesh,
+        lambda dev, d, need: gather_rows(blocks, grid, n0, n1, d, dev, mesh,
+                                         need),
         n_rows, precision, timer=timer, stage="product")
     with ts._section(timer, "compact"):
-        found = []
+        found = {}
         for r, s in sums.items():
             rows, cols = chunked_ops.match_extract(s, n0 - r * hb, tau_eff)
-            found.append((rows + r * hb, cols + n0))
+            found[(r,)] = (rows + r * hb, cols + n0)
         del sums
-        return _on_lead(found, devices)
+        keys = [(r,) for r in _live(grid, hb, n_rows)]
+        return _on_lead(_shared(mesh, grid, found, keys), mesh)
 
 
 def _query_blocks(q, grid, width: int):
-    """``q_of`` for dense external queries ``q [nq, dim_cap]``: column
-    block ``d`` sliced and moved to the scoring device."""
-    return lambda dev, d: q[:, d * width:(d + 1) * width].to(dev)
+    """``q_of`` for dense external queries ``q [nq, dim_cap]`` (the same
+    on every process): column block ``d`` sliced and moved to the scoring
+    device."""
+    return lambda dev, d, need: q[:, d * width:(d + 1) * width].to(dev)
 
 
 def mesh_queries_match_extract(blocks, grid, devices, q, n_rows: int,
@@ -184,15 +260,17 @@ def mesh_queries_match_extract(blocks, grid, devices, q, n_rows: int,
     device int64 ``(index rows, query rows)`` on the lead device of every
     live index row against the dense queries ``q [nq, dim_cap]`` (on the
     lead device, ``score.densify_rows``) with ``s >= tau_eff``."""
-    hb, wb = (int(n) for n in blocks[0].shape)
-    sums = block_scores(blocks, grid, devices, _query_blocks(q, grid, wb),
+    mesh = as_mesh(devices)
+    hb, wb = _block_shape(blocks)
+    sums = block_scores(blocks, grid, mesh, _query_blocks(q, grid, wb),
                         n_rows, precision)
-    found = []
+    found = {}
     for r, s in sums.items():
         hit = torch.nonzero(s >= float(tau_eff))
-        found.append((hit[:, 0] + r * hb, hit[:, 1]))
+        found[(r,)] = (hit[:, 0] + r * hb, hit[:, 1])
     del sums
-    return _on_lead(found, devices)
+    keys = [(r,) for r in _live(grid, hb, n_rows)]
+    return _on_lead(_shared(mesh, grid, found, keys), mesh)
 
 
 def mesh_topk_scores(blocks, grid, devices, q, n_rows: int, k: int):
@@ -204,15 +282,19 @@ def mesh_topk_scores(blocks, grid, devices, q, n_rows: int, k: int):
     member is in its block's list, so the merge holds a true top ``k``;
     ``torch.topk`` orders ties arbitrarily, which the caller's fetch
     (``fetch_exact_topk``, a strict ``<`` stop) and fp64 re-rank absorb."""
-    hb, wb = (int(n) for n in blocks[0].shape)
-    sums = block_scores(blocks, grid, devices, _query_blocks(q, grid, wb),
+    mesh = as_mesh(devices)
+    hb, wb = _block_shape(blocks)
+    sums = block_scores(blocks, grid, mesh, _query_blocks(q, grid, wb),
                         n_rows, "highest", queries_lead=True)
-    lead = devices[0]
-    vals, rows = [], []
+    found = {}
     for r, s in sums.items():
         v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
-        vals.append(v.to(lead))
-        rows.append((i + r * hb).to(lead))
+        found[(r,)] = (v, i + r * hb)
     del sums
-    v, pick = torch.topk(torch.cat(vals, dim=1), k, dim=1)
-    return v, torch.gather(torch.cat(rows, dim=1), 1, pick)
+    keys = [(r,) for r in _live(grid, hb, n_rows)]
+    lead = mesh.lead
+    lists = _shared(mesh, grid, found, keys)
+    v, pick = torch.topk(torch.cat([v.to(lead) for v, _ in lists], dim=1),
+                         k, dim=1)
+    rows = torch.cat([i.to(lead) for _, i in lists], dim=1)
+    return v, torch.gather(rows, 1, pick)

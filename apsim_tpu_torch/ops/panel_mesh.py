@@ -10,7 +10,8 @@ the summed rectangle.  The per-pair bound proof of the dense kernel
 (``ops/tri_score.py``) carries over unchanged.
 
 The functions work on per-shard lists (one tensor per shard, on its
-device); the only data movement between shards is through
+device; None for a shard another process owns, on a mesh over several
+processes); the only data movement between shards is through
 ``parallel/collectives.py``.  ``int8_matmul`` launches the CUDA kernel of
 ``csrc/score_bits.cu`` for CUDA tensors (counted in
 ``tri_score.LAUNCHES["int8_matmul"]``) and runs its plain PyTorch version
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import pmax, psum, sync
+from ..parallel.collectives import pmax, psum, share, sum_home, sync
 from . import panel as panel_ops
 from . import tri_score as ts
 
@@ -104,39 +105,44 @@ def mesh_quantize_entries(mesh, flat_r, flat_v, row_cap: int):
     """Per-row symmetric int8 quantization of SHARDED entries
     (``apsim_tpu/ops/chunked_mesh.py:mesh_quantize_chunk_entries``):
     ``flat_r`` / ``flat_v`` hold each shard's flat row ids and fp32 values
-    on its device; unused slots carry a row ``>= row_cap``.
+    on its device (None for another process's shard); unused slots carry a
+    row ``>= row_cap``.
 
     Returns ``(q, aux, max_nnz)``: per shard the int8 values in the same
-    order, ``aux`` the global f32 ``[3, row_cap]`` (α, α·L1(q), nnz) on the
-    lead device, ``max_nnz`` an int.  A row's entries are split over the
-    shards, so its maximum comes from ``pmax`` and its L1 and nnz from
-    ``psum``.  Bit-identical to the JAX function: rows out of range are
-    filtered out of the scatters (torch has no drop mode), and
+    order (None for another process's), ``aux`` the global f32 ``[3,
+    row_cap]`` (α, α·L1(q), nnz) on the lead device of every process,
+    ``max_nnz`` an int.  A row's entries are split over the shards, so its
+    maximum comes from ``pmax`` and its L1 and nnz from ``psum`` (exact:
+    integers below 2^24).  Bit-identical to the JAX function: rows out of
+    range are filtered out of the scatters (torch has no drop mode), and
     ``mx / 127.0`` is a multiply by the fp32 reciprocal, as XLA compiles
     it.  All-zero rows get α = 0."""
-    lead = mesh.devices[0]
-    live = [r < row_cap for r in flat_r]
-    mxs = []
-    for r, v, ok in zip(flat_r, flat_v, live):
+    lead = mesh.lead
+    mine = [s for s, r in enumerate(flat_r) if r is not None]
+    live = {s: flat_r[s] < row_cap for s in mine}
+    mxs = [None] * len(flat_r)
+    for s in mine:
+        r, v, ok = flat_r[s], flat_v[s], live[s]
         mx = torch.zeros(row_cap, dtype=torch.float32, device=r.device)
         mx.scatter_reduce_(0, r[ok].long(), v[ok].abs(), reduce="amax")
-        mxs.append(mx)
-    mx = pmax(mxs, lead)
+        mxs[s] = mx
+    mx = pmax(mxs, lead, mesh)
     alpha = torch.where(mx > 0, mx * (1.0 / 127.0), 0.0).to(torch.float32)
-    qs, l1qs, nnzs = [], [], []
-    for r, v, ok in zip(flat_r, flat_v, live):
+    qs, l1qs, nnzs = ([None] * len(flat_r) for _ in range(3))
+    for s in mine:
+        r, v, ok = flat_r[s], flat_v[s], live[s]
         dev = r.device
         a_e = alpha.to(dev)[r.clamp(max=row_cap - 1).long()]
         div = torch.where(a_e > 0, a_e, 1.0)
         q = (v / div).round_().clamp_(-127, 127).to(torch.int8)
         r_live = r[ok].long()
-        l1qs.append(torch.zeros(row_cap, dtype=torch.float32, device=dev)
-                    .index_add_(0, r_live, q[ok].abs().to(torch.float32)))
-        nnzs.append(torch.zeros(row_cap, dtype=torch.float32, device=dev)
-                    .index_add_(0, r_live, (v[ok] != 0).to(torch.float32)))
-        qs.append(q)
-    l1q = psum(l1qs, lead)
-    nnz = psum(nnzs, lead)
+        l1qs[s] = (torch.zeros(row_cap, dtype=torch.float32, device=dev)
+                   .index_add_(0, r_live, q[ok].abs().to(torch.float32)))
+        nnzs[s] = (torch.zeros(row_cap, dtype=torch.float32, device=dev)
+                   .index_add_(0, r_live, (v[ok] != 0).to(torch.float32)))
+        qs[s] = q
+    l1q = psum(l1qs, lead, mesh, exact=True)
+    nnz = psum(nnzs, lead, mesh, exact=True)
     aux = torch.stack([alpha, alpha * l1q, nnz])
     max_nnz = int(nnz.max()) if row_cap else 0
     return qs, aux, max_nnz
@@ -145,27 +151,30 @@ def mesh_quantize_entries(mesh, flat_r, flat_v, row_cap: int):
 def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
                      cols2d, vals2d, counts):
     """Per-shard join state from the per-shard entry buffers (lists of
-    ``[n_local, cap]`` tensors and ``[n_local]`` counts, one per shard).
+    ``[n_local, cap]`` tensors and ``[n_local]`` counts, one per shard;
+    None for another process's shard).
 
     Returns ``(r_s, c_s, q_s, pcounts, aux, max_nnz)``: per shard the
     entries sorted by row (stable), their SLAB-LOCAL columns
     (``local_dim · n_local + local_chunk``, a bijection onto
     ``[0, d_cap / n_shards)``), their int8 values and the int32 per-panel
-    counts (last bucket: unused slots); ``aux`` and ``max_nnz`` from
-    ``mesh_quantize_entries`` over the slots below each chunk's count."""
+    counts (last bucket: unused slots), None for another process's shard;
+    ``aux`` and ``max_nnz`` from ``mesh_quantize_entries`` over the slots
+    below each chunk's count."""
     n_sh = len(rows2d)
-    flat_r, flat_v = [], []
-    for s in range(n_sh):
+    mine = [s for s in range(n_sh) if rows2d[s] is not None]
+    flat_r, flat_v = [None] * n_sh, [None] * n_sh
+    for s in mine:
         dev = rows2d[s].device
         cap = rows2d[s].shape[1]
         pos = torch.arange(cap, dtype=torch.int32, device=dev)
         valid = pos[None, :] < counts[s].to(torch.int32)[:, None]
-        flat_r.append(
-            torch.where(valid, rows2d[s], panel_ops.PAD_ROW).reshape(-1))
-        flat_v.append(torch.where(valid, vals2d[s], 0.0).reshape(-1))
+        flat_r[s] = torch.where(valid, rows2d[s],
+                                panel_ops.PAD_ROW).reshape(-1)
+        flat_v[s] = torch.where(valid, vals2d[s], 0.0).reshape(-1)
     qs, aux, max_nnz = mesh_quantize_entries(mesh, flat_r, flat_v, row_cap)
-    r_s, c_s, q_s, pcounts = [], [], [], []
-    for s in range(n_sh):
+    r_s, c_s, q_s, pcounts = ([None] * n_sh for _ in range(4))
+    for s in mine:
         r, q = flat_r[s], qs[s]
         dev = r.device
         n_local = rows2d[s].shape[0]
@@ -173,25 +182,25 @@ def mesh_panel_state(mesh, row_cap: int, rb: int, n_panels: int, rows2d,
         c_slab = (cols2d[s] * n_local + chunk_of[:, None]).reshape(-1)
         order = torch.argsort(r, stable=True)
         rs = r[order]
-        r_s.append(rs)
-        c_s.append(c_slab[order])
-        q_s.append(q[order])
+        r_s[s] = rs
+        c_s[s] = c_slab[order]
+        q_s[s] = q[order]
         pan = torch.clamp(rs // rb, max=n_panels).long()
-        pcounts.append(
-            torch.bincount(pan, minlength=n_panels + 1).to(torch.int32))
+        pcounts[s] = torch.bincount(pan, minlength=n_panels + 1).to(
+            torch.int32)
     return r_s, c_s, q_s, pcounts, aux, max_nnz
 
 
 def mesh_build_panel_slab(r_s, c_s, q_s, starts, p: int, rb: int,
                           d_local: int):
     """Panel ``p``'s column-sharded int8 slab: per shard ``[rb, d_local]``
-    on that shard's device, densified from its sorted entries
-    ``[starts[s][p], starts[s][p + 1])`` by ``panel.build_panel_slab`` (an
-    exact slice plus the row-range filter, as ``index_put_`` has no drop
-    mode)."""
+    on that shard's device (None for another process's), densified from
+    its sorted entries ``[starts[s][p], starts[s][p + 1])`` by
+    ``panel.build_panel_slab`` (an exact slice plus the row-range filter,
+    as ``index_put_`` has no drop mode)."""
     return [
-        panel_ops.build_panel_slab(r, c, q, int(st[p]), int(st[p + 1]),
-                                   p * rb, rb, d_local)
+        None if r is None else panel_ops.build_panel_slab(
+            r, c, q, int(st[p]), int(st[p + 1]), p * rb, rb, d_local)
         for r, c, q, st in zip(r_s, c_s, q_s, starts)
     ]
 
@@ -216,35 +225,50 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
     ids ``(row0 // rb, col0 // rb)`` ("compact").  The JAX function
     replicates the epilogue on every device; this computes it once.  The
     counts are summed in int64, so a rectangle with 2^31 hits cannot wrap
-    (``compact_bits`` then refuses it)."""
-    lead = mesh.devices[0]
-    rb = xis[0].shape[0]
-    devices = [x.device for x in xis]
+    (``compact_bits`` then refuses it).  On a mesh over several processes
+    each process launches kernel 4 for its own shards (None in ``xis`` /
+    ``xjs`` for the others'), the int32 sum ends on the last shard's
+    process, which runs the epilogue, and the candidate lists cross to the
+    others."""
+    home = sum_home(mesh)
+    dev = mesh.devices[home] if mesh.is_local(home) else mesh.lead
+    rb = next(x for x in xis if x is not None).shape[0]
     with ts._section(timer, "kernel"):
-        parts = [int8_matmul(a, b) for a, b in zip(xis, xjs)]
-        sync(devices)
+        parts = [None if a is None else int8_matmul(a, b)
+                 for a, b in zip(xis, xjs)]
+        sync(mesh)
     with ts._section(timer, "reduce"):
-        d = psum(parts, lead)
+        d = psum(parts, dev, mesh, exact=True, to=home)
         del parts
-        sync([lead])
+        sync([dev])
+    found = None
+    if d is not None:
+        found = _pair_epilogue(d, aux_i.to(dev), aux_j.to(dev), row0, col0,
+                               rb, tau_eff, dev, timer)
+        del d
+    return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
+
+
+def _pair_epilogue(d, aux_i, aux_j, row0: int, col0: int, rb: int, tau_eff,
+                   dev, timer):
+    """``mesh_panel_pair``'s epilogue and compaction on the summed ``d``."""
     with ts._section(timer, "epilogue"):
-        cols = col0 + torch.arange(rb, dtype=torch.int64, device=lead)
+        cols = col0 + torch.arange(rb, dtype=torch.int64, device=dev)
 
         def mask_of(r0: int, r1: int):
             rows = row0 + torch.arange(r0, r1, dtype=torch.int64,
-                                       device=lead)
+                                       device=dev)
             return panel_ops.int8_bound_mask(
                 d[r0:r1], aux_i[:, r0:r1], aux_j, rows[:, None],
                 cols[None, :], tau_eff,
             )
 
         gb, g64, cnt = ts.bitpack_row_chunks(
-            mask_of, rb, rb, _epilogue_rows(rb), lead)
-        del d
-        sync([lead])
+            mask_of, rb, rb, _epilogue_rows(rb), dev)
+        sync([dev])
     with ts._section(timer, "compact"):
-        bi = torch.tensor([row0 // rb], dtype=torch.int32, device=lead)
-        bj = torch.tensor([col0 // rb], dtype=torch.int32, device=lead)
+        bi = torch.tensor([row0 // rb], dtype=torch.int32, device=dev)
+        bj = torch.tensor([col0 // rb], dtype=torch.int32, device=dev)
         return ts.compact_bits(gb, g64, cnt, bi, bj, rb, rb)
 
 

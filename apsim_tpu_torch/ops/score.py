@@ -25,6 +25,7 @@ accumulation, never a rounded score.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -191,6 +192,10 @@ def topk_scores(x: torch.Tensor, q: torch.Tensor, n_rows: int, k: int,
 # ------------------------------------------------------ full-rectangle join
 
 
+_TF32_LOCK = threading.Lock()
+_TF32 = {"depth": 0, "was": False, "level": None}  # guarded by _TF32_LOCK
+
+
 @contextlib.contextmanager
 def true_fp32_matmul():
     """fp32 CUDA matmuls inside this block are true fp32 products: TF32 is
@@ -199,27 +204,38 @@ def true_fp32_matmul():
     raises.  (TF32 rounds the operands to 10 mantissa bits; the ``highest``
     margin, ``(max_nnz + 2) * 2^-24``, is a proof only for fp32 operands.)
 
-    ``torch.set_float32_matmul_precision`` drives the same flag with three
-    levels, so where TF32 was on the level is read first and set again at
-    the end ("medium" would otherwise come back as "high").  torch refuses
-    to report the level to a process that has mixed its two precision APIs;
-    there only the flag is restored."""
+    The flag is process-wide, so the blocks of all threads share one entry
+    count under one lock: the first thread in reads the setting and turns
+    TF32 off, it stays off while any thread is inside a block, and the last
+    thread out puts the first setting back.  ``torch.set_float32_matmul_
+    precision`` drives the same flag with three levels, so where TF32 was
+    on the level is read first and set again at the end ("medium" would
+    otherwise come back as "high").  torch refuses to report the level to a
+    process that has mixed its two precision APIs; there only the flag is
+    restored."""
     mm = torch.backends.cuda.matmul
-    was = bool(mm.allow_tf32)
-    level = None
-    if was:
-        try:
-            level = torch.get_float32_matmul_precision()
-        except RuntimeError:
+    with _TF32_LOCK:
+        if _TF32["depth"] == 0:
+            was = bool(mm.allow_tf32)
             level = None
-        mm.allow_tf32 = False
+            if was:
+                try:
+                    level = torch.get_float32_matmul_precision()
+                except RuntimeError:
+                    level = None
+                mm.allow_tf32 = False
+            _TF32.update(was=was, level=level)
+        _TF32["depth"] += 1
     try:
         yield
     finally:
-        if was and level is not None:
-            torch.set_float32_matmul_precision(level)
-        elif was:
-            mm.allow_tf32 = True
+        with _TF32_LOCK:
+            _TF32["depth"] -= 1
+            if _TF32["depth"] == 0 and _TF32["was"]:
+                if _TF32["level"] is not None:
+                    torch.set_float32_matmul_precision(_TF32["level"])
+                else:
+                    mm.allow_tf32 = True
 
 
 def rounds_to_bf16(x: torch.Tensor, precision: str) -> bool:

@@ -73,11 +73,11 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
             )
         self.mesh = mesh
         self.n_shards = mesh.size
-        super().__init__(config, mesh.devices[0], chunk_dim, super_tile,
+        super().__init__(config, mesh.lead, chunk_dim, super_tile,
                          panel_rows)
 
     def _sync(self) -> None:
-        sync(self.mesh.devices)
+        sync(self.mesh)
 
     # ------------------------------------------------------------ placement
     def _round_chunks(self, n: int) -> int:
@@ -93,10 +93,11 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
 
     def _split(self, a: np.ndarray) -> list:
         """A host array over the chunk axis cut into the shards' blocks,
-        each on its shard's device."""
+        each on its shard's device (None for another process's shard)."""
         n_local = a.shape[0] // self.n_shards
         return [torch.from_numpy(np.ascontiguousarray(
                     a[s * n_local:(s + 1) * n_local])).to(dev)
+                if self.mesh.is_local(s) else None
                 for s, dev in enumerate(self.mesh.devices)]
 
     def _place_counts(self, counts: np.ndarray) -> list:
@@ -145,15 +146,16 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     def _quantize_entries(self):
         """Per-shard ``q2d`` (chunk-sharded like the entries), the global
         ``aux`` on the lead device, ``max_nnz``."""
+        flat = [[None if t is None else t.reshape(-1) for t in self._ent[k]]
+                for k in (0, 2)]
         qs, aux, max_nnz = panel_mesh.mesh_quantize_entries(
-            self.mesh, [r.reshape(-1) for r in self._ent[0]],
-            [v.reshape(-1) for v in self._ent[2]], self.row_cap,
-        )
-        return ([q.reshape(r.shape) for q, r in zip(qs, self._ent[0])], aux,
-                max_nnz)
+            self.mesh, flat[0], flat[1], self.row_cap)
+        return ([None if q is None else q.reshape(r.shape)
+                 for q, r in zip(qs, self._ent[0])], aux, max_nnz)
 
     def _ent_key(self):
-        return (self._ent_gen,) + tuple(v._version for v in self._ent[2])
+        return (self._ent_gen,) + tuple(None if v is None else v._version
+                                        for v in self._ent[2])
 
     def _op_stripe(self, q0: int, tau_eff, super_tile: int):
         q8 = self._int8_slabs()
@@ -246,8 +248,10 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
             if max_nnz < INT8_NNZ_GATE:
                 starts = []
                 for pc in pcounts:
-                    st = np.zeros(n_panels + 1, np.int64)
-                    np.cumsum(pc[:n_panels].cpu().numpy(), out=st[1:])
+                    st = None
+                    if pc is not None:
+                        st = np.zeros(n_panels + 1, np.int64)
+                        np.cumsum(pc[:n_panels].cpu().numpy(), out=st[1:])
                     starts.append(st)
                 padded = n_panels * rb
                 if padded > aux.shape[1]:

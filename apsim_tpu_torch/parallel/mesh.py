@@ -1,9 +1,13 @@
 """The device mesh and the mesh-sharded dense engine: the counterpart of
 ``apsim_tpu/parallel/mesh.py``.
 
-The mesh is single-controller, as under JAX: one process holds one tensor
-per shard, each on its shard's device, and the collectives of
-``parallel/collectives.py`` move data between them.  A ``Mesh`` is a tuple
+On one process the mesh is single-controller, as under JAX: the process
+holds one tensor per shard, each on its shard's device, and the
+collectives of ``parallel/collectives.py`` move data between them.  A
+mesh from ``multihost.global_mesh`` spans several processes: each shard
+names its owning rank, a process holds and computes its own shards only
+(None in the per-shard lists for the others'), and the same collectives
+cross processes.  A ``Mesh`` is a tuple
 of ``torch.device``s with a shape: 1-D ``(shards,)`` under the axis name
 ``AXIS``, or 2-D ``(rows, dims)``, row-major.  The list may name one device
 more than once: ``make_mesh(8, devices=["cpu"] * 8)`` is the CPU tests'
@@ -60,7 +64,7 @@ from ..ops import mesh_score
 from ..ops import score as score_ops
 from ..ops import tri_score as ts
 from ..vector.batch import pack_coo_i32, round_up
-from .collectives import sync
+from .collectives import share, sync
 
 __all__ = ["AXIS", "Mesh", "make_mesh", "MeshEngine"]
 
@@ -70,12 +74,18 @@ AXIS = "shards"
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A mesh: one device per shard, in shard order (a device may repeat),
-    and its shape, ``(shards,)`` or ``(rows, dims)`` row-major (default:
-    1-D over all devices).  ``devices[0]`` is the lead device, where the
-    collectives deliver their results."""
+    its shape, ``(shards,)`` or ``(rows, dims)`` row-major (default: 1-D
+    over all devices), and the ``torch.distributed`` rank that owns each
+    shard (default: all 0, one process) with this process's ``rank``.
+    A shard's device is named as its owner names it; this process touches
+    its own shards only.  The lead device, where the collectives deliver
+    their results, is this process's first shard's (``devices[0]`` on one
+    process)."""
 
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, ...] = ()
+    ranks: Tuple[int, ...] = ()
+    rank: int = 0
 
     def __post_init__(self):
         shape = tuple(self.shape) or (len(self.devices),)
@@ -84,10 +94,39 @@ class Mesh:
                 f"mesh shape {shape} does not hold {len(self.devices)} devices"
             )
         object.__setattr__(self, "shape", shape)
+        ranks = tuple(int(r) for r in self.ranks) or (0,) * len(self.devices)
+        if len(ranks) != len(self.devices) or self.rank not in ranks:
+            raise ValueError(
+                f"mesh ranks {ranks} do not give rank {self.rank} a shard "
+                f"of {len(self.devices)}"
+            )
+        object.__setattr__(self, "ranks", ranks)
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def n_procs(self) -> int:
+        """Processes owning shards (1 for every ``make_mesh`` mesh)."""
+        return len(set(self.ranks))
+
+    def is_local(self, s: int) -> bool:
+        return self.ranks[s] == self.rank
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        """The shards this process owns, in shard order."""
+        return tuple(s for s, r in enumerate(self.ranks) if r == self.rank)
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        return tuple(dict.fromkeys(self.devices[s]
+                                   for s in self.local_shards))
+
+    @property
+    def lead(self) -> torch.device:
+        return self.devices[self.local_shards[0]]
 
 
 def make_mesh(shape: Sequence[int] | int | None = None,
@@ -177,10 +216,10 @@ class MeshEngine(Engine):
             raise ValueError(f"unknown shard_axis: {config.shard_axis}")
         self.x_blocks: list = []
         self._block_operands = None  # (key, per-block rectangle operands)
-        super().__init__(config, mesh.devices[0])
+        super().__init__(config, mesh.lead)
 
     def _sync(self) -> None:
-        sync(self.mesh.devices)
+        sync(self.mesh)
 
     @property
     def x(self):
@@ -196,13 +235,19 @@ class MeshEngine(Engine):
             self.x_blocks = [] if val is None else [val]
             self._block_operands = None
 
+    def _local_block(self):
+        """This process's first block (None before any build)."""
+        return next((b for b in self.x_blocks if b is not None), None)
+
     @property
     def row_cap(self) -> int:
-        return sum(int(b.shape[0]) for b in self.x_blocks[::self.grid[1]])
+        b = self._local_block()
+        return 0 if b is None else int(b.shape[0]) * self.grid[0]
 
     @property
     def dim_cap(self) -> int:
-        return sum(int(b.shape[1]) for b in self.x_blocks[:self.grid[1]])
+        b = self._local_block()
+        return 0 if b is None else int(b.shape[1]) * self.grid[1]
 
     def _new_index(self, compact_csr, row_cap: int, dim_cap: int):
         self._block_operands = None
@@ -219,6 +264,9 @@ class MeshEngine(Engine):
         hb, wb = row_cap // nr, dim_cap // nd
         self.x_blocks = []
         for s, dev in enumerate(self.mesh.devices):
+            if not self.mesh.is_local(s):
+                self.x_blocks.append(None)  # another process's block
+                continue
             r, d = divmod(s, nd)
             blk = score_ops.new_index_matrix(hb, wb, self.cfg.dtype, dev)
             self._scatter_rows(blk, compact_csr, r * hb, d * wb)
@@ -235,7 +283,9 @@ class MeshEngine(Engine):
         """The grown grid: ``[row_cap / nr, dim_cap / nd]`` blocks, each
         built on its shard's device and given the part of every old block
         that lies inside it (rows move between row blocks when ``row_cap``
-        grows, columns between column blocks when ``dim_cap`` does)."""
+        grows, columns between column blocks when ``dim_cap`` does).  A part
+        whose old and new blocks belong to different processes crosses in
+        one collective, entered by every process in the same order."""
         if self.n_shards == 1:
             return super()._resize_index(row_cap, dim_cap)
         nr, nd = self.grid
@@ -246,20 +296,30 @@ class MeshEngine(Engine):
             )
         old, (_, _, ohb, owb) = self.x_blocks, self._block_geom()
         hb, wb = row_cap // nr, dim_cap // nd
+        mesh = self.mesh
         blocks = []
-        for s, dev in enumerate(self.mesh.devices):
+        for s, dev in enumerate(mesh.devices):
             r, d = divmod(s, nd)
-            blk = score_ops.new_index_matrix(hb, wb, self.cfg.dtype, dev)
+            blk = (score_ops.new_index_matrix(hb, wb, self.cfg.dtype, dev)
+                   if mesh.is_local(s) else None)
             for t, ob in enumerate(old):
                 orr, od = divmod(t, nd)
                 a0, a1 = max(r * hb, orr * ohb), min((r + 1) * hb,
                                                       (orr + 1) * ohb)
                 b0, b1 = max(d * wb, od * owb), min((d + 1) * wb,
                                                     (od + 1) * owb)
-                if a0 < a1 and b0 < b1:
+                if not (a0 < a1 and b0 < b1):
+                    continue
+                part = None if ob is None else ob[
+                    a0 - orr * ohb:a1 - orr * ohb,
+                    b0 - od * owb:b1 - od * owb]
+                if mesh.ranks[s] != mesh.ranks[t]:
+                    part = share([None if part is None else (part,)],
+                                 [mesh.ranks[t]], mesh.lead, mesh,
+                                 arity=1)[0][0]
+                if blk is not None:
                     blk[a0 - r * hb:a1 - r * hb, b0 - d * wb:b1 - d * wb] = (
-                        ob[a0 - orr * ohb:a1 - orr * ohb,
-                           b0 - od * owb:b1 - od * owb].to(dev))
+                        part.to(dev))
             blocks.append(blk)
         self.x_blocks = blocks
         self._block_operands = None
@@ -282,6 +342,8 @@ class MeshEngine(Engine):
         cols = compact_csr.indices.astype(np.int64)
         for s, sel, br, bc in self._by_block(rows, cols):
             blk = self.x_blocks[s]
+            if blk is None:
+                continue
             score_ops.append_rows(blk, pack_coo_i32(
                 br, bc, compact_csr.data[sel], blk.shape[0]), 0)
 
@@ -292,10 +354,13 @@ class MeshEngine(Engine):
         cols = np.asarray(act[1], np.int64)
         vals = np.asarray(act[2])
         for s, sel, br, bc in self._by_block(rows, cols):
-            score_ops.scatter_entries(self.x_blocks[s], br, bc, vals[sel])
+            if self.x_blocks[s] is not None:
+                score_ops.scatter_entries(self.x_blocks[s], br, bc,
+                                          vals[sel])
 
     def _blocks_key(self):
-        return tuple((id(b), b._version) for b in self.x_blocks)
+        return tuple(None if b is None else (id(b), b._version)
+                     for b in self.x_blocks)
 
     def _kept_bf16(self):
         """The cached bf16 copies of the blocks when the products multiply
@@ -305,7 +370,7 @@ class MeshEngine(Engine):
             return super()._kept_bf16()
         cached = self._block_operands
         if cached is None or not score_ops.rounds_to_bf16(
-                self.x_blocks[0], self.cfg.matmul_precision):
+                self._local_block(), self.cfg.matmul_precision):
             return None
         if cached[0] != self._blocks_key():
             self._block_operands = None
@@ -321,6 +386,8 @@ class MeshEngine(Engine):
             return super()._keep_in_step(kept, n0, act)
         nr, nd, hb, _ = self._block_geom()
         for s, (blk, cp) in enumerate(zip(self.x_blocks, kept)):
+            if blk is None:
+                continue
             r0 = (s // nd) * hb
             a, b = max(n0, r0) - r0, min(self.n_rows, r0 + hb) - r0
             if a < b:
@@ -328,6 +395,8 @@ class MeshEngine(Engine):
         if act is not None:
             for s, _, br, bc in self._by_block(np.asarray(act[0], np.int64),
                                                np.asarray(act[1], np.int64)):
+                if kept[s] is None:
+                    continue
                 r = torch.from_numpy(br).to(kept[s].device)
                 c = torch.from_numpy(bc).to(kept[s].device)
                 kept[s][r, c] = self.x_blocks[s][r, c].to(torch.bfloat16)
@@ -340,7 +409,8 @@ class MeshEngine(Engine):
         key = self._blocks_key()
         if self._block_operands is None or self._block_operands[0] != key:
             self._block_operands = (key, [
-                score_ops.score_operand(b, self.cfg.matmul_precision)
+                None if b is None
+                else score_ops.score_operand(b, self.cfg.matmul_precision)
                 for b in self.x_blocks
             ])
         return self._block_operands[1]
@@ -350,7 +420,7 @@ class MeshEngine(Engine):
             return super()._match_batch(n0, tau_eff)
         n1 = min(n0 + round_up(self.n_rows - n0, 8), self.row_cap)
         return mesh_score.mesh_match_rows_extract(
-            self._rect_blocks(), self.grid, self.mesh.devices, n0, n1,
+            self._rect_blocks(), self.grid, self.mesh, n0, n1,
             self.n_rows, tau_eff, self.cfg.matmul_precision,
             timer=self.timer,
         )
@@ -359,7 +429,7 @@ class MeshEngine(Engine):
         if self.n_shards == 1:
             return super()._frozen_candidates(q, tau_eff)
         return mesh_score.mesh_queries_match_extract(
-            self._rect_blocks(), self.grid, self.mesh.devices, q,
+            self._rect_blocks(), self.grid, self.mesh, q,
             self.n_rows, tau_eff, self.cfg.matmul_precision,
         )
 
@@ -367,7 +437,7 @@ class MeshEngine(Engine):
         if self.n_shards == 1:
             return super()._topk_scores(q, kf)
         return mesh_score.mesh_topk_scores(
-            self.x_blocks, self.grid, self.mesh.devices, q, self.n_rows, kf)
+            self.x_blocks, self.grid, self.mesh, q, self.n_rows, kf)
 
     def _all_pairs_rect(self, tau_eff):
         if self.n_shards == 1:
@@ -376,7 +446,7 @@ class MeshEngine(Engine):
             blocks = self._rect_blocks()
             self._sync()
         found = mesh_score.mesh_allpairs_extract(
-            blocks, self.grid, self.mesh.devices, tau_eff, self._tile(),
+            blocks, self.grid, self.mesh, tau_eff, self._tile(),
             self.cfg.matmul_precision, int(self.cfg.extract_group),
             timer=self.timer,
         )
@@ -435,7 +505,7 @@ class MeshEngine(Engine):
         tm, tn = self._mesh_rows_geom()
         sched = mesh_pallas.rows_schedule(self.row_cap, self.n_shards, tm, tn)
         bi, bj, va = (
-            [torch.from_numpy(a[s]).to(dev)
+            [torch.from_numpy(a[s]).to(dev) if self.mesh.is_local(s) else None
              for s, dev in enumerate(self.mesh.devices)]
             for a in sched
         )

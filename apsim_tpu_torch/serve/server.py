@@ -195,6 +195,20 @@ class SimilarityServer:
                     "max-weight map for %r rejected (%s); admission falls "
                     "back to the running-maxima bound", table, e,
                 )
+        # replicated serving: ship a table NAME + content hash through the
+        # op log and let every process bulk-load from its own copy of the
+        # shared store (a shared volume or filesystem) — never the corpus
+        # itself as JSON.  Requires the store on every process; a follower
+        # without one fails fast in replay.
+        if hasattr(self.engine, "load_table"):
+            with self._engine_scope():
+                outs = self.engine.load_table(
+                    self.store, table, start_row, end_row,
+                    self.cfg.io_range_num, self.cfg.max_io_workers,
+                )
+            for out in outs:  # same emission contract as the queue path
+                self._batcher.emit(out)
+            return
         # two-level split, like the reference: the client-side ioRangeNum
         # split (Client.scala:49-59) then the entry-side re-split into
         # maxIOEntryActorNum sub-ranges (EntryProxyActor.scala:59-79) —

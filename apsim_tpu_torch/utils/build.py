@@ -8,6 +8,7 @@ source or flag set rebuilds and an unchanged one loads at once.
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -36,6 +37,18 @@ def build_shared_lib(
     h.update(" ".join(cmd).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     so = os.path.join(build_dir(), f"{stem}_{h.hexdigest()[:16]}.so")
+    # one build at a time across processes (the ranks of a multi-process
+    # run start together): the others wait, then load what it built
+    with open(os.path.join(build_dir(), ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_once(src, cmd, so, timeout)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_once(src: str, cmd: list[str], so: str,
+                timeout: float) -> tuple[str, str]:
     log = so + ".log"
     if os.path.exists(so):
         if os.path.exists(log):

@@ -5,6 +5,10 @@ Run from the repository root, with one NVIDIA H100 visible:
 
     python3 chip_smoke.py [--profile]
 
+``python3 chip_smoke.py --multihost 4 nccl`` runs phase 12 alone with its
+ranks one a card over four cards (and the references it is held against,
+rebuilt on the first card); it ends with the same lines.
+
 ``--profile`` adds one more join of each dense engine under
 ``torch.profiler`` after phase 3 (device busy time and idle share; the
 profiler's start-up costs about 7 s on an H100 machine).
@@ -169,6 +173,29 @@ result line):
     after it); then the timings with the stage split (slabs, product,
     reduce, compact).
 
+12. One index from two processes on the one card: the script starts two
+    ranks of itself (``--phase12-rank``) in a ``gloo`` group (NCCL refuses
+    two ranks on one card; the backend is printed), with phases 3, 5, 6
+    and 11a's corpora, oracles and results passed through files.  12a:
+    ``MeshEngine`` over ``global_mesh((4,))``, 2 shards a rank, rows then
+    dims layout, phase 11a's build and stream: every insert output, the
+    join's candidate lists (rows: kernel 3 launched once per own shard,
+    counters zeroed just before, and bit for bit against its plain
+    version at one own shard), 1,024 top-k lists and the frozen match
+    equal phase 11a's one-process mesh bit for bit, and the pair sets the
+    fp64 oracle.  12b: ``MeshChunkedAllPairs`` over ``global_mesh((8,))``,
+    4 shards a rank, on phase 5's corpus: the join (kernel 4 four times a
+    panel pair on each rank, exact against its plain version at an own
+    shard) equals phase 5's pair set and phase 6's candidate set; 512
+    fresh rows streamed on the rebuild route equal the fp64 oracle.  Each
+    rank prints its build, join and insert times (bs = 1 and 256, with
+    the stage split and the cross-process stage), top-k time and the
+    bytes that crossed processes.  12c: ``python -m apsim_tpu_torch.cli
+    serve --replicate`` in two processes (rows layout, ``--mesh-shape
+    4``); a client streams 2,048 rows, the ``all_pairs`` RPC equals the
+    fp64 oracle, each rank launched kernel 3, and after SIGINT the
+    follower prints "leader closed" and exits 0.
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -222,8 +249,12 @@ PEAK_FP32 = 67e12  # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
+_LOG = threading.Lock()  # the relays of phase 12 log from threads
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    with _LOG:
+        print(*a, flush=True)
 
 
 def smi_line() -> str:
@@ -577,9 +608,12 @@ def compare_rows_shard(eng: MeshEngine, s: int, timed: bool = False) -> dict:
     tm, tn = eng._mesh_rows_geom()
     bi, bj, va = (torch.from_numpy(a[s]).to(dev) for a in
                   mesh_pallas.rows_schedule(eng.row_cap, eng.n_shards, tm, tn))
-    qa = [ts.quantize_rows(x) for x in eng.x_blocks]
-    qg = all_gather([q for q, _ in qa], 0, dev)
-    ag = all_gather([a for _, a in qa], 1, dev).contiguous()
+    mesh = eng.mesh  # on a mesh over processes: this process's blocks
+    qa = {t: ts.quantize_rows(eng.x_blocks[t]) for t in mesh.local_shards}
+    qg = all_gather([qa[t][0] if t in qa else None
+                     for t in range(mesh.size)], 0, dev, mesh)
+    ag = all_gather([qa[t][1] if t in qa else None
+                     for t in range(mesh.size)], 1, dev, mesh).contiguous()
     del qa
     args = (qg, qg, ag, ag, bi, bj, (0, 0), eng._tau_eff(TAU), tm, tn)
     rec = compare_cross(args, va, f"rows mesh shard {s}", timed=timed)
@@ -1139,11 +1173,12 @@ def query_sets(csr: CSRMatrix, dev):
 
 
 def stream_rows(eng, csr: CSRMatrix, lo: int, sizes, route=None,
-                beyond_budget: bool = False):
+                beyond_budget: bool = False, outputs=None):
     """Insert rows ``[lo, n_rows)`` of ``csr`` (ids: row numbers) in batches
     of ``sizes``, then of 256; ``route`` (if given) must be each batch's;
     with ``beyond_budget`` each batch must find the chunked engine beyond
-    its slab budget.  Returns the union of the outputs, the routes taken
+    its slab budget; ``outputs`` (a list, if given) takes each batch's
+    output dict.  Returns the union of the outputs, the routes taken
     (chunked engines), the row capacities seen, the batch count and the
     seconds."""
     union, routes, caps = set(), [], [eng.row_cap]
@@ -1161,6 +1196,8 @@ def stream_rows(eng, csr: CSRMatrix, lo: int, sizes, route=None,
                                  f"not {route}")
         if eng.row_cap != caps[-1]:
             caps.append(eng.row_cap)
+        if outputs is not None:
+            outputs.append(out.output)
         union |= pairs_of(out)
         s, nb = e, nb + 1
     return union, routes, caps, nb, time.perf_counter() - t0
@@ -1270,12 +1307,14 @@ STREAM_SPLIT = ("insert", "admit", "prepare", "append", "match_slabs",
 
 
 def stream_timings(eng, extra: CSRMatrix, sizes, route, reps: int = 9,
-                   cursor=None, split=STREAM_SPLIT) -> dict:
+                   cursor=None, split=STREAM_SPLIT, traffic=None) -> dict:
     """Insert latency (host clock, warm: two batches first, then the
     median of ``reps``) and vectors/s at each batch size of ``sizes`` on
     rows of ``extra``, every batch on ``route`` (a chunked engine's; None:
     no route), with the stage split (``split``'s sections) per batch at
-    the largest size."""
+    the largest size, or at every size given ``traffic`` (the
+    collectives' ``TRAFFIC``), which adds the cross-process seconds and
+    bytes per batch."""
     cursor = cursor if cursor is not None else [0]
     rec = {}
     for bs in sizes:
@@ -1289,6 +1328,7 @@ def stream_timings(eng, extra: CSRMatrix, sizes, route, reps: int = 9,
             eng.insert(b, tau=TAU)
         it = iter(batches[2:])
         before = dict(eng.timer.totals)
+        crossed = dict(traffic or {})
 
         def one():
             eng.insert(next(it), tau=TAU)
@@ -1298,10 +1338,15 @@ def stream_timings(eng, extra: CSRMatrix, sizes, route, reps: int = 9,
         ms = median_host_ms(one, reps)
         rec[f"insert_bs{bs}_ms"] = ms
         rec[f"insert_bs{bs}_vectors_per_s"] = bs / ms * 1e3
-        if bs == sizes[-1]:
-            rec[f"stages_ms_per_batch_bs{bs}"] = {
-                k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0))
-                / reps * 1e3 for k in split}
+        if bs == sizes[-1] or traffic is not None:
+            stages = {k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0))
+                      / reps * 1e3 for k in split}
+            if traffic is not None:
+                stages["cross-process"] = (
+                    traffic["seconds"] - crossed["seconds"]) / reps * 1e3
+                rec[f"bytes_crossed_per_batch_bs{bs}"] = (
+                    traffic["bytes"] - crossed["bytes"]) / reps
+            rec[f"stages_ms_per_batch_bs{bs}"] = stages
     return rec
 
 
@@ -1937,14 +1982,16 @@ def serve_mesh(dev, eng: MeshEngine, csr: CSRMatrix) -> dict:
 
 def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
                       kernels: list, smi: str, layout: str, shape,
-                      axis: str) -> None:
+                      axis: str) -> dict:
     """Phase 11a, one layout: ``MeshEngine`` over 4 shards of the card,
     built on phase 8's first 24,576 rows, the rest streamed with phase 8's
     schedule; the union, the join of the streamed index (rows: kernel 3
     once per shard, and bit for bit against its plain version at shard 0's
     and shard 3's streamed operands), the blocks against phase 8's ``x``,
     top-k and frozen matching; the rows layout then serves (11c); then the
-    timings."""
+    timings.  Returns phase 12a's reference: every insert's output, the
+    candidate lists of the streamed index's join, the top-k lists and the
+    frozen match's output."""
     label = f"phase 11a {layout} mesh, 4 shards on one card"
     eng = MeshEngine(AllPairsConfig(shard_axis=axis,
                                     similarity_threshold=TAU),
@@ -1953,8 +2000,10 @@ def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
         f"{json.dumps(eng.build(csr_rows(csr, 0, STREAM_BUILD)))}")
     caps0 = (eng.row_cap, eng.dim_cap)
     res = eng.all_pairs(TAU)
+    ref = {"outputs": []}
     union, _, _, nb, secs = stream_rows(eng, csr, STREAM_BUILD,
-                                        [1] * 16 + [32] * 16)
+                                        [1] * 16 + [32] * 16,
+                                        outputs=ref["outputs"])
     union |= set(zip(res.i.tolist(), res.j.tolist()))
     if eng.n_rows != csr.n_rows or eng.row_cap != 2 * STREAM_BUILD:
         raise AssertionError(f"{label}: n_rows {eng.n_rows}, row_cap "
@@ -1967,7 +2016,7 @@ def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
         f"{caps0} -> {(eng.row_cap, eng.dim_cap)}; build join + every "
         f"insert's output: {len(union)} pairs equal the fp64 oracle")
     zero_launches()
-    res = eng.all_pairs(TAU)
+    res, ref["cand"] = join_with_candidates(eng, "_finalize_pairs")
     launches = dict(ts.LAUNCHES)
     expect = {k: 0 for k in launches}
     if axis == "rows":
@@ -1990,6 +2039,8 @@ def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
     queries, sq, fq, fs, fpicks = qsets8
     check_topk(eng, queries, sq, label)
     check_frozen(eng, fq, fs, fpicks, label)
+    ref["topk"] = eng.topk(queries, 10)
+    ref["frozen"] = frozen_output(eng, fq)
     if axis == "rows":
         serve_mesh(dev, eng, csr)
     rec = {"card": smi, "layout": layout, "rows": eng.n_rows,
@@ -2001,6 +2052,7 @@ def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
     if eng.row_cap != 2 * STREAM_BUILD:
         raise AssertionError(f"{label}: the timing inserts grew the index")
     log(f"{label} timings: {json.dumps(rec)}")
+    return ref
 
 
 def capacity_rows(eng: MeshChunkedAllPairs, seed: int = 41):
@@ -2121,17 +2173,19 @@ def mesh_chunked_stream(dev, csr: CSRMatrix, want: set, qsets9,
 
 def mesh_stream_phase(dev, big_csr: CSRMatrix, want32: set, x8, qsets8,
                       ooc_csr: CSRMatrix, want: set, qsets9, kernels: list,
-                      smi: str) -> None:
+                      smi: str) -> dict:
     """Phase 11: the meshes' streaming path, their shards on the one card
     (11a the dense mesh in three layouts, 11c the server over its rows
-    layout, 11b the chunked mesh)."""
+    layout, 11b the chunked mesh).  Returns 11a's references for phase
+    12a, by layout."""
     t_phase = time.perf_counter()
+    refs = {}
     x8 = x8.to(dev)
     q8 = (qsets8[0], qsets8[1].to(dev), qsets8[2], qsets8[3].to(dev),
           qsets8[4])
     for layout, shape, axis in MESH_LAYOUTS:
-        mesh_dense_stream(dev, big_csr, want32, x8, q8, kernels, smi,
-                          layout, shape, axis)
+        refs[layout] = mesh_dense_stream(dev, big_csr, want32, x8, q8,
+                                         kernels, smi, layout, shape, axis)
         torch.cuda.empty_cache()
     del x8, q8
     torch.cuda.empty_cache()
@@ -2140,6 +2194,535 @@ def mesh_stream_phase(dev, big_csr: CSRMatrix, want32: set, x8, qsets8,
     mesh_chunked_stream(dev, ooc_csr, want, q9, kernels, smi)
     torch.cuda.empty_cache()
     log(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
+    return refs
+
+
+# --------------------- phase 12: one index served from several processes
+# by default two ranks on the one card; NCCL refuses two ranks on one card
+P12_TOPOLOGY = {"world": 2, "cards": 1, "backend": "gloo"}
+P12_TIMEOUT = 900  # seconds for every rank of 12a and 12b together
+P12_STREAM = 512  # fresh rows streamed into 12b's chunked mesh
+P12_BATCHES = (1, 256)
+CLI_WRAP = (  # the CLI as a user runs it, with the launch counts at exit
+    "import atexit, json, runpy, sys\n"
+    "from apsim_tpu_torch.ops import tri_score as ts\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(ts.LAUNCHES),"
+    " flush=True))\n"
+    "sys.argv = ['apsim-torch'] + sys.argv[1:]\n"
+    "runpy.run_module('apsim_tpu_torch.cli', run_name='__main__')\n"
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def join_with_candidates(eng, rescore: str):
+    """``eng.all_pairs(TAU)`` and the host candidate lists its rescore
+    (the engine's method ``rescore``) was handed: one join for both."""
+    seen = []
+    inner = getattr(eng, rescore)
+
+    def spy(i, j, tau):
+        seen.append((np.array(i), np.array(j)))
+        return inner(i, j, tau)
+
+    setattr(eng, rescore, spy)
+    try:
+        res = eng.all_pairs(TAU)
+    finally:
+        delattr(eng, rescore)
+    return res, seen[0]
+
+
+def frozen_output(eng, fq) -> dict:
+    eng.freeze()
+    out = eng.insert(fq, tau=TAU).output
+    eng.unfreeze()
+    return out
+
+
+def query_lists(csr: CSRMatrix):
+    """Phase 8's top-k and frozen-match query lists (its seeds and
+    picks)."""
+    qsrc, fsrc = synthetic_corpus(512, seed=7), synthetic_corpus(128, seed=11)
+    picks = np.arange(0, csr.n_rows, csr.n_rows // 512)[:512]
+    fpicks = np.arange(5, csr.n_rows, csr.n_rows // 128)[:128]
+    return ([(f"t{r}", csr.row(int(r))) for r in picks]
+            + [(f"s{i}", qsrc.row(i)) for i in range(512)],
+            [(f"z{r}", csr.row(int(r))) for r in fpicks]
+            + [(f"y{i}", fsrc.row(i)) for i in range(128)])
+
+
+def save_csr(path: str, csr: CSRMatrix, **extra) -> None:
+    np.savez(path, indptr=csr.indptr, indices=csr.indices, data=csr.data,
+             n_cols=csr.n_cols, **extra)
+
+
+def load_csr(path: str):
+    z = np.load(path)
+    csr = CSRMatrix(z["indptr"].size - 1, int(z["n_cols"]), z["indptr"],
+                    z["indices"], z["data"])
+    return csr, z
+
+
+def as_pairs(a: np.ndarray) -> set:
+    return set(zip(a[:, 0].tolist(), a[:, 1].tolist()))
+
+
+def pairs_array(pairs) -> np.ndarray:
+    return np.array(sorted(pairs), np.int64).reshape(-1, 2)
+
+
+def first_difference(got: list, want: list) -> str:
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"batch {k}"
+    return f"{len(got)} outputs against {len(want)}"
+
+
+def p12_timings(eng, route, split, queries=None) -> dict:
+    """Insert latency at bs = 1 and 256 (``stream_timings``, with the
+    cross-process stage) and, given queries, top-k latency."""
+    from apsim_tpu_torch.parallel.collectives import TRAFFIC
+
+    rec = stream_timings(eng, synthetic_corpus(4096, seed=13), P12_BATCHES,
+                         route, split=split, traffic=TRAFFIC)
+    if queries is not None:
+        eng.topk(queries, 10)
+        rec["topk_ms"] = median_host_ms(lambda: eng.topk(queries, 10), 3)
+    return rec
+
+
+def p12_dense(dev, rank: int, csr: CSRMatrix, want32: set, ref: dict,
+              layout: str, queries, fq, smi: str, n_build: int,
+              per: int) -> dict:
+    """Phase 12a on one rank: ``MeshEngine`` over ``global_mesh((4,))``,
+    ``per`` shards a rank, phase 11a's steps (build ``n_build`` rows,
+    stream the rest); every result equal to phase 11a's one-process mesh
+    of the same layout."""
+    from apsim_tpu_torch.parallel import global_mesh
+    from apsim_tpu_torch.parallel.collectives import TRAFFIC, reset_traffic
+
+    label = f"phase 12a rank {rank}, {layout} mesh, {per} of 4 shards"
+    mesh = global_mesh((4,), devices=[dev] * per)
+    eng = MeshEngine(AllPairsConfig(shard_axis=layout,
+                                    similarity_threshold=TAU), mesh=mesh)
+    reset_traffic()
+    rec = {"card": smi, "layout": layout, "rank": rank,
+           "shards": list(mesh.local_shards)}
+    t0 = time.perf_counter()
+    eng.build(csr_rows(csr, 0, n_build))
+    rec["build_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = eng.all_pairs(TAU)
+    rec["build_join_seconds"] = time.perf_counter() - t0
+    outputs = []
+    union, _, _, nb, secs = stream_rows(eng, csr, n_build,
+                                        [1] * 16 + [32] * 16,
+                                        outputs=outputs)
+    union |= set(zip(res.i.tolist(), res.j.tolist()))
+    if union != want32:
+        raise AssertionError(f"{label}: streamed union differs from the "
+                             f"fp64 oracle")
+    if outputs != ref["outputs"]:
+        raise AssertionError(
+            f"{label}: insert outputs differ from phase 11a's at "
+            f"{first_difference(outputs, ref['outputs'])}")
+    rec.update(stream_seconds=secs, stream_batches=nb)
+    zero_launches()
+    t0 = time.perf_counter()
+    res, cand = join_with_candidates(eng, "_finalize_pairs")
+    rec["join_seconds"] = time.perf_counter() - t0
+    launches = dict(ts.LAUNCHES)
+    expect = {k: 0 for k in launches}
+    if layout == "rows":
+        expect["panel_score_bits_int8"] = len(mesh.local_shards)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    rec["join_launches"] = launches
+    check_parity(res, want32, f"{label} join of the streamed index")
+    if not all(np.array_equal(a, b) for a, b in zip(cand, ref["cand"])):
+        raise AssertionError(f"{label}: candidate lists differ from phase "
+                             f"11a's")
+    if layout == "rows":  # both ranks check, rank 0 times (one card)
+        rec["kernel3"] = compare_rows_shard(eng, mesh.local_shards[0],
+                                            timed=rank == 0)
+    if eng.topk(queries, 10) != ref["topk"]:
+        raise AssertionError(f"{label}: top-k lists differ from phase 11a's")
+    if frozen_output(eng, fq) != ref["frozen"]:
+        raise AssertionError(f"{label}: frozen match differs from phase "
+                             f"11a's")
+    log(f"{label}: the union of {nb + 1} outputs and the streamed join equal "
+        f"the fp64 oracle ({len(want32)} pairs); every insert output, the "
+        f"join's candidate lists ({cand[0].size}), {len(queries)} top-k "
+        f"lists and the frozen match equal phase 11a's one-process mesh "
+        f"bit for bit; launches {launches}")
+    rec["bytes_crossed"] = TRAFFIC["bytes"]
+    rec["cross_process_calls"] = TRAFFIC["calls"]
+    rec.update(p12_timings(eng, None, MESH_SPLIT, queries))
+    log(f"{label} timings: {json.dumps(rec)}")
+    return rec
+
+
+def p12_chunked(dev, rank: int, csr: CSRMatrix, want: set, cand: set,
+                fresh_want: set, smi: str, n_fresh: int, per: int) -> dict:
+    """Phase 12b on one rank: ``MeshChunkedAllPairs`` over
+    ``global_mesh((8,))``, ``per`` shards a rank, on phase 5's corpus:
+    build, join (kernel 4 once a panel pair per own shard), the pair set
+    and the candidate set of phases 5 and 6, kernel 4 against its plain
+    version at one shard of this rank, a short stream of ``n_fresh`` rows
+    on the rebuild route."""
+    from apsim_tpu_torch.parallel import global_mesh
+    from apsim_tpu_torch.parallel.collectives import TRAFFIC, reset_traffic
+
+    label = f"phase 12b rank {rank}, chunked mesh, {per} of 8 shards"
+    mesh = global_mesh((8,), devices=[dev] * per)
+    eng = MeshChunkedAllPairs(AllPairsConfig(), mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    reset_traffic()
+    rec = {"card": smi, "rank": rank, "shards": list(mesh.local_shards)}
+    t0 = time.perf_counter()
+    eng.build(csr)
+    rec["build_seconds"] = time.perf_counter() - t0
+    zero_launches()
+    reset_traffic()
+    t0 = time.perf_counter()
+    res, found = join_with_candidates(eng, "_rescore_pairs")
+    rec["join_seconds"] = time.perf_counter() - t0
+    rec["join_cross_process_seconds"] = TRAFFIC["seconds"]
+    rec["join_bytes_crossed"] = TRAFFIC["bytes"]
+    launches = dict(ts.LAUNCHES)
+    geom = eng._panel_geom()
+    n_pairs = geom[3] * (geom[3] + 1) // 2
+    expect = {k: 0 for k in launches}
+    expect["int8_matmul"] = len(mesh.local_shards) * n_pairs
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    rec["join_launches"] = launches
+    check_parity(res, want, f"{label} join")
+    if pair_set(found) != cand:
+        raise AssertionError(f"{label}: candidate set differs from the "
+                             f"single-device join's")
+    st = eng._panel_state()
+    s = mesh.local_shards[0]
+    last = geom[3] - 1
+    rec["kernel4"] = compare_mm(eng._build_slab(st, 0)[s],
+                                eng._build_slab(st, last)[s],
+                                f"{label}, pair (0, {last}), shard {s}")
+    del st
+    fresh = synthetic_corpus(n_fresh, seed=31)
+    n0 = eng.n_rows
+    union, _, _, nb, secs = stream_rows(
+        eng, CSRMatrix(n0 + fresh.n_rows, fresh.n_cols,
+                       np.concatenate([np.zeros(n0, np.int64),
+                                       fresh.indptr]),
+                       fresh.indices, fresh.data),
+        n0, [1] * 4 + [32] * 4, "device_rebuild")
+    if union != fresh_want:
+        raise AssertionError(f"{label}: streamed outputs differ from the "
+                             f"fp64 oracle: {len(union ^ fresh_want)} pairs")
+    rec.update(stream_seconds=secs, stream_batches=nb)
+    log(f"{label}: join of {n0} rows equals the fp64 oracle ({len(want)} "
+        f"pairs) and phases 5-6's candidate set ({len(cand)}); launches "
+        f"{launches}; {nb} inserts of {n_fresh} fresh rows on the "
+        f"rebuild route equal the fp64 oracle ({len(fresh_want)} pairs)")
+    rec.update(p12_timings(eng, "device_rebuild", CMESH_SPLIT))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"{label} timings: {json.dumps(rec)}")
+    return rec
+
+
+def phase12_rank(rank: int, port: int, work: str) -> int:
+    """One rank of phase 12a and 12b (``--phase12-rank``): join the group
+    the parent set up (``work``: its inputs, sizes and topology), run 12a
+    over both layouts and 12b, write the records to
+    ``work/rank<rank>.json``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from apsim_tpu_torch.parallel import init_multihost
+
+    with open(os.path.join(work, "refs.pkl"), "rb") as f:
+        refs, sizes = pickle.load(f)
+    world = sizes["world"]
+    dev = torch.device("cuda", rank % sizes["cards"])
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = smi_line()
+    _build.kernels()  # built by the parent: this loads it
+    init_multihost(f"127.0.0.1:{port}", world, rank,
+                   backend=sizes["backend"])
+    log(f"phase 12 rank {rank}: torch.distributed backend "
+        f"{dist.get_backend()}, world {dist.get_world_size()}; {dev} of "
+        f"{smi}")
+    csr, z = load_csr(os.path.join(work, "dense.npz"))
+    want32 = as_pairs(z["want"])
+    queries, fq = query_lists(csr)
+    out = {"backend": dist.get_backend()}
+    for layout in ("rows", "dims"):
+        out[layout] = p12_dense(dev, rank, csr, want32, refs[layout], layout,
+                                queries, fq, smi, sizes["build"], 4 // world)
+        torch.cuda.empty_cache()
+    del csr, queries, fq
+    ooc, z = load_csr(os.path.join(work, "ooc.npz"))
+    out["chunked"] = p12_chunked(dev, rank, ooc, as_pairs(z["want"]),
+                                 as_pairs(z["cand"]), as_pairs(z["fresh"]),
+                                 smi, sizes["fresh"], 8 // world)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_ranks(argv, env_of, lines: dict, tag: str):
+    """Start a rank process of ``argv(rank)`` for each key of ``lines``
+    (``env_of(rank)`` added to the environment); a thread a rank copies
+    its output lines, tagged, to this log and into ``lines[rank]``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, relays = [], []
+    for r in lines:
+        procs.append(subprocess.Popen(
+            argv(r), cwd=here, env=dict(os.environ, **env_of(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+        def run(p=procs[-1], r=r):
+            for line in p.stdout:
+                lines[r].append(line.rstrip())
+                log(f"{tag} rank {r} | {line.rstrip()}")
+
+        relays.append(threading.Thread(target=run, daemon=True))
+        relays[-1].start()
+    return procs, relays
+
+
+def stop_ranks(procs, relays, timeout: float, label: str) -> None:
+    """Wait for the ranks (killing what outlives ``timeout``); every rank
+    must have exited 0."""
+    deadline = time.time() + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for t in relays:
+        t.join(5)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} rank {r} exited {p.returncode}")
+
+
+def cli_replicate(dev, work: str, smi: str, topo: dict) -> dict:
+    """Phase 12c: ``python -m apsim_tpu_torch.cli serve --replicate`` in
+    ``topo``'s processes (``--mesh-shape 4`` rows layout; by default two
+    on the card over ``gloo``, 2 shards a rank): a client streams 2,048
+    fresh rows into rank 0's RPC port, the ``all_pairs`` RPC equals the
+    fp64 oracle, and after SIGINT every follower prints "leader closed"
+    and exits 0.  Each rank prints its kernel launches at exit: one a
+    shard of its own."""
+    from apsim_tpu_torch.serve import ClientConnection
+
+    fresh = synthetic_corpus(SERVE_ROWS, seed=31)
+    want = {(str(a), str(b)) for a, b in oracle_pairs(fresh, TAU, dev)}
+    cfgfile = os.path.join(work, "p12c.json")
+    with open(cfgfile, "w") as f:
+        json.dump({"shard_axis": "rows", "similarity_threshold": TAU,
+                   "io_trigger_period_ms": 5}, f)
+    coord, repl, rpc_port = free_port(), free_port(), free_port()
+    argv = [sys.executable, "-c", CLI_WRAP, "serve", "--config", cfgfile,
+            "--mesh-shape", "4", "--device", "cuda", "--dist-backend",
+            topo["backend"], "--replicate", f"127.0.0.1:{repl}", "--host",
+            "127.0.0.1", "--port", str(rpc_port)]
+    world = topo["world"]
+    lines = {r: [] for r in range(world)}
+    rec = {"card": smi, "rows": SERVE_ROWS, "pairs": len(want)}
+    t0 = time.perf_counter()
+    procs, relays = start_ranks(
+        lambda r: argv, lambda r: {"MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": str(coord),
+                                   "WORLD_SIZE": str(world),
+                                   "RANK": str(r)},
+        lines, "phase 12c")
+    try:
+        cc = None
+        deadline = time.time() + 180
+        while cc is None and time.time() < deadline:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("phase 12c: a server process exited")
+            try:
+                cc = ClientConnection([f"127.0.0.1:{rpc_port}"], timeout=60)
+            except OSError:
+                time.sleep(0.5)
+        if cc is None:
+            raise AssertionError("phase 12c: the server never came up")
+        rec["start_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for s0 in range(0, SERVE_ROWS, 64):
+            cc.insert_new_vector([(str(i), fresh.row(i)) for i in
+                                  range(s0, min(s0 + 64, SERVE_ROWS))])
+        cc.flush()
+        rec["stream_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = cc.all_pairs(TAU)
+        rec["all_pairs_rpc_seconds"] = time.perf_counter() - t0
+        cc.close()
+        got = {(min(a, b, key=int), max(a, b, key=int)) for a, b, _ in served}
+        if got != want or not want:
+            raise AssertionError(f"phase 12c: the all_pairs RPC differs from "
+                                 f"the fp64 oracle: {len(got ^ want)} pairs")
+    finally:
+        procs[0].send_signal(signal.SIGINT)
+        stop_ranks(procs, relays, 60, "phase 12c")
+    if not all(any("leader closed" in ln for ln in lines[r])
+               for r in range(1, world)):
+        raise AssertionError("phase 12c: a follower did not see the leader "
+                             "close")
+    rec["launches"] = []
+    for r in range(world):
+        got = [json.loads(ln.split(" ", 1)[1]) for ln in lines[r]
+               if ln.startswith("LAUNCHES ")]
+        if not got or got[-1]["panel_score_bits_int8"] != 4 // world:
+            raise AssertionError(f"phase 12c rank {r}: launches {got}")
+        rec["launches"].append(got[-1]["panel_score_bits_int8"])
+    log(f"phase 12c serve --replicate, {world} processes: {SERVE_ROWS} rows "
+        f"streamed, the all_pairs RPC equals the fp64 oracle ({len(want)} "
+        f"pairs), the followers closed cleanly; {json.dumps(rec)}")
+    return rec
+
+
+def multihost_phase(dev, work: str, big_csr: CSRMatrix, want32: set,
+                    refs: dict, ooc_csr: CSRMatrix, want: set,
+                    cand100k: set, kernels: list, smi: str,
+                    topo: dict = P12_TOPOLOGY) -> None:
+    """Phase 12: one index from several processes (12a, 12b in
+    ``--phase12-rank`` processes; 12c the command line); ``topo``: the
+    ranks, the cards they are spread over and the backend."""
+    import pickle
+
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "p12")
+    os.makedirs(d)
+    save_csr(os.path.join(d, "dense.npz"), big_csr, want=pairs_array(want32))
+    fresh = synthetic_corpus(P12_STREAM, seed=31)
+    fresh_want = batch_oracle([ooc_csr], fresh, ooc_csr.n_rows, TAU, dev)
+    save_csr(os.path.join(d, "ooc.npz"), ooc_csr, want=pairs_array(want),
+             cand=pairs_array(cand100k), fresh=pairs_array(fresh_want))
+    with open(os.path.join(d, "refs.pkl"), "wb") as f:
+        pickle.dump(({k: refs[k] for k in ("rows", "dims")},
+                     {"build": STREAM_BUILD, "fresh": P12_STREAM, **topo}), f)
+    torch.cuda.empty_cache()
+    port = free_port()
+    here = os.path.abspath(__file__)
+    procs, relays = start_ranks(
+        lambda r: [sys.executable, here, "--phase12-rank", str(r), str(port),
+                   d], lambda r: {}, {r: [] for r in range(topo["world"])},
+        "phase 12")
+    stop_ranks(procs, relays, P12_TIMEOUT, "phase 12")
+    ranks = []
+    for r in range(topo["world"]):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if {rk["backend"] for rk in ranks} != {topo["backend"]}:
+        raise AssertionError(f"phase 12: backends {ranks}")
+    rec12c = cli_replicate(dev, work, smi, topo)
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k3.update({
+        "multihost_join_launches": [rk["rows"]["join_launches"][
+            "panel_score_bits_int8"] for rk in ranks],
+        "multihost_serve_launches": rec12c["launches"],
+        "multihost_max_abs_err": max(rk["rows"]["kernel3"]["max_abs_err"]
+                                     for rk in ranks),
+        **{f"multihost_{k}": ranks[0]["rows"]["kernel3"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+    k4 = next(k for k in kernels if k["name"] == "int8_matmul")
+    k4.update({
+        "multihost_join_launches": [rk["chunked"]["join_launches"][
+            "int8_matmul"] for rk in ranks],
+        "multihost_max_abs_err": max(rk["chunked"]["kernel4"]["max_abs_err"]
+                                     for rk in ranks),
+        **{f"multihost_{k}": ranks[0]["chunked"]["kernel4"][k]
+           for k in ("m", "n", "d", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")}})
+    log(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def one_process_ref(dev, csr: CSRMatrix, layout: str, queries, fq) -> dict:
+    """Phase 11a's reference for phase 12a, rebuilt alone: ``MeshEngine``
+    over 4 shards of ``dev`` in one process, phase 8's build and schedule,
+    the outputs, the streamed join's candidate lists, top-k and frozen
+    match."""
+    eng = MeshEngine(AllPairsConfig(shard_axis=layout,
+                                    similarity_threshold=TAU),
+                     mesh=make_mesh(4, devices=[dev] * 4))
+    eng.build(csr_rows(csr, 0, STREAM_BUILD))
+    eng.all_pairs(TAU)
+    ref = {"outputs": []}
+    stream_rows(eng, csr, STREAM_BUILD, [1] * 16 + [32] * 16,
+                outputs=ref["outputs"])
+    _, ref["cand"] = join_with_candidates(eng, "_finalize_pairs")
+    ref["topk"] = eng.topk(queries, 10)
+    ref["frozen"] = frozen_output(eng, fq)
+    return ref
+
+
+def multihost_main(world: int, backend: str) -> int:
+    """``--multihost WORLD BACKEND``: phase 12 alone, its WORLD ranks one a
+    card, and what it is compared with, rebuilt on the first card: phase
+    11a's one-process meshes (rows and dims), the fp64 oracles of phases 3
+    and 5 and phase 5's single-device candidate set.  The same last
+    lines as the whole script."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--multihost {world} needs {world} cards, "
+                             f"have {torch.cuda.device_count()}")
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = smi_line()
+    log(f"cards: {smi}")
+    _build.kernels()
+    big_csr = synthetic_corpus(32768, seed=0)
+    want32 = oracle_pairs(big_csr, TAU, dev)
+    queries, fq = query_lists(big_csr)
+    refs = {layout: one_process_ref(dev, big_csr, layout, queries, fq)
+            for layout in ("rows", "dims")}
+    ooc_csr = synthetic_corpus(OOC_ROWS, seed=0)
+    want = oracle_pairs(ooc_csr, TAU, dev)
+    eng = ChunkedAllPairs(AllPairsConfig(), dev)
+    eng.build(ooc_csr)
+    cand100k = pair_set(eng._all_pairs_panel(eng._tau_eff(TAU)))
+    del eng
+    torch.cuda.empty_cache()
+    log(f"phase 12 references: {time.perf_counter() - t_start:.1f} s")
+    kernels = [{"name": n} for n in REPLACES]
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        multihost_phase(dev, work, big_csr, want32, refs, ooc_csr, want,
+                        cand100k, kernels, smi,
+                        {"world": world, "cards": world, "backend": backend})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def main() -> int:
@@ -2491,8 +3074,12 @@ def main() -> int:
                       (saved8, build32), (saved9, build100k))
 
         # ---- phase 11: the meshes' streaming path, shards on the one card
-        mesh_stream_phase(dev, big_csr, want32, x8, qsets8, ooc_csr, want,
-                          qsets9, kernels, smi)
+        refs = mesh_stream_phase(dev, big_csr, want32, x8, qsets8, ooc_csr,
+                                 want, qsets9, kernels, smi)
+
+        # ---- phase 12: one index served from two processes on the card
+        multihost_phase(dev, work, big_csr, want32, refs, ooc_csr, want,
+                        cand100k, kernels, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2507,4 +3094,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase12-rank"]:
+        sys.exit(phase12_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
+    if sys.argv[1:2] == ["--multihost"]:
+        sys.exit(multihost_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

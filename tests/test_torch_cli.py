@@ -242,11 +242,14 @@ def test_join_and_topk_equal_jax_cli(tmp_path, capsys, flags):
                                                   else 30)
 
 
-def test_cli_refuses_the_cpu_without_asking(tmp_path, corpus_dir):
+def test_cli_refuses_the_cpu_without_asking(tmp_path, corpus_dir,
+                                            monkeypatch):
     """Without ``--device`` the CLI runs on the card: where CUDA is absent
     ``build``, ``join`` and ``serve`` raise instead of running on the CPU
     (a fresh interpreter, so CUDA is really absent there when it is
-    here).  ``--replicate`` names its ROADMAP item."""
+    here).  A ``serve`` in a group of several processes refuses to start
+    without ``--replicate`` (``tests/test_torch_multihost.py`` runs it
+    with the flag)."""
     store = str(tmp_path / "store")
     assert cli_main(["etl", corpus_dir, "--store", store, "--table", "T",
                      "--vector-dim", "4096"]) == 0
@@ -268,5 +271,10 @@ def test_cli_refuses_the_cpu_without_asking(tmp_path, corpus_dir):
         proc = subprocess.run([sys.executable, "-c", code] + args, cwd=REPO,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 7, (args, proc.stdout, proc.stderr)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item G.3"):
-        cli_main(["serve", "--replicate", "127.0.0.1:1", "--device", "cpu"])
+    import torch.distributed as dist
+
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    with pytest.raises(SystemExit, match="--replicate HOST:PORT"):
+        cli_main(["serve", "--device", "cpu", "--port", "0"])

@@ -69,3 +69,14 @@ def test_serving_path_imports_leave_jax_out():
             f"in ('jax', 'jaxlib', 'apsim_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_port_exports_the_jax_api():
+    """The port's top-level ``__all__`` holds every name of the JAX
+    package's, and each is importable from it."""
+    import apsim_tpu
+    import apsim_tpu_torch
+
+    missing = set(apsim_tpu.__all__) - set(apsim_tpu_torch.__all__)
+    assert not missing, sorted(missing)
+    assert all(hasattr(apsim_tpu_torch, n) for n in apsim_tpu_torch.__all__)

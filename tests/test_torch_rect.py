@@ -12,6 +12,8 @@ errs by ~1e-6, so both packages decide every cell alike), and equal the
 fp64 oracle's set at that threshold.
 """
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,6 +140,53 @@ def test_true_fp32_matmul_restores_the_setting(level):
         with pytest.raises(KeyError):
             with score_ops.true_fp32_matmul():
                 raise KeyError("boom")
+        assert torch.get_float32_matmul_precision() == level
+        assert mm.allow_tf32 is (level != "highest")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+
+
+@pytest.mark.parametrize("level", ["highest", "high", "medium"])
+def test_true_fp32_matmul_across_threads(level):
+    """Two threads whose blocks overlap (the second enters before the
+    first leaves and leaves after it): TF32 is off inside every block, the
+    first thread's exit does not turn it back on under the second, and the
+    setting found before comes back after the last exit, "medium"
+    included."""
+    mm = torch.backends.cuda.matmul
+    torch.set_float32_matmul_precision(level)
+    seen, errors = [], []
+    first_in, second_in, first_out = (threading.Event() for _ in range(3))
+
+    def first():
+        try:
+            with score_ops.true_fp32_matmul():
+                first_in.set()
+                seen.append(mm.allow_tf32)
+                assert second_in.wait(5)
+                seen.append(mm.allow_tf32)
+            first_out.set()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    def second():
+        try:
+            assert first_in.wait(5)
+            with score_ops.true_fp32_matmul():
+                second_in.set()
+                assert first_out.wait(5)
+                seen.append(mm.allow_tf32)
+        except Exception as e:
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+        assert not errors, errors
+        assert seen == [False, False, False]
         assert torch.get_float32_matmul_precision() == level
         assert mm.allow_tf32 is (level != "highest")
     finally:
