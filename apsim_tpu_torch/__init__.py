@@ -22,10 +22,14 @@ hashing, the vector store); the serving stack (``serve``:
 ``SimilarityServer``, the newline-JSON ``RpcServer``, the client, and the
 replicated op log of ``serve.replica`` that serves one index from several
 processes), the load generator (``bench.loadgen``) and the command line
-(``python -m apsim_tpu_torch.cli``, ``apsim-torch``; ``serve --replicate``).
-Not ported: the JAX package's bench probes and suite.  Entry points run on
-the card (``"cuda"``, or a mesh over the cards) unless the caller names the
-CPU.
+(``python -m apsim_tpu_torch.cli``, ``apsim-torch``; ``serve --replicate``);
+the benchmark suite (``bench.suite``, ``cli bench-suite``), the reference
+baseline, ``bench.mfu`` with the card's peaks, ``bench.scale.run_scale``
+and the join, insert, panel and serve stage probes.  Not ported, by
+design: the JAX package's XLA schedule studies and TPU slab study
+(``bench/tri_probe.py``, ``mesh_tri_probe.py``, ``ell_probe.py``).  Entry
+points run on the card (``"cuda"``, or a mesh over the cards) unless the
+caller names the CPU.
 """
 
 from .config import AllPairsConfig, load_config

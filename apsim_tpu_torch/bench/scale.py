@@ -1,18 +1,31 @@
-"""Seeded synthetic corpora (copied from ``apsim_tpu/bench/scale.py``, NumPy
-only).
+"""Synthetic scale benchmark: corpus sizes beyond Enron (the counterpart
+of ``apsim_tpu/bench/scale.py``).
 
-TF-IDF-shaped data: power-law dim popularity, L2-normalized, with a
-controllable near-duplicate rate so thresholded joins have hits.  The same
-seed gives the same corpus in both packages.
+The corpora are copies of the JAX package's (NumPy only): TF-IDF-shaped
+data, power-law dim popularity, L2-normalized, with a controllable
+near-duplicate rate so thresholded joins have hits.  The same seed gives
+the same corpus in both packages.  ``run_scale`` measures build + warm
+all-pairs at increasing row counts on the card and reports decided
+pairs/s and the int8 utilization per size.
+
+Usage:  python -m apsim_tpu_torch.bench.scale [n_rows ...] [--device cpu]
 """
 
 from __future__ import annotations
 
+import json
+import time
+from typing import Dict
+
 import numpy as np
+import torch
 
+from ..config import AllPairsConfig
+from ..engine.engine import Engine
 from ..vector.batch import CSRMatrix
+from .mfu import card_peaks, int8_join_ops, mfu_pct
 
-__all__ = ["synthetic_corpus", "rcv1_like_corpus"]
+__all__ = ["synthetic_corpus", "rcv1_like_corpus", "run_scale"]
 
 
 def synthetic_corpus(
@@ -118,3 +131,63 @@ def rcv1_like_corpus(
     vals = vals / np.sqrt(sq)[row_of]
     csr = CSRMatrix(n_rows, n_dims, indptr, dims, vals.astype(np.float64))
     return _inject_dups(csr, dup_rate, rng)
+
+
+def run_scale(sizes=(10_000, 25_000, 50_000), tau: float = 0.8,
+              device: torch.device | str = "cuda") -> Dict:
+    """Build + warm join of ``synthetic_corpus(n)`` for each ``n``: the
+    third ``all_pairs(tau)`` is timed (host clock; it ends in host numpy
+    arrays).  On the card each record carries the end-to-end utilization
+    of the card's int8 peak; a CPU run reports ``mfu_pct`` None."""
+    dev = torch.device(device)
+    peak = card_peaks(torch.cuda.get_device_name(dev))["int8"] if (
+        dev.type == "cuda") else None
+    report: Dict = {"device": (torch.cuda.get_device_name(dev)
+                               if dev.type == "cuda" else "cpu")}
+    for n in sizes:
+        t0 = time.perf_counter()
+        csr = synthetic_corpus(n)
+        gen_s = time.perf_counter() - t0
+        eng = Engine(AllPairsConfig(), dev)
+        t0 = time.perf_counter()
+        eng.build(csr)
+        build_s = time.perf_counter() - t0
+        eng.all_pairs(tau)  # two warm joins, then the timed third
+        eng.all_pairs(tau)
+        t0 = time.perf_counter()
+        res = eng.all_pairs(tau)
+        join_s = time.perf_counter() - t0
+        decided = n * (n - 1) / 2
+        ops = int8_join_ops(eng.row_cap, eng.dim_cap)
+        report[str(n)] = {
+            "gen_seconds": gen_s,
+            "build_seconds": build_s,
+            "join_seconds": join_s,
+            "pairs": res.n_pairs,
+            "decided_pairs_per_sec": decided / join_s,
+            "row_cap": eng.row_cap,
+            "dim_cap": eng.dim_cap,
+            "index_gb": eng.row_cap * eng.dim_cap * 4 / 1e9,
+            # efficiency-per-size curve: end-to-end utilization of the
+            # card's int8 peak, compaction/D2H/rescore included
+            "int8_ops": ops,
+            "mfu_pct": None if peak is None else mfu_pct(ops, join_s, peak),
+        }
+        del eng, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return report
+
+
+if __name__ == "__main__":
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(prog="scale")
+    ap.add_argument("sizes", type=int, nargs="*",
+                    default=[10_000, 25_000, 50_000])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args()
+    json.dump(run_scale(tuple(args.sizes), device=args.device), sys.stdout,
+              indent=2)
+    print()

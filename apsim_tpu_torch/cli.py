@@ -14,6 +14,8 @@ HOCON paths (fixing SURVEY.md fine-print #9):
   apsim client  — interactive terminal (Client.main, Client.scala:101-113)
   apsim bench   — insert→first-result latency harness
                   (LoadGenerator.main, LoadGenerator.scala:177-183)
+  apsim bench-suite — every BASELINE.json config with its parity checks
+                  (``bench/suite.py``); exits 1 when a check fails
 
 Every subcommand that builds an engine takes ``--device {cuda,cpu}``
 (default ``cuda``): without CUDA the default raises, it never falls back to
@@ -375,6 +377,15 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_bench_suite(args) -> int:
+    from .bench import suite
+
+    argv = ["--device", args.device]
+    if args.enron:
+        argv += ["--enron", args.enron]
+    return suite.main(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="apsim-torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -466,6 +477,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="overrides the config file's auth_token")
     sp.add_argument("--ca-file", default=None, dest="ca_file")
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser(
+        "bench-suite",
+        help="run every BASELINE.json benchmark config and emit JSON; "
+             "exits 1 when a parity flag is false or a leg failed",
+    )
+    sp.add_argument("--enron", default=None, metavar="ROOT",
+                    help="the Enron maildir root (default: the synthetic "
+                         "corpus of Enron's row count)")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the suite runs (default: the card; without "
+                         "CUDA this raises)")
+    sp.set_defaults(fn=cmd_bench_suite)
 
     return p
 

@@ -195,6 +195,22 @@ result line):
     4``); a client streams 2,048 rows, the ``all_pairs`` RPC equals the
     fp64 oracle, each rank launched kernel 3, and after SIGINT the
     follower prints "leader closed" and exits 0.
+13. The benchmark suite and the stage probes (``apsim_tpu_torch/bench/``)
+    through their entry points, each between zeroed launch counters:
+    ``suite.run_suite`` on ``synthetic_corpus(8586, seed=0)`` at taus 0.5
+    and 0.8 (``stream_batch=256``, 1,024 top-k queries, the mesh over
+    every visible card): every threshold's ``parity_full``, the stream
+    equal to the batch join, top-k self-match 1.0, the mesh equal to the
+    single device, no leg holding ``"error"``, kernels 1 and 3 launched;
+    ``scale.run_scale`` at 8,586 rows (the suite's pair count at 0.8);
+    ``join_probe.probe_size`` at 8,586 and 32,768 rows (kernel 1, 17
+    launches a size; the 8,586-row kernel-only launch bit for bit against
+    its plain version); ``insert_probe`` at 20,000 rows with ``--stages``;
+    ``panel_probe`` at 100,000 rows with ``--joins-only`` (kernel 3 once a
+    panel pair a join, phase 5's pair count); ``serve_probe`` at 100,000
+    rows, 1,000 vectors/s for 10 s (every offered vector indexed).  Each
+    record is printed on a line of its own, and each kernel's record gets
+    the phase's launches (``bench_launches``).
 
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
@@ -222,6 +238,9 @@ import torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
                              SparseVector, make_mesh)
+from apsim_tpu_torch.bench import (insert_probe, join_probe, panel_probe,
+                                   scale, serve_probe, suite)
+from apsim_tpu_torch.bench.mfu import H100_SXM
 from apsim_tpu_torch.bench.ooc import (batch_oracle, dense_rows, join_ops,
                                        profile_join)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
@@ -242,11 +261,10 @@ REPLACES = {
     "int8_matmul": "apsim_tpu/ops/panel_mesh.py:42",  # _mm_kernel
 }
 OOC_ROWS = 100_000
-# H100 SXM peaks (NVIDIA data sheet, dense): int8 ops/s, bf16 flop/s, HBM
-PEAK_INT8 = 1979e12
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12  # outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense; ``bench/mfu.py``): int8 ops/s,
+# bf16 flop/s, fp32 flop/s outside the tensor cores, HBM bytes/s
+PEAK_INT8, PEAK_BF16, PEAK_FP32, HBM_BYTES_PER_S = (
+    H100_SXM[k] for k in ("int8", "bf16", "fp32", "hbm"))
 
 
 _LOG = threading.Lock()  # the relays of phase 12 log from threads
@@ -2725,6 +2743,100 @@ def multihost_main(world: int, backend: str) -> int:
     return 0
 
 
+# ------------------------ phase 13: the benchmark suite and the stage probes
+SUITE_ROWS = 8586
+SUITE_TAUS = (0.5, 0.8)  # the five-tau suite runs through ``cli bench-suite``
+JOIN_PROBE_ROWS = (8586, 32768)
+INSERT_PROBE_ROWS = 20_000
+SERVE_SECONDS = 10
+
+
+def counted(label: str, fn, need=()):
+    """``fn()`` between zeroed launch counters; every kernel of ``need``
+    must have launched.  Returns ``(result, launches)``."""
+    zero_launches()
+    out = fn()
+    got = dict(ts.LAUNCHES)
+    log(f"phase 13 {label} kernel launches: {got}")
+    for k in need:
+        if got[k] < 1:
+            raise AssertionError(f"phase 13 {label}: {k} was not launched")
+    return out, got
+
+
+def bench_phase(dev, kernels: list, n_ooc_pairs: int) -> None:
+    """Phase 13: the benchmark suite and the stage probes through their
+    entry points, each between zeroed launch counters; ``n_ooc_pairs`` is
+    phase 5's pair count on the 100,000 rows."""
+    t_phase = time.perf_counter()
+    csr = synthetic_corpus(SUITE_ROWS, seed=0)
+    ids = [str(i) for i in range(csr.n_rows)]
+    t0 = time.perf_counter()
+    report, got = counted("suite", lambda: suite.run_suite(
+        csr, ids, taus=SUITE_TAUS, stream_batch=256, topk_queries=1024,
+        device=dev), need=("score_bits_int8", "panel_score_bits_int8"))
+    log(f"phase 13 suite ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(report)}")
+    bad = suite.failures(report)
+    flags = [e.get("parity_full") for e in report["threshold_sweep"].values()]
+    if bad or flags != [True] * len(SUITE_TAUS) or "mesh" not in report:
+        raise AssertionError(f"phase 13 suite: {bad or report}")
+    launches = {"suite": got}
+
+    sc, launches["run_scale"] = counted("run_scale", lambda: scale.run_scale(
+        (SUITE_ROWS,), device=dev), need=("score_bits_int8",))
+    log(f"phase 13 run_scale: {json.dumps(sc)}")
+    if sc[str(SUITE_ROWS)]["pairs"] != report["threshold_sweep"]["0.8"][
+            "pairs"]:
+        raise AssertionError("phase 13 run_scale: its pairs differ from the "
+                             "suite's parity-checked join")
+
+    def join_probes():
+        out = {}
+        for n in JOIN_PROBE_ROWS:
+            out[n] = join_probe.probe_size(synthetic_corpus(n), device=dev,
+                                           check_plain=n == JOIN_PROBE_ROWS[0])
+            log(f"phase 13 join_probe {n}: {json.dumps(out[n])}")
+        return out
+
+    jp, got = counted("join_probe", join_probes, need=("score_bits_int8",))
+    # per size: 2 warm joins, 5 kernel-only, 5 extract, 5 timed joins
+    if got["score_bits_int8"] != 17 * len(JOIN_PROBE_ROWS):
+        raise AssertionError(f"phase 13 join_probe launches: {got}")
+    if jp[JOIN_PROBE_ROWS[0]].get("kernel_equals_plain") is not True:
+        raise AssertionError("phase 13 join_probe: kernel 1 differs from "
+                             "its plain version at the probe's operands")
+    launches["join_probe"] = got
+
+    ins, launches["insert_probe"] = counted(
+        "insert_probe", lambda: insert_probe.main(
+            [str(INSERT_PROBE_ROWS), "--stages"]))
+    log(f"phase 13 insert_probe: {json.dumps(ins)}")
+
+    pan, got = counted("panel_probe", lambda: panel_probe.main(
+        [str(OOC_ROWS), "--joins-only"]), need=("panel_score_bits_int8",))
+    n_pan = pan["geom"]["n_panels"]
+    if (not pan["pairs_agree"]
+            or pan["joins"]["default"]["pairs"] != n_ooc_pairs
+            or got["panel_score_bits_int8"] != n_pan * (n_pan + 1)):
+        raise AssertionError(f"phase 13 panel_probe: {pan}, launches {got}")
+    launches["panel_probe"] = got
+
+    srv, launches["serve_probe"] = counted(
+        "serve_probe", lambda: serve_probe.main(
+            [str(OOC_ROWS), "--rates", "1000", "--duration",
+             str(SERVE_SECONDS)]))
+    (ph,) = srv["phases"]
+    log(f"phase 13 serve_probe: {json.dumps(dict(ph, flush_timeline=None))}")
+    if ph["indexed"] != ph["offered_vectors"]:
+        raise AssertionError(f"phase 13 serve_probe indexed {ph['indexed']} "
+                             f"of {ph['offered_vectors']}")
+    for k in kernels:
+        k["bench_launches"] = {leg: n[k["name"]]
+                               for leg, n in launches.items()}
+    log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3082,6 +3194,10 @@ def main() -> int:
                         cand100k, kernels, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ---- phase 13: the benchmark suite and the stage probes
+    torch.cuda.empty_cache()
+    bench_phase(dev, kernels, len(want))
 
     log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,9 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the benchmark suite and the stage probes (ROADMAP item D2)
+BENCH_MODULES = ("suite", "baseline", "mfu", "scale", "join_probe",
+                 "insert_probe", "panel_probe", "serve_probe")
 
 
 @pytest.mark.parametrize("target", ["apsim_tpu_torch", "chip_smoke.py"])
@@ -41,7 +44,8 @@ def test_port_imports_no_jax():
                  "apsim_tpu_torch/serve/server.py",
                  "apsim_tpu_torch/serve/rpc.py",
                  "apsim_tpu_torch/serve/client.py",
-                 "apsim_tpu_torch/bench/loadgen.py"):
+                 "apsim_tpu_torch/bench/loadgen.py",
+                 *(f"apsim_tpu_torch/bench/{m}.py" for m in BENCH_MODULES)):
         assert need in rel, need
     bad = []
     for path in sources:
@@ -57,13 +61,14 @@ def test_port_imports_no_jax():
 
 
 def test_serving_path_imports_leave_jax_out():
-    """Importing the CLI, the ETL, the serving stack and the bench
-    helpers (in a fresh interpreter) loads no JAX and nothing of the JAX
-    package."""
+    """Importing the CLI, the ETL, the serving stack, the bench helpers,
+    the suite and the stage probes (in a fresh interpreter) loads no JAX
+    and nothing of the JAX package."""
     mods = ("apsim_tpu_torch.cli", "apsim_tpu_torch.etl",
             "apsim_tpu_torch.serve", "apsim_tpu_torch.bench.loadgen",
             "apsim_tpu_torch.bench.data",
-            "apsim_tpu_torch.bench.restore_probe")
+            "apsim_tpu_torch.bench.restore_probe",
+            *(f"apsim_tpu_torch.bench.{m}" for m in BENCH_MODULES))
     code = (f"import sys, importlib; [importlib.import_module(m) for m in "
             f"{mods!r}]; bad = [m for m in sys.modules if m.split('.')[0] "
             f"in ('jax', 'jaxlib', 'apsim_tpu')]; assert not bad, bad")
