@@ -6,21 +6,22 @@ Usage, on a machine with one CUDA card:
 
     python -m apsim_tpu_torch.bench.ooc [n_rows ...] [--profile] [--stripes]
         [--stream N] [--stream-batch B] [--stream-only] [--router-ab]
-        [--slab-budget-mb MB]
+        [--slab-budget-mb MB] [--seed N]
 
-Each size builds the engine on ``synthetic_corpus(n_rows, seed=0)``, runs
-``all_pairs(0.8)`` three times and reports the third: wall seconds, decided
-pairs per second, the stage split, the panel geometry and sweep mode, the
-int8 work and the rate it reached in the kernel stage, and device memory.
-``--profile`` runs one more join under
-``torch.profiler`` and reports the device's busy time, its idle share of
-the join's wall time, and device time by kernel.  ``--stripes``
-builds a second engine with ``pallas_int8=False`` (the stripe join, bf16
-slabs), times its third join with its stage split and reports
-``stripe_parity``: whether its pair set equals the panel join's.
+Each size builds the engine on ``synthetic_corpus(n_rows, seed)``
+(``--seed``, default 0), runs ``all_pairs(0.8)`` three times and reports
+the third: wall seconds, decided pairs per second, the stage split, the
+panel geometry and sweep mode, the int8 work and the rate it reached in
+the kernel stage, and device memory.  ``--profile`` runs one more join
+under ``torch.profiler`` and reports the device's busy time, its idle
+share of the join's wall time, device time by kernel, and the longest
+idle gaps with the engine's ``Timer`` section at each (``profile_call``).
+``--stripes`` builds a second engine with ``pallas_int8=False`` (the
+stripe join, bf16 slabs), times its third join with its stage split and
+reports ``stripe_parity``: whether its pair set equals the panel join's.
 
 ``--stream N`` then, for each batch size B of ``--stream-batch`` (256, or
-a comma list, the k-th on ``synthetic_corpus(N, seed=99 + k)``), inserts
+a comma list, the k-th on ``synthetic_corpus(N, [99 + k, seed])``), inserts
 ``N`` rows in batches of B at tau = 0.8 into the same engine and reports,
 under ``stream[B]``: the median batch seconds (host clock; an insert
 returns with its output), vectors per second, the stage split per batch,
@@ -29,7 +30,7 @@ the route each batch took (``resident_slabs``, ``host_spgemm``,
 union of the outputs equals an fp64 oracle computed in dense row blocks on
 the same device.  Beyond the resident stack's budget (``--slab-budget-mb``
 overrides the config's ``match_slab_budget_mb``) two more batches of B
-rows (``synthetic_corpus(2 B, seed=201 + k)``) run with the router forced
+rows (``synthetic_corpus(2 B, [201 + k, seed])``) run with the router forced
 to the host route and to the device route, each against the oracle:
 ``router_ab[B]`` says which the router picks for such a batch and whether
 that one was the faster (for B above 512 only with ``--router-ab``: the
@@ -40,6 +41,7 @@ stderr as it finishes, all of them to stdout at the end.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -51,10 +53,12 @@ import torch
 from ..config import AllPairsConfig
 from ..engine.chunked import ChunkedAllPairs
 from ..ops import panel as panel_ops
+from ..utils.logging import Timer
 from ..vector.batch import CSRMatrix
 from .scale import synthetic_corpus
 
-__all__ = ["run_ooc", "join_ops", "profile_join", "dense_rows",
+__all__ = ["run_ooc", "join_ops", "profile_call", "profile_join",
+           "profile_insert", "pairs_of", "csr_rows", "dense_rows",
            "batch_oracle", "main"]
 
 
@@ -69,37 +73,109 @@ def join_ops(geom) -> int:
     return blocks * tm * tn * d_cap * 2
 
 
-def profile_join(eng, tau: float) -> Dict:
-    """One join of an engine (dense or chunked) under ``torch.profiler``:
-    device busy time (the union of the device activity intervals), its idle
-    share of the join's wall time (profiler overhead included), and the
-    five kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+_CALL = "profiled call"  # the annotation around the whole profiled call
+_SECTION = "section "  # the prefix of an annotated Timer section
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.all_pairs(tau)
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
+
+class _AnnotatedTimer(Timer):
+    """A ``Timer`` that also marks each section as a ``torch.profiler``
+    range, sharing the totals and counts of the timer it stands in for."""
+
+    def __init__(self, timer: Timer):
+        self.totals, self.counts = timer.totals, timer.counts
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        with torch.profiler.record_function(_SECTION + name), \
+                super().section(name):
+            yield
+
+
+def profile_call(eng, fn, top: int = 5) -> Dict:
+    """``fn()`` (calls on the engine ``eng``, dense or chunked) once under
+    ``torch.profiler``, with the engine's ``Timer`` sections marked as
+    ranges: device busy time (the union of the device activity intervals),
+    its idle share of the call's time (profiler overhead included), the
+    ``top`` kernels with the most device time, the ``top`` longest idle
+    gaps with the innermost section the host was in at each gap's middle
+    (None between sections), and the idle time by that section."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if eng.device.type == "cuda" else [])
+    timer, eng.timer = eng.timer, _AnnotatedTimer(eng.timer)
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            with record_function(_CALL):
+                fn()
+            wall = time.perf_counter() - t0
+    finally:
+        eng.timer = timer
+    events = prof.events()
+    (w0, w1), = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == _CALL
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    sections = [(e.time_range.start, e.time_range.end,
+                 e.name[len(_SECTION):]) for e in events
+                if e.name.startswith(_SECTION)
+                and e.device_type == torch.autograd.DeviceType.CPU]
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith((_SECTION, _CALL))]
+    busy_us, end, gaps = 0.0, w0, []
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        s, e = max(s, w0), min(e, w1)
+        if e <= s:  # outside the call
+            continue
+        if s > end:
+            gaps.append((end, s))
         if e > end:
             busy_us += e - max(s, end)
             end = e
+    if w1 > end:
+        gaps.append((end, w1))
+
+    def section_at(t: float):
+        inside = [(b - a, name) for a, b, name in sections if a <= t <= b]
+        return min(inside)[1] if inside else None
+
+    idle_by: Dict[str, float] = {}
+    longest = []
+    for a, b in sorted(gaps, key=lambda g: g[1] - g[0], reverse=True):
+        name = section_at((a + b) / 2)
+        idle_by[str(name)] = idle_by.get(str(name), 0.0) + (b - a) / 1e3
+        if len(longest) < top:
+            longest.append({"ms": (b - a) / 1e3, "at_ms": (a - w0) / 1e3,
+                            "section": name})
     by_name: Dict[str, float] = {}
     for e in dev:
         name = e.name[:100]  # templated kernel names run to kilobytes
         by_name[name] = by_name.get(name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {
         "wall_seconds": wall,
         "device_busy_seconds": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "top_kernels_ms": dict(top),
+        "device_idle_share": 1.0 - busy_us / (w1 - w0),
+        "top_kernels_ms": dict(sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:top]),
+        "idle_gaps": longest,
+        "idle_ms_by_section": dict(sorted(idle_by.items(),
+                                          key=lambda kv: -kv[1])),
     }
+
+
+def profile_join(eng, tau: float) -> Dict:
+    """One join of ``eng`` under ``profile_call``."""
+    return profile_call(eng, lambda: eng.all_pairs(tau))
+
+
+def profile_insert(eng, batches, tau: float) -> Dict:
+    """One insert pass of ``eng`` (each of ``batches`` inserted in turn)
+    under ``profile_call``."""
+    return profile_call(eng, lambda: [eng.insert(b, tau=tau)
+                                      for b in batches])
 
 
 def _memory(device: torch.device) -> Dict:
@@ -126,10 +202,11 @@ def run_ooc(
     stream_only: bool = False,
     router_ab: bool = False,
     slab_budget_mb: int | None = None,
+    seed: int = 0,
 ) -> Dict:
     device = torch.device(device)
     t0 = time.perf_counter()
-    csr = synthetic_corpus(n_rows, seed=0)
+    csr = synthetic_corpus(n_rows, seed=seed)
     gen_s = time.perf_counter() - t0
     cfg = AllPairsConfig()
     if slab_budget_mb is not None:
@@ -161,8 +238,8 @@ def run_ooc(
     if stream_rows:
         index = [csr]
         for k, bs in enumerate(stream_batch):
-            _stream(eng, report, index, tau, stream_rows, int(bs), k,
-                    router_ab)
+            _stream(eng, report, index, tau, stream_rows, int(bs), seed,
+                    k, router_ab)
         report["memory_after_stream"] = _memory(device)
     return report
 
@@ -209,6 +286,13 @@ STREAM_STAGES = ("admit", "prepare", "append", "match_slabs", "sort_entries",
                  "product", "compact", "host_match", "d2h", "rescore")
 
 
+def csr_rows(csr: CSRMatrix, lo: int, hi: int) -> CSRMatrix:
+    """Rows ``[lo, hi)`` of ``csr`` as a CSR of their own."""
+    a, b = int(csr.indptr[lo]), int(csr.indptr[hi])
+    return CSRMatrix(hi - lo, csr.n_cols, csr.indptr[lo:hi + 1] - a,
+                     csr.indices[a:b], csr.data[a:b])
+
+
 def dense_rows(csr: CSRMatrix, lo: int, hi: int, width: int, device):
     """fp64 ``[hi - lo, width]`` of rows ``[lo, hi)`` on ``device``."""
     a, b = int(csr.indptr[lo]), int(csr.indptr[hi])
@@ -244,18 +328,24 @@ def batch_oracle(index: list, batch: CSRMatrix, n0: int, tau: float,
     return out
 
 
-def _pairs_of(out) -> set:
+def pairs_of(out) -> set:
+    """The row pairs ``(i, j)``, ``i < j``, of an insert's output (ids are
+    row numbers)."""
     return {(min(int(q), int(c)), max(int(q), int(c)))
             for q, cands in out.output.items() for c in cands}
 
 
 def _stream(eng, report: Dict, index: list, tau: float, stream_rows: int,
-            bs: int, k: int, router_ab: bool) -> None:
-    """Stream ``stream_rows`` rows in batches of ``bs`` (ids are global row
-    numbers), then the router's A/B beyond the budget, into ``report``;
-    ``index`` lists the CSRs the engine holds, in order, and grows."""
+            bs: int, seed: int, k: int, router_ab: bool) -> None:
+    """Stream ``stream_rows`` rows of ``synthetic_corpus(stream_rows,
+    [99 + k, seed])`` in batches of ``bs`` (ids are global row numbers),
+    then the router's A/B beyond the budget, into ``report``.  The k-th
+    batch size of a run seeded ``seed`` has corpora of its own: two seeds
+    never share one, and seed 0's are those of the integer seeds 99 + k and
+    201 + k (numpy pads a short seed with zeros).  ``index`` lists the
+    CSRs the engine holds, in order, and grows."""
     device = eng.device
-    extra = synthetic_corpus(stream_rows, seed=99 + k)
+    extra = synthetic_corpus(stream_rows, seed=[99 + k, seed])
     times, routes, union, want = [], [], set(), set()
     before = dict(eng.timer.totals)
     for s in range(0, stream_rows, bs):
@@ -266,11 +356,8 @@ def _stream(eng, report: Dict, index: list, tau: float, stream_rows: int,
         out = eng.insert(batch, tau=tau)
         times.append(time.perf_counter() - t0)
         routes.append(eng.last_route)
-        union |= _pairs_of(out)
-        part = CSRMatrix(e - s, extra.n_cols,
-                         extra.indptr[s:e + 1] - extra.indptr[s],
-                         extra.indices[extra.indptr[s]:extra.indptr[e]],
-                         extra.data[extra.indptr[s]:extra.indptr[e]])
+        union |= pairs_of(out)
+        part = csr_rows(extra, s, e)
         want |= batch_oracle(index, part, n0, tau, device)
         index.append(part)
     n_b = len(times)
@@ -288,19 +375,13 @@ def _stream(eng, report: Dict, index: list, tau: float, stream_rows: int,
     }
     if eng._match_slabs() is not None or not (bs <= 512 or router_ab):
         return
-    probes = synthetic_corpus(2 * bs, seed=201 + k)
+    probes = synthetic_corpus(2 * bs, seed=[201 + k, seed])
     dev_name = "device_paneled" if eng._paneled_ok() else "device_rebuild"
     ab: Dict = {}
     parity = True
     for h, (force, name) in enumerate(((True, "host_spgemm"),
                                        (False, dev_name))):
-        part = CSRMatrix(bs, probes.n_cols,
-                         probes.indptr[h * bs:(h + 1) * bs + 1]
-                         - probes.indptr[h * bs],
-                         probes.indices[probes.indptr[h * bs]:
-                                        probes.indptr[(h + 1) * bs]],
-                         probes.data[probes.indptr[h * bs]:
-                                     probes.indptr[(h + 1) * bs]])
+        part = csr_rows(probes, h * bs, (h + 1) * bs)
         n0 = eng.n_rows
         if h == 0:
             # the router's own pick for a batch like these
@@ -317,7 +398,7 @@ def _stream(eng, report: Dict, index: list, tau: float, stream_rows: int,
             del eng._use_host_match
         if eng.last_route != name:
             raise AssertionError(f"forced {name}, took {eng.last_route}")
-        parity &= _pairs_of(out) == batch_oracle(index, part, n0, tau,
+        parity &= pairs_of(out) == batch_oracle(index, part, n0, tau,
                                                  device)
         index.append(part)
     ab["router_correct"] = ab[ab["router_choice"] + "_batch_seconds"] == min(
@@ -378,6 +459,7 @@ def main(argv=None) -> None:
         sbatch = [int(b) for b in args[k + 1].split(",")]
         del args[k:k + 2]
     budget = _opt(args, "--slab-budget-mb", None)
+    seed = _opt(args, "--seed", 0)
     flags = {a for a in args if a.startswith("-")}
     sizes = [int(a) for a in args if not a.startswith("-")] or [100_000]
     out = {}
@@ -386,7 +468,8 @@ def main(argv=None) -> None:
             n, device="cuda", profile="--profile" in flags,
             compare_stripes="--stripes" in flags, stream_rows=stream,
             stream_batch=sbatch, stream_only="--stream-only" in flags,
-            router_ab="--router-ab" in flags, slab_budget_mb=budget)
+            router_ab="--router-ab" in flags, slab_budget_mb=budget,
+            seed=seed)
         json.dump(out[str(n)], sys.stderr, indent=1)
         print(file=sys.stderr, flush=True)
     json.dump(out, sys.stdout, indent=2)

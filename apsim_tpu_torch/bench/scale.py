@@ -9,13 +9,14 @@ all-pairs at increasing row counts on the card and reports decided
 pairs/s and the int8 utilization per size.
 
 Usage:  python -m apsim_tpu_torch.bench.scale [n_rows ...] [--device cpu]
+        [--seed N]
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -34,10 +35,11 @@ def synthetic_corpus(
     active_dims: int = 32768,
     nnz_mean: int = 120,
     dup_rate: float = 0.02,
-    seed: int = 0,
+    seed: int | Sequence[int] = 0,
 ) -> CSRMatrix:
     """Power-law sparse corpus: dim d is sampled ∝ 1/(d+10); ``dup_rate`` of
-    rows are exact copies of earlier rows (guaranteed tau≈1 pairs)."""
+    rows are exact copies of earlier rows (guaranteed tau≈1 pairs).
+    ``seed`` is anything ``np.random.default_rng`` takes."""
     rng = np.random.default_rng(seed)
     weights = 1.0 / (np.arange(active_dims) + 10.0)
     weights /= weights.sum()
@@ -134,8 +136,8 @@ def rcv1_like_corpus(
 
 
 def run_scale(sizes=(10_000, 25_000, 50_000), tau: float = 0.8,
-              device: torch.device | str = "cuda") -> Dict:
-    """Build + warm join of ``synthetic_corpus(n)`` for each ``n``: the
+              device: torch.device | str = "cuda", seed: int = 0) -> Dict:
+    """Build + warm join of ``synthetic_corpus(n, seed)`` for each ``n``: the
     third ``all_pairs(tau)`` is timed (host clock; it ends in host numpy
     arrays).  On the card each record carries the end-to-end utilization
     of the card's int8 peak; a CPU run reports ``mfu_pct`` None."""
@@ -146,7 +148,7 @@ def run_scale(sizes=(10_000, 25_000, 50_000), tau: float = 0.8,
                                if dev.type == "cuda" else "cpu")}
     for n in sizes:
         t0 = time.perf_counter()
-        csr = synthetic_corpus(n)
+        csr = synthetic_corpus(n, seed=seed)
         gen_s = time.perf_counter() - t0
         eng = Engine(AllPairsConfig(), dev)
         t0 = time.perf_counter()
@@ -187,7 +189,8 @@ if __name__ == "__main__":
     ap.add_argument("sizes", type=int, nargs="*",
                     default=[10_000, 25_000, 50_000])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    json.dump(run_scale(tuple(args.sizes), device=args.device), sys.stdout,
-              indent=2)
+    json.dump(run_scale(tuple(args.sizes), device=args.device,
+                        seed=args.seed), sys.stdout, indent=2)
     print()

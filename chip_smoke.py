@@ -211,6 +211,14 @@ result line):
     rows, 1,000 vectors/s for 10 s (every offered vector indexed).  Each
     record is printed on a line of its own, and each kernel's record gets
     the phase's launches (``bench_launches``).
+14. ``bench_torch.py``'s runners (``bench_torch.run_cell``) for
+    ``dense_int8_join_8586`` with 3 timed joins (no time window) and
+    ``dense_insert_bs32`` (build 24,576 rows, 256 batches of 32), each
+    between zeroed launch counters: every gate of the cell holds (the
+    join's pairs against the fp64 oracle, every batch's against its own),
+    kernel 1 launched by the join and no kernel by the inserts, and each
+    record carries its metrics.  Each kernel's record gets the launches
+    (``bench_torch_launches``).
 
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
@@ -235,14 +243,15 @@ import time
 import numpy as np
 import torch
 
+import bench_torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
                              SparseVector, make_mesh)
 from apsim_tpu_torch.bench import (insert_probe, join_probe, panel_probe,
                                    scale, serve_probe, suite)
 from apsim_tpu_torch.bench.mfu import H100_SXM
-from apsim_tpu_torch.bench.ooc import (batch_oracle, dense_rows, join_ops,
-                                       profile_join)
+from apsim_tpu_torch.bench.ooc import (batch_oracle, csr_rows, dense_rows,
+                                       join_ops, profile_join)
 from apsim_tpu_torch.bench.scale import synthetic_corpus
 from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
 from apsim_tpu_torch.ops import chunked as chunked_ops
@@ -801,13 +810,6 @@ def compare_stripe_mm(eng: ChunkedAllPairs, q0: int, c: int) -> dict:
 
 # ------------------------------------------------ phase 8: the streaming path
 STREAM_BUILD = 24_576
-
-
-def csr_rows(csr: CSRMatrix, lo: int, hi: int) -> CSRMatrix:
-    """Rows [lo, hi) of ``csr`` as a CSR of their own."""
-    a, b = int(csr.indptr[lo]), int(csr.indptr[hi])
-    return CSRMatrix(hi - lo, csr.n_cols, csr.indptr[lo:hi + 1] - a,
-                     csr.indices[a:b], csr.data[a:b])
 
 
 def dense64(csr: CSRMatrix, dev) -> torch.Tensor:
@@ -2751,16 +2753,17 @@ INSERT_PROBE_ROWS = 20_000
 SERVE_SECONDS = 10
 
 
-def counted(label: str, fn, need=()):
+def counted(label: str, fn, need=(), phase: int = 13):
     """``fn()`` between zeroed launch counters; every kernel of ``need``
     must have launched.  Returns ``(result, launches)``."""
     zero_launches()
     out = fn()
     got = dict(ts.LAUNCHES)
-    log(f"phase 13 {label} kernel launches: {got}")
+    log(f"phase {phase} {label} kernel launches: {got}")
     for k in need:
         if got[k] < 1:
-            raise AssertionError(f"phase 13 {label}: {k} was not launched")
+            raise AssertionError(f"phase {phase} {label}: {k} was not "
+                                 f"launched")
     return out, got
 
 
@@ -2835,6 +2838,38 @@ def bench_phase(dev, kernels: list, n_ooc_pairs: int) -> None:
         k["bench_launches"] = {leg: n[k["name"]]
                                for leg, n in launches.items()}
     log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+# ------------------------------------ phase 14: bench_torch.py's cells
+BENCH_TORCH_CELLS = ((bench_torch.HEADLINE, ("score_bits_int8",)),
+                     ("dense_insert_bs32", ()))
+BENCH_TORCH_REPEATS = 3
+
+
+def bench_torch_phase(dev, kernels: list) -> None:
+    """Phase 14: ``bench_torch.run_cell`` for the headline join cell and
+    the insert cell, each between zeroed launch counters."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for name, need in BENCH_TORCH_CELLS:
+        (rec, _, _), got = counted(
+            f"bench_torch {name}", lambda name=name: bench_torch.run_cell(
+                name, dev, repeats=BENCH_TORCH_REPEATS, window=0),
+            need=need, phase=14)
+        log(f"phase 14 bench_torch {name}: {json.dumps(rec)}")
+        insert = bench_torch.CELLS[name]["kind"] == "insert"
+        metrics = (("insert_vectors_per_sec", "insert_p95_ms") if insert
+                   else ("decided_pairs_per_sec", "seconds_median"))
+        if not rec["parity"] or not all(rec[m] > 0 for m in metrics):
+            raise AssertionError(f"phase 14 bench_torch {name}: {rec}")
+        if insert and any(got.values()):
+            raise AssertionError(f"phase 14 bench_torch {name} launched a "
+                                 f"join kernel: {got}")
+        launches[name] = got
+    for k in kernels:
+        k["bench_torch_launches"] = {cell: n[k["name"]]
+                                     for cell, n in launches.items()}
+    log(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
 def main() -> int:
@@ -3198,6 +3233,10 @@ def main() -> int:
     # ---- phase 13: the benchmark suite and the stage probes
     torch.cuda.empty_cache()
     bench_phase(dev, kernels, len(want))
+
+    # ---- phase 14: bench_torch.py's headline join and insert cells
+    torch.cuda.empty_cache()
+    bench_torch_phase(dev, kernels)
 
     log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

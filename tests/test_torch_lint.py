@@ -1,6 +1,7 @@
-"""The port and its chip script stay lint-clean under tools/lint.py (the
-repo's zero-dependency ruff subset), which does not list them by default,
-and import neither JAX nor the JAX package."""
+"""The port, its chip script and its benchmark script (``bench_torch.py``)
+stay lint-clean under tools/lint.py (the repo's zero-dependency ruff
+subset), which does not list them by default, and import neither JAX nor
+the JAX package."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ BENCH_MODULES = ("suite", "baseline", "mfu", "scale", "join_probe",
                  "insert_probe", "panel_probe", "serve_probe")
 
 
-@pytest.mark.parametrize("target", ["apsim_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("target", ["apsim_tpu_torch", "chip_smoke.py",
+                                    "bench_torch.py"])
 def test_port_lint_clean(target):
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "lint.py"),
@@ -26,7 +28,8 @@ def test_port_lint_clean(target):
 
 
 def port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "bench_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "apsim_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -39,7 +42,8 @@ def test_port_imports_no_jax():
     sources = port_sources()
     assert len(sources) > 20
     rel = {os.path.relpath(p, REPO) for p in sources}
-    for need in ("apsim_tpu_torch/cli.py", "apsim_tpu_torch/etl/tfidf.py",
+    for need in ("bench_torch.py", "apsim_tpu_torch/cli.py",
+                 "apsim_tpu_torch/etl/tfidf.py",
                  "apsim_tpu_torch/etl/store.py",
                  "apsim_tpu_torch/serve/server.py",
                  "apsim_tpu_torch/serve/rpc.py",
@@ -62,13 +66,14 @@ def test_port_imports_no_jax():
 
 def test_serving_path_imports_leave_jax_out():
     """Importing the CLI, the ETL, the serving stack, the bench helpers,
-    the suite and the stage probes (in a fresh interpreter) loads no JAX
-    and nothing of the JAX package."""
+    the suite, the stage probes and ``bench_torch.py`` (in a fresh
+    interpreter) loads no JAX and nothing of the JAX package."""
     mods = ("apsim_tpu_torch.cli", "apsim_tpu_torch.etl",
             "apsim_tpu_torch.serve", "apsim_tpu_torch.bench.loadgen",
             "apsim_tpu_torch.bench.data",
             "apsim_tpu_torch.bench.restore_probe",
-            *(f"apsim_tpu_torch.bench.{m}" for m in BENCH_MODULES))
+            *(f"apsim_tpu_torch.bench.{m}" for m in BENCH_MODULES),
+            "bench_torch")
     code = (f"import sys, importlib; [importlib.import_module(m) for m in "
             f"{mods!r}]; bad = [m for m in sys.modules if m.split('.')[0] "
             f"in ('jax', 'jaxlib', 'apsim_tpu')]; assert not bad, bad")
