@@ -301,10 +301,15 @@ def _serve(args, cfg, multi: bool) -> int:
         engine = None if cls is Engine else _new_engine(args, cls, cfg)
     sim = SimilarityServer(engine, cfg, store=store, device=args.device)
     rpc = RpcServer(sim, host=args.host, port=args.port).start()
-    print(f"serving on {rpc.host}:{rpc.port}", flush=True)
     try:
         import signal
 
+        # a shell that starts serve in the background (``sbin_torch/
+        # daemon.sh``'s ``nohup ... &``) leaves SIGINT ignored, and Python
+        # then installs no handler: install it before saying we are up, so
+        # the stop that follows checkpoints instead of being lost
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        print(f"serving on {rpc.host}:{rpc.port}", flush=True)
         signal.pause()
     except (KeyboardInterrupt, AttributeError):
         pass

@@ -22,10 +22,13 @@ import numpy as np
 
 from ..utils.build import build_shared_lib
 
-__all__ = ["get_lib", "native_available", "native_pair_dots",
-           "native_group_dots", "hash_corpus", "crc32"]
+__all__ = ["get_lib", "compile_library", "native_available",
+           "native_pair_dots", "native_group_dots", "hash_corpus", "crc32"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "apsim_native.cpp")
+# no -march=native: the library may be built on one machine and loaded on
+# another; with -ffp-contract=off the sums are the same
+_CMD = ["g++", "-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -43,12 +46,8 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        # no -march=native: the library may be built on one machine and
-        # loaded on another; with -ffp-contract=off the sums are the same
-        cmd = ["g++", "-O3", "-std=c++17", "-ffp-contract=off", "-shared",
-               "-fPIC"]
         try:
-            so, _ = build_shared_lib(_SRC, cmd, timeout=120)
+            so = compile_library()
         except (OSError, RuntimeError, TimeoutError) as e:
             print(f"apsim_native build failed ({e}); using NumPy fallback",
                   file=sys.stderr)
@@ -72,6 +71,12 @@ def get_lib():
         ]
         _lib = lib
         return _lib
+
+
+def compile_library() -> str:
+    """Build the library without loading it (``get_lib`` then loads it
+    under the same key); raises ``RuntimeError`` when the build fails."""
+    return build_shared_lib(_SRC, _CMD, timeout=120)[0]
 
 
 def native_available() -> bool:

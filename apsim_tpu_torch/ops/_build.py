@@ -19,7 +19,7 @@ import time
 
 from ..utils.build import build_shared_lib
 
-__all__ = ["kernels", "build_info"]
+__all__ = ["kernels", "build_info", "compile_library"]
 
 SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -63,6 +63,14 @@ def _nvcc() -> str:
     return found
 
 
+def compile_library() -> tuple[str, str]:
+    """Build the kernel library without loading it: ``(so_path,
+    compiler_output)``.  Needs ``nvcc`` but no card or driver, so an image
+    build can run it; ``kernels()`` then finds the library under the same
+    key (the same source and command) and only loads it."""
+    return build_shared_lib(SRC, [_nvcc()] + FLAGS)
+
+
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -71,7 +79,7 @@ def kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
-            so, log = build_shared_lib(SRC, [_nvcc()] + FLAGS)
+            so, log = compile_library()
             lib = ctypes.CDLL(so)
             for name, argtypes in ARGTYPES.items():
                 fn = getattr(lib, name)

@@ -36,6 +36,7 @@ from ..config import AllPairsConfig
 from ..engine.engine import Engine, plain_stats
 from ..engine.output import OutputBatcher, SimilarityOutput
 from ..etl.store import VectorStore, split_load_range
+from ..ops.tri_score import LAUNCHES
 from ..utils.logging import get_logger
 from ..vector.sparse import SparseVector
 
@@ -287,6 +288,9 @@ class SimilarityServer:
                 "queue_depth": self._queue.qsize(),
                 "frozen": self.engine.frozen,
                 "errors": self._errors,
+                # this process's kernel launches, per wrapper: how a client
+                # sees that the served joins ran on the card's kernels
+                "launches": dict(LAUNCHES),
                 "timings": {
                     name: {
                         "seconds": self.engine.timer.totals[name],

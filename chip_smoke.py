@@ -219,6 +219,22 @@ result line):
     kernel 1 launched by the join and no kernel by the inserts, and each
     record carries its metrics.  Each kernel's record gets the launches
     (``bench_torch_launches``).
+15. The deploy scripts (``sbin_torch/``) as an operator runs them, from a
+    directory outside the checkout: ``python -m apsim_tpu_torch.cli etl``
+    of a seeded 8,586-document text corpus (what the preprocess container
+    runs); ``start-all.sh`` without a hosts file starts the local daemon
+    on the card and returns once it serves; a ``ClientConnection``
+    bulk-loads the table; the ``all_pairs`` RPC's pair set equals the
+    fp64 oracle (``bench/ooc.batch_oracle`` over the table, its columns
+    renumbered) and launched kernel 1 in the daemon (the daemon's launch
+    counts, read over the ``stats`` RPC just before and just after; its
+    ``kernel`` section), whose process holds the card's device files
+    open; ``start-test.sh`` runs the load generator (400 messages);
+    ``daemon.sh start`` on the held port exits non-zero and leaves no PID
+    file; ``stop-all.sh`` stops the daemon with SIGINT, ``status`` says
+    stopped, and the checkpoint written on the way out loads with every
+    row the daemon held (the table and the load test's warm-up copy).
+    Each kernel's record gets the daemon's launches (``deploy_launches``).
 
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
@@ -232,6 +248,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -2872,6 +2889,202 @@ def bench_torch_phase(dev, kernels: list) -> None:
     log(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# ----------------------------- phase 15: the deploy scripts, on the card
+DEPLOY_DOCS = 8_586  # Enron's row count
+DEPLOY_BENCH = ["--total-message-count", "100", "--children-num", "4",
+                "--write-batching-ms", "5"]
+SBIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sbin_torch")
+
+
+def sbin(name: str, args, env: dict, cwd: str, check: bool = True):
+    """``sbin_torch/<name> args`` run as an operator runs it (from ``cwd``,
+    outside the checkout); returns ``(process, seconds)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([os.path.join(SBIN, name)] + list(args), cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    log(f"phase 15 {name} {args[0] if args else ''} -> {proc.returncode}: "
+        f"{proc.stdout.strip()[-300:]} {proc.stderr.strip()[-1500:]}")
+    if check and proc.returncode != 0:
+        raise AssertionError(f"{name} {' '.join(args)} exited "
+                             f"{proc.returncode}")
+    return proc, time.perf_counter() - t0
+
+
+def pid_alive(pid: int) -> bool:
+    """True while ``pid`` runs; a zombie counts as gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            state = next(ln for ln in f if ln.startswith("State:"))
+    except FileNotFoundError:
+        return False
+    return state.split()[1] != "Z"
+
+
+def gpu_pids() -> list:
+    """The PIDs ``nvidia-smi`` lists as compute processes on the cards, one
+    a process (repeats kept)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return sorted(int(w) for w in out.stdout.split())
+
+
+def card_files(pid: int) -> set:
+    """The NVIDIA device files process ``pid`` holds open.  Where the
+    driver cannot map a process into this PID namespace, ``nvidia-smi``
+    lists every process on the card under one foreign PID (1 in the chip
+    tool's sandbox); the open device files still name the process."""
+    fds, out = f"/proc/{pid}/fd", set()
+    for fd in os.listdir(fds):
+        try:
+            target = os.readlink(os.path.join(fds, fd))
+        except OSError:  # closed meanwhile
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return out
+
+
+def compact_columns(csr: CSRMatrix) -> CSRMatrix:
+    """``csr`` with its used columns renumbered 0..k-1 (every dot product
+    unchanged), so a dense fp64 oracle is k wide, not 2^20."""
+    cols, idx = np.unique(csr.indices, return_inverse=True)
+    return CSRMatrix(csr.n_rows, len(cols), csr.indptr,
+                     idx.astype(csr.indices.dtype), csr.data)
+
+
+def deploy_phase(dev, kernels: list) -> None:
+    """Phase 15: ``sbin_torch/`` drives the daemon on the card.  ``etl`` of
+    a seeded 8,586-document text corpus (the command the preprocess
+    container runs); ``start-all.sh`` with no hosts file starts the local
+    daemon, returning once it serves; a client bulk-loads the table, and
+    the ``all_pairs`` RPC equals the fp64 oracle, with kernel 1 launched
+    in the daemon (its counts read over the ``stats`` RPC just before and
+    just after, and its ``kernel`` section), the card's device files open
+    in the daemon and ``nvidia-smi`` listing compute processes;
+    ``start-test.sh`` runs the load generator; a second start on the held
+    port fails and leaves no PID file; ``stop-all.sh`` stops the daemon
+    with SIGINT, and the checkpoint it writes on the way out loads with
+    every row."""
+    from apsim_tpu_torch.etl.store import VectorStore
+    from apsim_tpu_torch.serve import ClientConnection
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    docs, store = os.path.join(work, "docs"), os.path.join(work, "store")
+    ck, no_hosts = os.path.join(work, "ckpt"), os.path.join(work, "servers")
+    env = dict(os.environ, APSIM_PYTHON=sys.executable,
+               APSIM_PID_DIR=os.path.join(work, "pid"),
+               APSIM_LOG_DIR=os.path.join(work, "logs"))
+    pid_file = os.path.join(env["APSIM_PID_DIR"], "apsim-torch-server.pid")
+    rec, pid = {}, None
+    try:
+        text_corpus(docs, DEPLOY_DOCS)
+        _, rec["etl_seconds"] = cli(["etl", docs, "--store", store,
+                                     "--table", "T"])
+        csr, ids = VectorStore(store).read("T")
+        if csr.n_rows != DEPLOY_DOCS:
+            raise AssertionError(f"etl wrote {csr.n_rows} rows")
+        port = free_port()
+        addr = f"127.0.0.1:{port}"
+        serve_args = ["--device", dev.type, "--port", str(port), "--store",
+                      store, "--table", "T", "--checkpoint-dir", ck]
+        _, rec["start_seconds"] = sbin("start-all.sh",
+                                       [no_hosts] + serve_args, env, work)
+        with open(pid_file) as f:
+            pid = int(f.read())
+        if not pid_alive(pid):
+            raise AssertionError(f"start-all.sh returned, daemon {pid} gone")
+        cc = ClientConnection([addr])
+        try:
+            t0 = time.perf_counter()
+            cc.load_data("T", 0, csr.n_rows - 1)
+            wait_for(lambda: cc.stats()["n_rows"] == csr.n_rows, 300,
+                     f"the daemon to index {csr.n_rows} rows")
+            rec["load_seconds"] = time.perf_counter() - t0
+            before = cc.stats()
+            t0 = time.perf_counter()
+            pairs = cc.all_pairs(TAU)
+            rec["join_rpc_seconds"] = time.perf_counter() - t0
+            after = cc.stats()
+        finally:
+            cc.close()
+        launches = {k: after["launches"][k] - before["launches"][k]
+                    for k in after["launches"]}
+        log(f"phase 15 kernel launches in the daemon on the all_pairs RPC: "
+            f"{launches}; its kernel section "
+            f"{json.dumps(after['timings'].get('kernel'))}")
+        if (launches["score_bits_int8"] < 1
+                or sum(launches.values()) != launches["score_bits_int8"]
+                or "kernel" not in after["timings"]):
+            raise AssertionError(f"phase 15 join: launches {launches}, "
+                                 f"timings {after['timings']}")
+        row = {v: i for i, v in enumerate(ids)}
+        got = {(min(row[a], row[b]), max(row[a], row[b]))
+               for a, b, _ in pairs}
+        want = batch_oracle([], compact_columns(csr), 0, TAU, dev)
+        if got != want or not want:
+            raise AssertionError(f"phase 15 all_pairs RPC: {len(got)} "
+                                 f"pairs, fp64 oracle {len(want)}")
+        apps, held = gpu_pids(), card_files(pid)
+        if not apps or "/dev/nvidiactl" not in held or not any(
+                re.fullmatch(r"/dev/nvidia\d+", f) for f in held):
+            raise AssertionError(f"the daemon {pid} holds {sorted(held)}; "
+                                 f"nvidia-smi lists {apps}")
+        log(f"phase 15 all_pairs RPC over {csr.n_rows} rows: {len(got)} "
+            f"pairs equal the fp64 oracle; the daemon {pid} holds "
+            f"{sorted(held)} open, nvidia-smi lists compute processes "
+            f"{apps}")
+        proc, rec["loadgen_seconds"] = sbin(
+            "start-test.sh", [addr, "--store", store, "--table", "T"]
+            + DEPLOY_BENCH, env, work)
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        if rep.get("messages") != 400:
+            raise AssertionError(f"start-test.sh: {rep}")
+        rec["loadgen"] = rep
+        log(f"phase 15 load generator through the daemon, insert -> first "
+            f"result: {json.dumps(rep)}")
+        cc = ClientConnection([addr])
+        try:
+            served = cc.stats()["n_rows"]
+        finally:
+            cc.close()
+        if served != 2 * csr.n_rows:  # the table, then its warm-up copy
+            raise AssertionError(f"the daemon holds {served} rows")
+        env2 = dict(env, APSIM_PID_DIR=os.path.join(work, "pid2"),
+                    APSIM_LOG_DIR=os.path.join(work, "logs2"))
+        proc, _ = sbin("daemon.sh", ["start"] + serve_args, env2, work,
+                       check=False)
+        if proc.returncode == 0 or os.listdir(env2["APSIM_PID_DIR"]):
+            raise AssertionError("a second start on the held port: exit "
+                                 f"{proc.returncode}, PID dir "
+                                 f"{os.listdir(env2['APSIM_PID_DIR'])}")
+        if not pid_alive(pid):
+            raise AssertionError("the failed start took the daemon down")
+        _, rec["stop_seconds"] = sbin("stop-all.sh", [no_hosts], env, work)
+        if pid_alive(pid) or os.path.exists(pid_file):
+            raise AssertionError(f"daemon {pid} after stop-all.sh: alive "
+                                 f"{pid_alive(pid)}")
+        proc, _ = sbin("daemon.sh", ["status"], env, work)
+        if proc.stdout.strip() != "stopped":
+            raise AssertionError(f"status after the stop: {proc.stdout}")
+        back = Engine.load(ck, device=dev)
+        if back.n_rows != served:
+            raise AssertionError(f"the SIGINT checkpoint: {back.n_rows} "
+                                 f"rows, served {served}")
+        del back
+        log(f"phase 15 daemon stopped by SIGINT; its checkpoint loads with "
+            f"{served} rows; timings {json.dumps(rec)}")
+    finally:
+        if pid is not None and pid_alive(pid):
+            os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(work, ignore_errors=True)
+    for k in kernels:
+        k["deploy_launches"] = launches[k["name"]]
+    log(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3237,6 +3450,10 @@ def main() -> int:
     # ---- phase 14: bench_torch.py's headline join and insert cells
     torch.cuda.empty_cache()
     bench_torch_phase(dev, kernels)
+
+    # ---- phase 15: the deploy scripts drive the daemon on the card
+    torch.cuda.empty_cache()
+    deploy_phase(dev, kernels)
 
     log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -580,10 +580,12 @@ def test_port_server_equals_jax_server(tmp_path, corpus):
     want = brute_force_pairs(corpus, 0.5, ids=ids)
     assert emitted_pairs(po) == emitted_pairs(jo) == want
     # every stats key of the JAX server (a JSON round trip each), and the
-    # port's device-candidate count beside them; pairs_emitted and the
-    # batch counts depend on how the flusher cut the concurrent stream into
-    # micro-batches (intra-batch pairs come out both ways)
-    assert set(ps) - set(js) == {"candidate_pairs"} and set(js) <= set(ps)
+    # port's device-candidate count and kernel launch counts beside them;
+    # pairs_emitted and the batch counts depend on how the flusher cut the
+    # concurrent stream into micro-batches (intra-batch pairs come out both
+    # ways)
+    assert set(ps) - set(js) == {"candidate_pairs", "launches"}
+    assert set(js) <= set(ps)
     assert ps["timings"]["insert"]["count"] >= 1
     assert js["timings"]["insert"]["count"] >= 1
     for k in ("n_rows", "vectors_indexed", "vectors_dropped_admission",
