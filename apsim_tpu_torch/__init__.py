@@ -25,11 +25,17 @@ processes), the load generator (``bench.loadgen``) and the command line
 (``python -m apsim_tpu_torch.cli``, ``apsim-torch``; ``serve --replicate``);
 the benchmark suite (``bench.suite``, ``cli bench-suite``), the reference
 baseline, ``bench.mfu`` with the card's peaks, ``bench.scale.run_scale``
-and the join, insert, panel and serve stage probes.  Not ported, by
-design: the JAX package's XLA schedule studies and TPU slab study
-(``bench/tri_probe.py``, ``mesh_tri_probe.py``, ``ell_probe.py``).  Entry
-points run on the card (``"cuda"``, or a mesh over the cards) unless the
-caller names the CPU.
+and the join, insert, panel and serve stage probes; the schedule and slab
+studies (``bench.tri_probe``, ``bench.mesh_tri_probe``: the full-rectangle
+join's triangle against its rectangle, on one device and on a dims mesh;
+``bench.ell_probe``: an ELL corpus matched by a row-gather contraction).
+Their tests run on the CPU against the JAX studies (``python -m pytest
+tests/test_torch_studies.py``); on the card they run in ``chip_smoke.py``
+phase 16 or as ``python -m apsim_tpu_torch.bench.<study>``.  Left out on
+purpose: the JAX package's TPU workarounds (caps and packed heads,
+background prewarm, ``_row_cap_law``, ``utils/jaxsetup.py``,
+``PaddedBatch``).  Entry points run on the card (``"cuda"``, or a mesh
+over the cards) unless the caller names the CPU.
 """
 
 from .config import AllPairsConfig, load_config

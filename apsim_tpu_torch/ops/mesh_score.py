@@ -170,17 +170,20 @@ def _live(grid, hb: int, row_limit: int):
 
 def mesh_allpairs_extract(blocks, grid, devices, tau_eff, tile: int,
                           precision: str = "highest", group: int = 8,
-                          timer=None):
-    """Upper-triangle candidates of the whole index: a list of device int64
-    ``(rows, cols)`` pairs with global coordinates and exact lengths, one
-    per (query tile, live row block), each on its row block's first device
-    (on the lead device for a pair from another process).
+                          timer=None, mode: str = "upper"):
+    """Candidates of the whole index: a list of device int64 ``(rows,
+    cols)`` pairs with global coordinates and exact lengths, one per
+    (query tile, live row block), each on its row block's first device (on
+    the lead device for a pair from another process).
 
     ``blocks`` is the row-major list of the grid's operand blocks
     (``score.score_operand`` already applied; None for another process's),
     ``grid = (nr, nd)``, ``devices`` the mesh (or its device list).
-    Buckets and checks are ``score.allpairs_extract``'s (``mode="upper"``):
-    only row blocks with rows below a bucket's end are scored.  One host
+    Buckets, modes and checks are ``score.allpairs_extract``'s:
+    ``mode="upper"`` keeps the strict upper triangle and scores only the
+    row blocks with rows below a bucket's end; ``mode="all"`` scores every
+    live row block against every tile (one bucket over ``row_cap``) and
+    keeps every thresholded cell, self and symmetric pairs too.  One host
     synchronization (``nonzero``) per query tile and live row block.
     Stages: "gather", "kernel", "reduce", "compact"."""
     mesh = as_mesh(devices)
@@ -191,9 +194,14 @@ def mesh_allpairs_extract(blocks, grid, devices, tau_eff, tile: int,
         raise ValueError(f"row_cap {row_cap} not a multiple of tile {tile}")
     if tile % group:
         raise ValueError(f"tile {tile} not a multiple of group {group}")
+    if mode not in ("upper", "all"):
+        raise ValueError(f"unknown mode: {mode}")
+    upper = mode == "upper"
+    n_tiles = row_cap // tile
     tau_eff = float(tau_eff)
     found, keys, total = {}, [], 0
-    for tb0, tb1 in score_ops.upper_buckets(row_cap // tile):
+    for tb0, tb1 in (score_ops.upper_buckets(n_tiles) if upper
+                     else [(0, n_tiles)]):
         prefix = tb1 * tile
         for t in range(tb0, tb1):
             q0 = t * tile
@@ -206,11 +214,14 @@ def mesh_allpairs_extract(blocks, grid, devices, tau_eff, tile: int,
             with ts._section(timer, "compact"):
                 for r in list(sums):
                     s = sums.pop(r)
-                    rows = r * hb + torch.arange(s.shape[0], device=s.device)
-                    cols = q0 + torch.arange(tile, device=s.device)
-                    hit = torch.nonzero(
-                        (s >= tau_eff) & (rows[:, None] < cols[None, :]))
-                    del s
+                    m = s >= tau_eff
+                    if upper:
+                        rows = r * hb + torch.arange(s.shape[0],
+                                                     device=s.device)
+                        cols = q0 + torch.arange(tile, device=s.device)
+                        m &= rows[:, None] < cols[None, :]
+                    hit = torch.nonzero(m)
+                    del s, m
                     total += hit.shape[0]
                     ts.check_pair_count(total)
                     found[t, r] = (hit[:, 0] + r * hb, hit[:, 1] + q0)

@@ -235,6 +235,18 @@ result line):
     stopped, and the checkpoint written on the way out loads with every
     row the daemon held (the table and the load test's warm-up copy).
     Each kernel's record gets the daemon's launches (``deploy_launches``).
+16. The schedule and slab studies (``apsim_tpu_torch/bench/``), between
+    zeroed launch counters: ``tri_probe`` at 8,192 x 16,384 on one device
+    and over a dims mesh of 4 shards of the card (parity leg: the
+    triangle's pairs equal the rectangle's folded); ``mesh_tri_probe`` at
+    8,192 rows over 4 shards (the rectangle's candidates folded equal the
+    triangle's; the flops per device its dispatch counter saw equal the
+    closed form of each schedule); ``ell_probe``'s two formulations on
+    phase 5's first 98,304 rows, K 192, bs 256, each count inside the
+    bracket of the fp64 contraction of the same operands (cells within
+    ``(K + 2) * 2^-23`` of the sum of their terms' magnitudes from tau
+    may fall either side; the phase prints how many).  None of the four
+    kernels launches (each kernel's record gets ``study_launches``).
 
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
@@ -264,8 +276,9 @@ import bench_torch
 from apsim_tpu_torch import (AllPairsConfig, ChunkedAllPairs, CSRMatrix,
                              Engine, MeshChunkedAllPairs, MeshEngine,
                              SparseVector, make_mesh)
-from apsim_tpu_torch.bench import (insert_probe, join_probe, panel_probe,
-                                   scale, serve_probe, suite)
+from apsim_tpu_torch.bench import (ell_probe, insert_probe, join_probe,
+                                   mesh_tri_probe, panel_probe, scale,
+                                   serve_probe, suite, tri_probe)
 from apsim_tpu_torch.bench.mfu import H100_SXM
 from apsim_tpu_torch.bench.ooc import (batch_oracle, csr_rows, dense_rows,
                                        join_ops, profile_join)
@@ -3085,6 +3098,136 @@ def deploy_phase(dev, kernels: list) -> None:
     log(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# ---------------------------------------------- phase 16: the studies
+TRI_SHAPE = (8192, 16384)  # tri_probe's row_cap x dim_cap (its default)
+MESH_TRI_ROWS = 8192
+STUDY_SHARDS = 4
+ELL_ROWS, ELL_K, ELL_BS, ELL_TAU = 98_304, 192, 256, 0.8
+ELL_REF_BLOCK = 2048  # rows a block of the fp64 reference
+
+
+def ell_fp64(idx, val, qd):
+    """fp64 scores ``[rows, bs]`` of the ELL contraction of the same bf16
+    operands on the card, and the sums of their terms' magnitudes."""
+    v64, q64 = val.double(), qd.double()
+    s, a = [], []
+    for i in range(0, idx.shape[0], ELL_REF_BLOCK):
+        g = q64.index_select(0, idx[i:i + ELL_REF_BLOCK].reshape(-1)).view(
+            -1, idx.shape[1], qd.shape[1])
+        v = v64[i:i + ELL_REF_BLOCK, None, :]
+        s.append(torch.bmm(v, g)[:, 0])
+        a.append(torch.bmm(v.abs(), g.abs())[:, 0])
+        del g
+    return torch.cat(s), torch.cat(a)
+
+
+def ell_gate(label: str, counts, s64, a64, block: int) -> int:
+    """Each block's count of fp32 scores >= ``ELL_TAU`` must lie between
+    the fp64 counts of the cells at or above ``ELL_TAU + b`` and at or
+    above ``ELL_TAU - b``, ``b = (K + 2) * 2^-23 * sum |terms|`` a cell: an
+    fp32 sum of K exact bf16 products errs by at most ``(K - 1) * 2^-24 *
+    sum |terms|`` rounding to nearest, twice that with the tensor cores'
+    truncating adds.  Returns the cells within ``b`` of tau (the only
+    cells whose side may differ)."""
+    b = (ELL_K + 2) * 2.0 ** -23 * a64
+    shape = (-1, block * s64.shape[1])
+    sure = (s64 >= ELL_TAU + b).view(shape).sum(1)
+    maybe = (s64 >= ELL_TAU - b).view(shape).sum(1)
+    counts = counts.to(sure.device).long().view(-1)
+    bad = (counts < sure) | (counts > maybe)
+    if bool(bad.any()):
+        raise AssertionError(
+            f"phase 16 {label}: counts {counts[bad].tolist()} outside the "
+            f"fp64 bracket [{sure[bad].tolist()}, {maybe[bad].tolist()}]")
+    return int((maybe - sure).sum())
+
+
+def ell_phase(dev, csr: CSRMatrix) -> dict:
+    """``ell_probe``'s functions on the first ``ELL_ROWS`` rows of
+    ``csr``: both formulations timed and held against the fp64
+    contraction of the same operands."""
+    ccsr, n_dims = ell_probe.compact_dims(csr_rows(csr, 0, ELL_ROWS))
+    idx_h, val_h, spilled = ell_probe.to_ell(ccsr, ELL_ROWS, ELL_K, n_dims)
+    idx = torch.from_numpy(idx_h).to(dev)
+    val = torch.from_numpy(val_h).to(dev, torch.bfloat16)
+    qd = torch.from_numpy(ell_probe.query_dense(ccsr, ELL_BS, n_dims)).to(
+        dev, torch.bfloat16)
+    nnz = int(ccsr.indices.size)
+    rec = {"n_rows": ELL_ROWS, "K": ELL_K, "bs": ELL_BS, "nnz": nnz,
+           "compact_dims": n_dims, "spilled": int(spilled),
+           "gather_floor_ms": (nnz - spilled) * ELL_BS * 2 / HBM_BYTES_PER_S
+           * 1e3}
+    s64, a64 = ell_fp64(idx, val, qd)
+    rec["fp64_hits"] = int((s64 >= ELL_TAU).sum())
+    for block in ell_probe.BLOCKS:
+        if ELL_ROWS % block:  # the study's rule: such a block is skipped
+            continue
+        counts = ell_probe.ell_match_blocked(idx, val, qd, block, ELL_TAU)
+        rec[f"blocked_{block}_near_cells"] = ell_gate(
+            f"ell blocked[{block}]", counts, s64, a64, block)
+        rec[f"blocked_{block}_hits"] = int(counts.sum())
+        rec[f"blocked_{block}_ms"] = tri_probe.timed_s(
+            lambda: ell_probe.ell_match_blocked(idx, val, qd, block,
+                                                ELL_TAU), dev) * 1e3
+    count = ell_probe.ell_match_scan(idx, val, qd, ELL_TAU)
+    rec["scan_near_cells"] = ell_gate("ell scan", count, s64, a64, ELL_ROWS)
+    rec["scan_hits"] = int(count)
+    rec["scan_ms"] = tri_probe.timed_s(
+        lambda: ell_probe.ell_match_scan(idx, val, qd, ELL_TAU), dev) * 1e3
+    if rec["fp64_hits"] < ELL_BS // 2:
+        raise AssertionError(f"phase 16 ell: only {rec['fp64_hits']} fp64 "
+                             f"hits; the gate would check little")
+    return rec
+
+
+def study_phase(dev, kernels: list, ooc_csr: CSRMatrix) -> None:
+    """Phase 16: the schedule and slab studies (``bench/tri_probe.py``,
+    ``mesh_tri_probe.py``, ``ell_probe.py``) between zeroed launch
+    counters, none of the four kernels launching: ``tri_probe`` at its
+    default size on one device and over a dims mesh of 4 shards of the
+    card (its parity leg holds), ``mesh_tri_probe`` at 8,192 rows over 4
+    shards (the rectangle's candidates folded equal the triangle's, and
+    the dispatch counter's flops per device equal the closed form), and
+    ``ell_probe``'s two formulations on phase 5's first 98,304 rows, K
+    192, bs 256, each count inside the fp64 bracket of ``ell_gate``."""
+    t_phase = time.perf_counter()
+    zero_launches()
+    args = [str(n) for n in TRI_SHAPE]
+    for extra in ([], ["--shards", str(STUDY_SHARDS)]):
+        rep = tri_probe.main(args + extra)
+        if not rep["parity"]["equal"] or rep["n_devices"] != (
+                STUDY_SHARDS if extra else 1):
+            raise AssertionError(f"phase 16 tri_probe {extra}: {rep}")
+        log(f"phase 16 tri_probe {' '.join(args + extra)}: "
+            f"{json.dumps(rep)}")
+        torch.cuda.empty_cache()
+
+    rep = mesh_tri_probe.main([str(MESH_TRI_ROWS), "--shards",
+                               str(STUDY_SHARDS)])
+    log(f"phase 16 mesh_tri_probe: {json.dumps(rep)}")
+    row_cap, tile, dim_cap = rep["row_cap"], rep["tile"], rep["dim_cap"]
+    want = {"upper": rect_flops(row_cap, tile, dim_cap) // STUDY_SHARDS,
+            "all": 2 * row_cap * row_cap * dim_cap // STUDY_SHARDS}
+    got = {m: rep[m]["flops"] for m in want}
+    if not rep["folded_all_equals_upper"] or got != want:
+        raise AssertionError(f"phase 16 mesh_tri_probe: folded equal "
+                             f"{rep['folded_all_equals_upper']}, flops per "
+                             f"device {got}, closed form {want}")
+    torch.cuda.empty_cache()
+
+    rec = ell_phase(dev, ooc_csr)
+    log(f"phase 16 ell_probe: {json.dumps(rec)}")
+    got = dict(ts.LAUNCHES)
+    log(f"phase 16 kernel launches: {got}")
+    if any(got.values()):
+        raise AssertionError(f"phase 16: a kernel launched in the studies: "
+                             f"{got}")
+    for k in kernels:
+        k["study_launches"] = got[k["name"]]
+    torch.cuda.empty_cache()
+    log(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3454,6 +3597,10 @@ def main() -> int:
     # ---- phase 15: the deploy scripts drive the daemon on the card
     torch.cuda.empty_cache()
     deploy_phase(dev, kernels)
+
+    # ---- phase 16: the schedule and slab studies
+    torch.cuda.empty_cache()
+    study_phase(dev, kernels, ooc_csr)
 
     log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -11,9 +11,11 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the benchmark suite and the stage probes (ROADMAP item D2)
+# the benchmark suite, the stage probes (ROADMAP item D2) and the schedule
+# and slab studies
 BENCH_MODULES = ("suite", "baseline", "mfu", "scale", "join_probe",
-                 "insert_probe", "panel_probe", "serve_probe")
+                 "insert_probe", "panel_probe", "serve_probe", "tri_probe",
+                 "mesh_tri_probe", "ell_probe")
 
 
 @pytest.mark.parametrize("target", ["apsim_tpu_torch", "chip_smoke.py",
