@@ -141,7 +141,9 @@ def main(argv=None) -> dict:
                      mesh=study_mesh(dev, shards))
     eng.build(csr)
     report = {
-        "n_rows": n, "devices": shards, "row_cap": eng.row_cap,
+        "n_rows": n, "devices": shards,
+        "mesh_devices": [str(d) for d in eng.mesh.devices],
+        "row_cap": eng.row_cap,
         "dim_cap": eng.dim_cap, "tile": eng._tile(), "shard_axis": "dims",
     }
     folded = {}

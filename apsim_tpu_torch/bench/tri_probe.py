@@ -16,7 +16,7 @@ here, not assumed:
    for both modes, each tile's product ``prefix x (dim_cap / n_dev) x
    tile`` per device and its fp32 ``[prefix, tile]`` partial summed across
    the dim shards; ``n_devices`` is the mesh's shard count (1 without
-   ``--shards``);
+   ``--shards``), ``mesh_devices`` the device of each shard;
 3. **executed wall-time A/B**: at the requested size on one device (the JAX
    study's ``--tpu`` leg); with ``--shards N`` over a dims mesh of N shards
    (on one card when N exceeds the card count) through
@@ -209,6 +209,8 @@ def main(argv=None) -> dict:
     report["modes"], report["flops_ratio_upper_vs_all"] = accounting(
         row_cap, dim_cap, tile, n_dev)
     report["n_devices"] = n_dev
+    report["mesh_devices"] = [str(d) for d in (mesh.devices if mesh
+                                               else (dev,))]
 
     # ---- leg 3: executed wall-time A/B ----
     if dev.type == "cuda":

@@ -26,7 +26,9 @@ Both kernels (and the cross-panel kernel and the int8 matmul of
 ``wgmma`` over thread-block tiles chosen by shape (``thread_block_tile``),
 walked through a live-first sub-tile list (``tile_list``).
 
-``LAUNCHES`` counts the kernel launches of each wrapper.
+``LAUNCHES`` counts the kernel launches of each wrapper, and
+``LAUNCHES_BY_CARD`` the same launches by the index of the card they ran
+on (a mesh over several cards launches on each).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import torch
 from ._build import kernels
 
 __all__ = [
-    "GROUP", "SUPER", "SUPER2", "LAUNCHES", "check_tiles", "upper_blocks_rect",
+    "GROUP", "SUPER", "SUPER2", "LAUNCHES", "LAUNCHES_BY_CARD",
+    "zero_launches", "check_tiles", "upper_blocks_rect",
     "quantize_rows", "thread_block_tile", "live_subtiles", "tile_list",
     "check_aligned", "next_tile_counter",
     "score_bits_int8", "score_bits_bf16",
@@ -63,6 +66,15 @@ THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of all four kernels
 # ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py``
 LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
             "panel_score_bits_int8": 0, "int8_matmul": 0}
+# the same launches keyed by wrapper, then by card index
+LAUNCHES_BY_CARD = {name: {} for name in LAUNCHES}
+
+
+def zero_launches() -> None:
+    """Set every count of ``LAUNCHES`` and ``LAUNCHES_BY_CARD`` to zero."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        LAUNCHES_BY_CARD[name].clear()
 
 
 def check_tiles(rows_i: int, rows_j: int, dim: int, tm: int, tn: int,
@@ -254,6 +266,8 @@ def _launch(name: str, x: torch.Tensor, args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    card = LAUNCHES_BY_CARD[name]
+    card[x.device.index] = card.get(x.device.index, 0) + 1
 
 
 def score_bits_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024, tn: int = 512):

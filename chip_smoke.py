@@ -9,6 +9,11 @@ Run from the repository root, with one NVIDIA H100 visible:
 ranks one a card over four cards (and the references it is held against,
 rebuilt on the first card); it ends with the same lines.
 
+``python3 chip_smoke.py --mesh-cards N`` runs phase 17 alone on a machine
+with at least N >= 2 cards (fewer raise before any work; the mesh is never
+shrunk) and ends with the same lines.  The default run (phases 1-16) needs
+one card and never runs phase 17.
+
 ``--profile`` adds one more join of each dense engine under
 ``torch.profiler`` after phase 3 (device busy time and idle share; the
 profiler's start-up costs about 7 s on an H100 machine).
@@ -248,6 +253,37 @@ result line):
     may fall either side; the phase prints how many).  None of the four
     kernels launches (each kernel's record gets ``study_launches``).
 
+17. (``--mesh-cards N`` only.)  The one-process meshes with one shard a
+    card, each leg run first with every shard on card 0 (the same mesh,
+    the same run) and held to it bit for bit (``equal_bits``: pair sets
+    with their similarities, every insert's output, the candidate lists,
+    the top-k lists, the frozen matches, the blocks) and to the fp64
+    oracle.  Kernels 1 and 2 first, against their plain versions on every
+    card (phase 2's index, built on that card).  17a: ``MeshEngine`` over
+    ``make_mesh(shape, devices=[cuda:0 .. cuda:N-1])`` in phase 11a's three
+    layouts through ``mesh_dense_stream`` (build, join, the stream with its
+    row growth, the streamed join: the rows layout launches kernel 3 once
+    on each card, ``LAUNCHES_BY_CARD``, and it equals its plain version at
+    each card's own operands; top-k, frozen matching, the in-process
+    server on the rows layout, the timings; every shard's blocks on its
+    own card), then the warm join's wall time (median of 5, stage split),
+    new dims (column growth, dormant activation) against the fp64 oracle
+    and the join of the grown index.  17b: ``MeshChunkedAllPairs`` over N
+    cards on phase 5's corpus through ``mesh_chunked_stream`` (kernel 4
+    once a card a panel pair, exactly its plain version on each card).
+    17c: ``MeshChunkedAllPairs`` over the cards joins
+    ``synthetic_corpus(500000)`` (made in a process of its own meanwhile)
+    twice, its pair set equal to one-card ``ChunkedAllPairs``'; wall
+    times, stage split, each card's peak memory.  17d: ``python -m
+    apsim_tpu_torch.cli serve --mesh --mesh-shape N`` (rows layout): a load
+    RPC of phase 3's rows, the ``all_pairs`` RPC against the fp64 oracle,
+    two clients streaming fresh rows against it, SIGINT (kernel 3 once a
+    card in the server); the checkpoint restores onto the cards and onto a
+    one-card ``Engine`` with equal joins (kernel 1 bit for bit at the
+    restored operands).  ``nvidia-smi topo -m`` and
+    ``can_device_access_peer`` of every pair are printed first, a summary
+    of every leg's timings and peak memory last.
+
 Every kernel's record holds its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (inputs read once,
 outputs written once) over the memory rate, at this run's shapes.
@@ -258,6 +294,7 @@ The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -322,17 +359,21 @@ def smi_line() -> str:
     return out.stdout.strip()
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def median_ms(fn, reps: int = 5, dev=None) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events on the
+    current stream of ``dev``, the card ``fn`` runs on; default the
+    current card)."""
     times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+    with (torch.cuda.device(dev) if dev is not None
+          else contextlib.nullcontext()):
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize(dev)
+            times.append(a.elapsed_time(b))
     return float(np.median(times))
 
 
@@ -492,8 +533,9 @@ def compare_cross(args, valid, label: str, timed: bool) -> dict:
     kern = lambda: panel_ops.panel_score_bits_int8(*args, valid=valid)
     plain = lambda: panel_ops.panel_score_bits_int8_plain(*args, valid=valid)
     bi, bj, off, tm, tn = args[4], args[5], args[6], args[8], args[9]
+    dev = args[0].device
     k = kern()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     p = plain()
     check_packing(k)
     err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
@@ -511,8 +553,8 @@ def compare_cross(args, valid, label: str, timed: bool) -> dict:
            "pairs_kernel": int(k[2][:, 0].sum()), "max_abs_err": 0.0}
     del k, p
     if timed:
-        rec["ms"] = median_ms(kern)
-        rec["plain_ms"] = median_ms(plain)
+        rec["ms"] = median_ms(kern, dev=dev)
+        rec["plain_ms"] = median_ms(plain, dev=dev)
         rec["tops"] = (rec["blocks"] * tm * tn * args[0].shape[1] * 2
                        / rec["ms"] / 1e9)
         rec.update(score_bound(args[:2], 4 * (args[2].numel()
@@ -713,8 +755,12 @@ def ooc_join(eng: ChunkedAllPairs, label: str, reps: int,
 
 
 def zero_launches() -> None:
-    for k in ts.LAUNCHES:
-        ts.LAUNCHES[k] = 0
+    ts.zero_launches()
+
+
+def launches_by_card() -> dict:
+    """``ts.LAUNCHES_BY_CARD`` as a plain copy."""
+    return {k: dict(v) for k, v in ts.LAUNCHES_BY_CARD.items()}
 
 
 def mesh_join_ops(geom) -> int:
@@ -728,8 +774,9 @@ def compare_mm(xi, xj, label: str) -> dict:
     """Kernel 4 against its plain version on (xi, xj), exact int32
     equality; timed (CUDA events, median of 5) beside ``torch._int_mm`` on
     the same operands, the library yardstick."""
+    dev = xi.device
     k = panel_mesh.int8_matmul(xi, xj)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     p = panel_mesh.int8_matmul_plain(xi, xj)
     if not torch.equal(k, p):
         raise AssertionError(
@@ -741,9 +788,11 @@ def compare_mm(xi, xj, label: str) -> dict:
     ops = 2 * m * n * d
     rec = {"label": label, "m": m, "n": n, "d": d, "max_abs_err": 0.0,
            "library_equal": lib_equal,
-           "ms": median_ms(lambda: panel_mesh.int8_matmul(xi, xj)),
-           "plain_ms": median_ms(lambda: panel_mesh.int8_matmul_plain(xi, xj)),
-           "library_ms": median_ms(lambda: torch._int_mm(xi, xj.t()))}
+           "ms": median_ms(lambda: panel_mesh.int8_matmul(xi, xj), dev=dev),
+           "plain_ms": median_ms(lambda: panel_mesh.int8_matmul_plain(xi, xj),
+                                 dev=dev),
+           "library_ms": median_ms(lambda: torch._int_mm(xi, xj.t()),
+                                   dev=dev)}
     rec["tops"] = ops / rec["ms"] / 1e9
     rec.update(bound(ops, (m + n) * d + 4 * m * n, PEAK_INT8))
     log(f"kernel 4: {json.dumps(rec)}")
@@ -863,6 +912,17 @@ def median_host_ms(fn, reps: int = 9) -> float:
     return float(np.median(times))
 
 
+def shifted_rows(csr: CSRMatrix) -> list:
+    """64 corpus rows with their dims moved past the corpus's (every
+    synthetic dim lies below 32,768)."""
+    picks = np.arange(7, csr.n_rows, csr.n_rows // 64)[:64]
+    vecs = []
+    for p in picks:
+        v = csr.row(int(p))
+        vecs.append(SparseVector(v.size, v.indices + 32768, v.values))
+    return vecs
+
+
 def dims_step(eng: Engine, csr: CSRMatrix, d: torch.Tensor,
               want: set) -> None:
     """Column growth and dormant activation on the streamed index: 64
@@ -872,11 +932,7 @@ def dims_step(eng: Engine, csr: CSRMatrix, d: torch.Tensor,
     the older rows of ``x`` and of its kept bf16 copy, without growth. The
     outputs equal an fp64 oracle, and the join of the grown index (kernel
     1) equals the old pair set with the new pairs."""
-    picks = np.arange(7, csr.n_rows, csr.n_rows // 64)[:64]
-    vecs = []
-    for p in picks:
-        v = csr.row(int(p))
-        vecs.append(SparseVector(v.size, v.indices + 32768, v.values))
+    vecs = shifted_rows(csr)
     n0 = eng.n_rows
     ids = [str(n0 + k) for k in range(72)]
     cap0, dorm0 = eng.dim_cap, eng.stats["dormant_dims"]
@@ -1924,6 +1980,53 @@ SERVE_ROWS = 2_048
 TIMED_BATCHES = (1, 32, 256)
 
 
+def shard_devices(devices, n: int) -> list:
+    """The devices of an ``n``-shard mesh: ``n`` times one device (phase
+    11's shards on one card), or a list of exactly ``n`` (phase 17's, one
+    card a shard).  A list of another length raises: no shard is moved
+    to a card it was not given."""
+    if isinstance(devices, (torch.device, str)):
+        return [torch.device(devices)] * n
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"a {n}-shard mesh given {len(devices)} devices")
+    return devices
+
+
+def where(devices) -> str:
+    """``"4 shards on one card"`` or ``"4 shards over 4 cards"``."""
+    cards = len(set(devices))
+    return (f"{len(devices)} shards on one card" if cards == 1
+            else f"{len(devices)} shards over {cards} cards")
+
+
+def card_counts(devices, per: int = 1) -> dict:
+    """Launches a kernel must have made on each card when every shard of
+    ``devices`` launched it ``per`` times: ``{card index: count}``."""
+    out: dict = {}
+    for d in devices:
+        out[d.index] = out.get(d.index, 0) + per
+    return out
+
+
+def check_placement(blocks, devices, label: str) -> None:
+    """Each shard's tensor lies on its own device."""
+    got = [b.device for b in blocks]
+    if got != list(devices):
+        raise AssertionError(f"{label}: shards on {got}, not {devices}")
+
+
+def reset_peaks(devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def peaks(devices) -> list:
+    """``torch.cuda.max_memory_allocated`` of each distinct card."""
+    return [torch.cuda.max_memory_allocated(d)
+            for d in dict.fromkeys(devices)]
+
+
 def mesh_query_timings(eng, queries, fq, reps: int = 9) -> dict:
     """``topk(k=10)`` and frozen-match latency and queries/s (host clock,
     warm, median of ``reps``)."""
@@ -1940,7 +2043,8 @@ def mesh_query_timings(eng, queries, fq, reps: int = 9) -> dict:
 
 def check_blocks(eng: MeshEngine, x8: torch.Tensor, label: str) -> None:
     """Every block of the streamed mesh equals phase 8's streamed ``x`` on
-    its live rows and columns, bit for bit, and is zero past them."""
+    its live rows and columns, bit for bit, and is zero past them (each
+    block on its own card, beside a copy of its part of ``x``)."""
     nr, nd = eng.grid
     hb, wb = eng.row_cap // nr, eng.dim_cap // nd
     if eng.dim_cap != x8.shape[1]:
@@ -1950,7 +2054,8 @@ def check_blocks(eng: MeshEngine, x8: torch.Tensor, label: str) -> None:
         r, d = divmod(s, nd)
         live = min(max(eng.n_rows - r * hb, 0), hb)
         if not torch.equal(blk[:live], x8[r * hb:r * hb + live,
-                                          d * wb:(d + 1) * wb]) or bool(
+                                          d * wb:(d + 1) * wb].to(
+                                              blk.device)) or bool(
                 blk[live:].any()):
             raise AssertionError(f"{label}: block {s} differs from phase "
                                  f"8's streamed x")
@@ -1958,23 +2063,15 @@ def check_blocks(eng: MeshEngine, x8: torch.Tensor, label: str) -> None:
         f"8's streamed x on its {eng.n_rows} live rows, bit for bit")
 
 
-def serve_mesh(dev, eng: MeshEngine, csr: CSRMatrix) -> dict:
-    """Phase 11c: ``SimilarityServer`` + ``RpcServer`` in-process over the
-    streamed rows mesh; two clients stream ``SERVE_ROWS`` fresh rows (ids
-    ``f<i>``) while a subscriber collects the pushed outputs, which must
-    equal the fp64 oracle of the fresh rows against the index and each
-    other."""
-    from apsim_tpu_torch.serve import (ClientConnection, RpcServer,
-                                       SimilarityServer)
+def stream_two_clients(addr, fresh: CSRMatrix, want: set, served_rows,
+                       n_target: int, label: str) -> dict:
+    """Two clients stream every row of ``fresh`` (ids ``f<i>``, 64 a
+    call) to the server at ``addr`` while a subscriber collects the pushed
+    outputs; once ``served_rows()`` reaches ``n_target`` the pushed pairs
+    must equal ``want`` (id pairs, the fp64 oracle).  Returns the stream's
+    seconds."""
+    from apsim_tpu_torch.serve import ClientConnection
 
-    fresh = synthetic_corpus(SERVE_ROWS, seed=31)
-    n0 = eng.n_rows
-    ids = [str(i) for i in range(n0)] + [f"f{i}" for i in range(SERVE_ROWS)]
-    want = {(min(ids[a], ids[b]), max(ids[a], ids[b]))
-            for a, b in batch_oracle([csr], fresh, n0, TAU, dev)}
-    sim = SimilarityServer(eng, eng.cfg, device=dev)
-    rpc = RpcServer(sim, "127.0.0.1", 0).start()
-    addr = [f"{rpc.host}:{rpc.port}"]
     pushed: set = set()
     lock = threading.Lock()
     errors = []
@@ -1999,7 +2096,7 @@ def serve_mesh(dev, eng: MeshEngine, csr: CSRMatrix) -> dict:
     sub = ClientConnection(addr)
     try:
         sub.subscribe_outputs(on_output)
-        rows = np.arange(SERVE_ROWS)
+        rows = np.arange(fresh.n_rows)
         threads = [threading.Thread(target=stream, args=(rows[k::2],))
                    for k in range(2)]
         t0 = time.perf_counter()
@@ -2009,48 +2106,84 @@ def serve_mesh(dev, eng: MeshEngine, csr: CSRMatrix) -> dict:
             t.join()
         if errors:
             raise errors[0]
-        wait_for(lambda: sim.stats()["n_rows"] == n0 + SERVE_ROWS, 60,
-                 "the served rows")
+        wait_for(lambda: served_rows() == n_target, 60, "the served rows")
         rec["stream_seconds"] = time.perf_counter() - t0
         wait_for(lambda: len(pushed) >= len(want), 60, "the pushed outputs")
         time.sleep(0.2)
         with lock:
             if pushed != want or not want:
                 raise AssertionError(
-                    f"phase 11c pushed pairs differ from the fp64 oracle: "
+                    f"{label} pushed pairs differ from the fp64 oracle: "
                     f"{len(pushed - want)} extra, {len(want - pushed)} "
                     f"missing")
     finally:
         sub.close()
-        rpc.close()
-    rec.update(rows=SERVE_ROWS, pairs=len(want))
-    log(f"phase 11c server over the rows mesh: 2 clients streamed "
-        f"{SERVE_ROWS} fresh rows; {len(want)} pushed pairs equal the fp64 "
-        f"oracle; {json.dumps(rec)}")
     return rec
 
 
-def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
+def serve_mesh(devices, eng: MeshEngine, csr: CSRMatrix,
+               phase: str = "11c") -> dict:
+    """Phase 11c: ``SimilarityServer`` + ``RpcServer`` in-process over the
+    streamed rows mesh (its shards on ``devices``; the server on the
+    mesh's lead card, the oracle on the first device); two clients stream
+    ``SERVE_ROWS`` fresh rows (ids ``f<i>``) while a subscriber collects
+    the pushed outputs, which must equal the fp64 oracle of the fresh rows
+    against the index and each other."""
+    from apsim_tpu_torch.serve import RpcServer, SimilarityServer
+
+    dev = shard_devices(devices, eng.n_shards)[0]
+    if eng.mesh.lead != dev:
+        raise AssertionError(f"phase {phase}: the mesh leads on "
+                             f"{eng.mesh.lead}, not {dev}")
+    fresh = synthetic_corpus(SERVE_ROWS, seed=31)
+    n0 = eng.n_rows
+    ids = [str(i) for i in range(n0)] + [f"f{i}" for i in range(SERVE_ROWS)]
+    want = {(min(ids[a], ids[b]), max(ids[a], ids[b]))
+            for a, b in batch_oracle([csr], fresh, n0, TAU, dev)}
+    sim = SimilarityServer(eng, eng.cfg, device=dev)
+    rpc = RpcServer(sim, "127.0.0.1", 0).start()
+    try:
+        rec = stream_two_clients([f"{rpc.host}:{rpc.port}"], fresh, want,
+                                 lambda: sim.stats()["n_rows"],
+                                 n0 + SERVE_ROWS, f"phase {phase}")
+    finally:
+        rpc.close()
+    rec.update(rows=SERVE_ROWS, pairs=len(want))
+    log(f"phase {phase} server over the rows mesh ({where(devices)}): 2 "
+        f"clients streamed {SERVE_ROWS} fresh rows; {len(want)} pushed pairs "
+        f"equal the fp64 oracle; {json.dumps(rec)}")
+    return rec
+
+
+def mesh_dense_stream(devices, csr: CSRMatrix, want32: set, x8, qsets8,
                       kernels: list, smi: str, layout: str, shape,
-                      axis: str) -> dict:
-    """Phase 11a, one layout: ``MeshEngine`` over 4 shards of the card,
-    built on phase 8's first 24,576 rows, the rest streamed with phase 8's
+                      axis: str, phase: str = "11a", shards=(0, 3),
+                      tag: str = "mesh_stream", keep: bool = False) -> dict:
+    """Phase 11a, one layout: ``MeshEngine`` over 4 shards on ``devices``
+    (one device: the 4 shards on it; a list: one shard on each), built on
+    phase 8's first 24,576 rows, the rest streamed with phase 8's
     schedule; the union, the join of the streamed index (rows: kernel 3
-    once per shard, and bit for bit against its plain version at shard 0's
-    and shard 3's streamed operands), the blocks against phase 8's ``x``,
-    top-k and frozen matching; the rows layout then serves (11c); then the
-    timings.  Returns phase 12a's reference: every insert's output, the
-    candidate lists of the streamed index's join, the top-k lists and the
-    frozen match's output."""
-    label = f"phase 11a {layout} mesh, 4 shards on one card"
+    once per shard, and bit for bit against its plain version at the
+    streamed operands of each shard of ``shards``, the first timed), the
+    blocks against phase 8's ``x`` (``x8``; None skips it), top-k and
+    frozen matching; the rows layout then serves (11c); then the timings.
+    Each kernel record gets ``tag``-prefixed keys.  Returns phase 12a's
+    reference: the build join's pairs, every insert's output, the
+    candidate lists of the streamed index's join, the top-k lists, the
+    frozen match's output and the timings (``keep``: the engine too)."""
+    devices = shard_devices(devices, 4)
+    dev = devices[0]
+    label = f"phase {phase} {layout} mesh, {where(devices)}"
     eng = MeshEngine(AllPairsConfig(shard_axis=axis,
                                     similarity_threshold=TAU),
-                     mesh=make_mesh(shape, devices=[dev] * 4))
+                     mesh=make_mesh(shape, devices=devices))
     log(f"{label} build, {STREAM_BUILD} rows: "
         f"{json.dumps(eng.build(csr_rows(csr, 0, STREAM_BUILD)))}")
+    check_placement(eng.x_blocks, devices, label)
     caps0 = (eng.row_cap, eng.dim_cap)
     res = eng.all_pairs(TAU)
-    ref = {"outputs": []}
+    ref = {"join": (res.i.copy(), res.j.copy(), res.sims.copy()),
+           "outputs": []}
     union, _, _, nb, secs = stream_rows(eng, csr, STREAM_BUILD,
                                         [1] * 16 + [32] * 16,
                                         outputs=ref["outputs"])
@@ -2062,46 +2195,66 @@ def mesh_dense_stream(dev, csr: CSRMatrix, want32: set, x8, qsets8,
         raise AssertionError(f"{label}: streamed union differs from the "
                              f"fp64 oracle: {len(union - want32)} extra, "
                              f"{len(want32 - union)} missing")
+    check_placement(eng.x_blocks, devices, label)
     log(f"{label} stream: {nb} inserts in {secs:.3f} s; (row_cap, dim_cap) "
         f"{caps0} -> {(eng.row_cap, eng.dim_cap)}; build join + every "
         f"insert's output: {len(union)} pairs equal the fp64 oracle")
     zero_launches()
     res, ref["cand"] = join_with_candidates(eng, "_finalize_pairs")
-    launches = dict(ts.LAUNCHES)
+    launches, by_card = dict(ts.LAUNCHES), launches_by_card()
     expect = {k: 0 for k in launches}
+    expect_cards = {k: {} for k in launches}
     if axis == "rows":
         expect["panel_score_bits_int8"] = 4
-    if launches != expect:
-        raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{expect}")
+        expect_cards["panel_score_bits_int8"] = card_counts(devices)
+    if launches != expect or by_card != expect_cards:
+        raise AssertionError(f"{label}: launches {launches}, by card "
+                             f"{by_card}, expected {expect}, {expect_cards}")
     check_parity(res, want32, f"{label} join of the streamed index")
     if axis == "rows":
-        recs = [compare_rows_shard(eng, s, timed=s == 0) for s in (0, 3)]
+        recs = [compare_rows_shard(eng, s, timed=s == shards[0]
+                                   or tag != "mesh_stream")
+                for s in shards]
         log(f"{label} kernel 3 vs plain at the streamed operands: "
             f"{json.dumps(recs)}")
         k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
-        k3.update({"mesh_stream_join_launches": launches[
+        k3.update({f"{tag}_join_launches": launches[
             "panel_score_bits_int8"],
-            **{f"mesh_stream_{k}": recs[0][k] for k in (
+            **{f"{tag}_{k}": recs[0][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")},
-            "mesh_stream_max_abs_err": max(r["max_abs_err"] for r in recs)})
-    check_blocks(eng, x8, label)
+            f"{tag}_max_abs_err": max(r["max_abs_err"] for r in recs)})
+        if tag != "mesh_stream":
+            k3.update({f"{tag}_join_launches_by_card": by_card[
+                "panel_score_bits_int8"],
+                f"{tag}_per_card": [
+                    {"card": devices[r["shard"]].index,
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms")}} for r in recs]})
+    if x8 is not None:
+        check_blocks(eng, x8, label)
     queries, sq, fq, fs, fpicks = qsets8
     check_topk(eng, queries, sq, label)
     check_frozen(eng, fq, fs, fpicks, label)
     ref["topk"] = eng.topk(queries, 10)
     ref["frozen"] = frozen_output(eng, fq)
     if axis == "rows":
-        serve_mesh(dev, eng, csr)
-    rec = {"card": smi, "layout": layout, "rows": eng.n_rows,
-           "row_cap": eng.row_cap, "dim_cap": eng.dim_cap,
-           "stream_seconds": secs, "stream_batches": nb}
+        ref["served"] = serve_mesh(
+            devices, eng, csr,
+            phase="11c" if phase == "11a" else f"{phase} in-process server")
+    rec = {"card": smi, "layout": layout, "devices": [str(d) for d in
+                                                      devices],
+           "rows": eng.n_rows, "row_cap": eng.row_cap,
+           "dim_cap": eng.dim_cap, "stream_seconds": secs,
+           "stream_batches": nb}
     rec.update(stream_timings(eng, synthetic_corpus(4096, seed=13),
                               TIMED_BATCHES, None, split=MESH_SPLIT))
     rec.update(mesh_query_timings(eng, queries, fq))
     if eng.row_cap != 2 * STREAM_BUILD:
         raise AssertionError(f"{label}: the timing inserts grew the index")
     log(f"{label} timings: {json.dumps(rec)}")
+    ref["timings"] = rec
+    if keep:
+        ref["eng"] = eng
     return ref
 
 
@@ -2127,25 +2280,40 @@ def capacity_rows(eng: MeshChunkedAllPairs, seed: int = 41):
     return c, [vecs[s:s + 256] for s in range(0, n, 256)]
 
 
-def mesh_chunked_stream(dev, csr: CSRMatrix, want: set, qsets9,
-                        kernels: list, smi: str) -> None:
-    """Phase 11b: ``MeshChunkedAllPairs`` over 8 shards of the card on
-    phase 5's corpus: build 90,000 rows, stream the rest with phase 9a's
-    batch sizes (every match on the rebuild route); the union, the join of
-    the streamed index (kernel 4 eight times per panel pair, and exactly
-    its plain version at one panel pair of shard 0's operands), top-k and
-    frozen matching against fp64; a per-chunk capacity growth on every
-    shard (asserted) with each batch against fp64 and the join after it;
-    then the timings with the stage split."""
-    label = "phase 11b chunked mesh, 8 shards on one card"
+def mesh_chunked_stream(devices, csr: CSRMatrix, want: set, qsets9,
+                        kernels: list, smi: str, n: int = 8,
+                        phase: str = "11b", shards=(0,),
+                        tag: str = "mesh_stream", keep: bool = False) -> dict:
+    """Phase 11b: ``MeshChunkedAllPairs`` over ``n`` shards on ``devices``
+    (one device: every shard on it; a list: one shard on each) on phase
+    5's corpus: build 90,000 rows, stream the rest with phase 9a's batch
+    sizes (every match on the rebuild route); the union, the join of the
+    streamed index (kernel 4 ``n`` times per panel pair, and exactly its
+    plain version at one panel pair of each shard of ``shards``' own
+    operands), top-k and frozen matching against fp64; a per-chunk
+    capacity growth on every shard (asserted) with each batch against
+    fp64 and the join after it; then the timings with the stage split.
+    Each kernel record gets ``tag``-prefixed keys.  Returns the build
+    join's pairs, every insert's output, the streamed join's candidate
+    lists, the top-k lists, the frozen match's output, the capacity
+    batches' outputs, the last join's pairs and the timings (``keep``:
+    the engine too)."""
+    devices = shard_devices(devices, n)
+    dev = devices[0]
+    label = f"phase {phase} chunked mesh, {where(devices)}"
     eng = MeshChunkedAllPairs(AllPairsConfig(),
-                              mesh=make_mesh(8, devices=[dev] * 8))
-    torch.cuda.reset_peak_memory_stats()
+                              mesh=make_mesh(n, devices=devices))
+    reset_peaks(devices)
     log(f"{label} build, {CSTREAM_BUILD} rows: "
         f"{json.dumps(eng.build(csr_rows(csr, 0, CSTREAM_BUILD)))}")
+    for k in range(3):
+        check_placement(eng._ent[k], devices, label)
     res = eng.all_pairs(TAU)
+    ref = {"join": (res.i.copy(), res.j.copy(), res.sims.copy()),
+           "outputs": []}
     union, _, caps, nb, secs = stream_rows(
-        eng, csr, CSTREAM_BUILD, [1] * 8 + [32] * 8, "device_rebuild")
+        eng, csr, CSTREAM_BUILD, [1] * 8 + [32] * 8, "device_rebuild",
+        outputs=ref["outputs"])
     union |= set(zip(res.i.tolist(), res.j.tolist()))
     if union != want:
         raise AssertionError(f"{label}: streamed union differs from the "
@@ -2155,43 +2323,62 @@ def mesh_chunked_stream(dev, csr: CSRMatrix, want: set, qsets9,
         f"{csr.n_rows - 1} in {secs:.3f} s, every one on the rebuild route; "
         f"row_cap {caps}; {len(union)} pairs equal the fp64 oracle")
 
-    def join(want_pairs: set, what: str) -> int:
+    def join(want_pairs: set, what: str):
         zero_launches()
-        res = eng.all_pairs(TAU)
-        launches = dict(ts.LAUNCHES)
+        res, cand = join_with_candidates(eng, "_rescore_pairs")
+        launches, by_card = dict(ts.LAUNCHES), launches_by_card()
         geom = eng._panel_geom()
+        pairs = geom[3] * (geom[3] + 1) // 2
         expect = {k: 0 for k in launches}
-        expect["int8_matmul"] = 8 * geom[3] * (geom[3] + 1) // 2
-        if launches != expect:
-            raise AssertionError(f"{label} {what}: launches {launches}, "
-                                 f"expected {expect}")
+        expect["int8_matmul"] = n * pairs
+        expect_cards = {k: {} for k in launches}
+        expect_cards["int8_matmul"] = card_counts(devices, pairs)
+        if launches != expect or by_card != expect_cards:
+            raise AssertionError(f"{label} {what}: launches {launches}, by "
+                                 f"card {by_card}, expected {expect}, "
+                                 f"{expect_cards}")
         check_parity(res, want_pairs, f"{label} {what}")
-        return launches["int8_matmul"]
+        return res, cand, launches["int8_matmul"], by_card["int8_matmul"]
 
-    n_launch = join(want, "join of the streamed index")
+    _, ref["cand"], n_launch, by_card = join(want,
+                                             "join of the streamed index")
     st = eng._panel_state()
     last = eng._panel_geom()[3] - 1
     x0, xl = eng._build_slab(st, 0), eng._build_slab(st, last)
-    mm = compare_mm(x0[0], xl[0], f"{label}, pair (0, {last}), shard 0")
+    mms = [dict(compare_mm(x0[s], xl[s], f"{label}, pair (0, {last}), "
+                           f"shard {s}"), shard=s, card=devices[s].index)
+           for s in shards]
     del st, x0, xl
+    mm = mms[0]
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
-    k4.update({"mesh_stream_join_launches": n_launch,
-               **{f"mesh_stream_{k}": mm[k] for k in (
+    k4.update({f"{tag}_join_launches": n_launch,
+               **{f"{tag}_{k}": mm[k] for k in (
                    "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms", "max_abs_err")}})
+                   "library_ms")},
+               f"{tag}_max_abs_err": max(r["max_abs_err"] for r in mms)})
+    if tag != "mesh_stream":
+        k4.update({f"{tag}_join_launches_by_card": by_card,
+                   f"{tag}_per_card": [
+                       {k: r[k] for k in ("card", "max_abs_err", "ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms")} for r in mms]})
     queries, sq, fq, fs, fpicks = qsets9
     check_topk(eng, queries, sq, label)
     check_frozen(eng, fq, fs, fpicks, label)
     if eng.last_route != "device_rebuild":
         raise AssertionError(f"{label}: frozen match took {eng.last_route}")
+    ref["topk"] = eng.topk(queries, 10)
+    ref["frozen"] = frozen_output(eng, fq)
 
     cap0 = eng._chunk_cap
     c, batches = capacity_rows(eng)
     index, grown = [csr], set()
+    ref["grown"] = []
     for vs in batches:
         n0 = eng.n_rows
         out = eng.insert([(str(n0 + i), v) for i, v in enumerate(vs)],
                          tau=TAU)
+        ref["grown"].append(out.output)
         part = CSRMatrix.from_vectors(vs, csr.n_cols)
         want_b = batch_oracle(index, part, n0, TAU, dev)
         if pairs_of(out) != want_b or eng.last_route != "device_rebuild":
@@ -2201,24 +2388,34 @@ def mesh_chunked_stream(dev, csr: CSRMatrix, want: set, qsets9,
         grown |= want_b
         index.append(part)
     shapes = {tuple(t.shape) for t in eng._ent[0]}
-    if eng._chunk_cap != 2 * cap0 or shapes != {(eng._n_chunks // 8,
+    if eng._chunk_cap != 2 * cap0 or shapes != {(eng._n_chunks // n,
                                                  eng._chunk_cap)}:
         raise AssertionError(f"{label}: chunk capacity {cap0} -> "
                              f"{eng._chunk_cap}, shard buffers {shapes}")
+    for k in range(3):
+        check_placement(eng._ent[k], devices, label)
     log(f"{label} capacity growth: {len(batches)} batches of 256 rows into "
         f"chunk {c} grew every shard's per-chunk capacity {cap0} -> "
         f"{eng._chunk_cap}; {len(grown)} new pairs equal the fp64 oracle")
-    join(want | grown, "join after the capacity growth")
+    res, _, _, _ = join(want | grown, "join after the capacity growth")
+    ref["join_grown"] = (res.i.copy(), res.j.copy(), res.sims.copy())
 
-    rec = {"card": smi, "rows": eng.n_rows, "row_cap": eng.row_cap,
+    rec = {"card": smi, "devices": [str(d) for d in devices],
+           "rows": eng.n_rows, "row_cap": eng.row_cap,
            "n_chunks": eng._n_chunks, "chunk_cap": eng._chunk_cap,
            "stream_seconds": secs, "stream_batches": nb}
     rec.update(stream_timings(eng, synthetic_corpus(4096, seed=13),
                               TIMED_BATCHES, "device_rebuild",
                               split=CMESH_SPLIT))
     rec.update(mesh_query_timings(eng, queries, fq))
-    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if len(set(devices)) > 1:
+        rec["max_memory_allocated_per_card"] = peaks(devices)
     log(f"{label} timings: {json.dumps(rec)}")
+    ref["timings"] = rec
+    if keep:
+        ref["eng"] = eng
+    return ref
 
 
 def mesh_stream_phase(dev, big_csr: CSRMatrix, want32: set, x8, qsets8,
@@ -2234,14 +2431,15 @@ def mesh_stream_phase(dev, big_csr: CSRMatrix, want32: set, x8, qsets8,
     q8 = (qsets8[0], qsets8[1].to(dev), qsets8[2], qsets8[3].to(dev),
           qsets8[4])
     for layout, shape, axis in MESH_LAYOUTS:
-        refs[layout] = mesh_dense_stream(dev, big_csr, want32, x8, q8,
-                                         kernels, smi, layout, shape, axis)
+        refs[layout] = mesh_dense_stream([dev] * 4, big_csr, want32, x8,
+                                         q8, kernels, smi, layout, shape,
+                                         axis)
         torch.cuda.empty_cache()
     del x8, q8
     torch.cuda.empty_cache()
     q9 = (qsets9[0], qsets9[1].to(dev), qsets9[2], qsets9[3].to(dev),
           qsets9[4])
-    mesh_chunked_stream(dev, ooc_csr, want, q9, kernels, smi)
+    mesh_chunked_stream([dev] * 8, ooc_csr, want, q9, kernels, smi)
     torch.cuda.empty_cache()
     log(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
     return refs
@@ -2256,7 +2454,8 @@ P12_BATCHES = (1, 256)
 CLI_WRAP = (  # the CLI as a user runs it, with the launch counts at exit
     "import atexit, json, runpy, sys\n"
     "from apsim_tpu_torch.ops import tri_score as ts\n"
-    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(ts.LAUNCHES),"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(ts.LAUNCHES)"
+    " + '\\nLAUNCHES_BY_CARD ' + json.dumps(ts.LAUNCHES_BY_CARD),"
     " flush=True))\n"
     "sys.argv = ['apsim-torch'] + sys.argv[1:]\n"
     "runpy.run_module('apsim_tpu_torch.cli', run_name='__main__')\n"
@@ -3228,6 +3427,566 @@ def study_phase(dev, kernels: list, ooc_csr: CSRMatrix) -> None:
     log(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# -------------- phase 17: the one-process meshes over distinct cards
+CARDS_ROWS = 32_768  # 17a's and 17d's corpus: phase 3's
+SCALE_ROWS = 500_000  # 17c: the size of panel_probe's single-card run
+SCALE_GEN = (  # 17c's corpus, made in a process of its own meanwhile
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke as cs\n"
+    "cs.save_csr(sys.argv[2], cs.synthetic_corpus(int(sys.argv[3]), "
+    "seed=0))\n"
+)
+
+
+def equal_bits(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit: arrays by dtype, shape and bytes,
+    floats by their 64 bits (-0.0 is not 0.0), containers item by item."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if isinstance(a, float) or isinstance(b, float):
+        return (isinstance(a, float) and isinstance(b, float)
+                and np.float64(a).tobytes() == np.float64(b).tobytes())
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(equal_bits(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(equal_bits(a[k], b[k]) for k in a))
+    return type(a) is type(b) and a == b
+
+
+def same_as_card0(got: dict, ref: dict, keys, label: str) -> None:
+    """Each of ``keys`` of the mesh over the cards equals the same mesh's
+    on card 0, bit for bit."""
+    for k in keys:
+        if not equal_bits(got[k], ref[k]):
+            raise AssertionError(f"{label}: {k} differs from the same mesh "
+                                 f"on card 0")
+    log(f"{label}: {', '.join(keys)} equal the same mesh on card 0, bit "
+        f"for bit")
+
+
+def card_topology(n: int) -> dict:
+    """``nvidia-smi topo -m`` (printed) and, for each ordered pair of
+    cards, whether PyTorch may copy between them peer to peer (else its
+    copies go through the host)."""
+    out = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"nvidia-smi topo -m:\n{out.stdout.rstrip()}")
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for a in range(n) for b in range(n) if a != b}
+    log(f"can_device_access_peer: {json.dumps(peer)}")
+    return peer
+
+
+def card_kernels(cards, smi: str) -> list:
+    """Kernels 1 and 2 against their plain versions on every card (phase
+    2's 4,096-row index with padding rows, built on that card, tiles
+    (1024, 512), timed): each card builds and launches them.  Returns the
+    kernel records of the mode, kernels 1 and 2 filled from card 0."""
+    kernels = [{"name": n, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[n], "launches": 0, "library_ms": None}
+               for n in REPLACES]
+    per = {"score_bits_int8": [], "score_bits_bf16": []}
+    for card in cards:
+        small = Engine(AllPairsConfig(row_bucket=5120), card)
+        small.build(synthetic_corpus(4096))
+        tau_eff = small._tau_eff(TAU)
+        q8 = ts.quantize_rows(small.x)
+        xb = small.x.to(torch.bfloat16)
+        bi, bj = blocks(small.row_cap, 1024, 512, card)
+        for name, kind, ops in (("score_bits_int8", "int8", q8),
+                                ("score_bits_bf16", "bf16", xb)):
+            with torch.cuda.device(card):
+                rec = compare(kind, ops, bi, bj, tau_eff, 1024, 512,
+                              timed=True)
+            opl = ops if kind == "int8" else (ops,)
+            rec.update(score_bound(
+                opl[:1], opl[1].numel() * 4 if kind == "int8" else 0, bi,
+                bj, 1024, 512, (0, 0),
+                PEAK_INT8 if kind == "int8" else PEAK_BF16))
+            per[name].append({"card": card.index, **rec})
+        del small, q8, xb
+    for k in kernels[:2]:
+        recs = per[k["name"]]
+        k.update({"max_abs_err": max(r["max_abs_err"] for r in recs),
+                  **{f: recs[0][f] for f in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+                  "per_card": [{f: r[f] for f in (
+                      "card", "max_abs_err", "ms", "plain_ms")}
+                      for r in recs]})
+    log(f"phase 17 kernels 1 and 2 vs plain on each card ({smi}): "
+        f"{json.dumps(per)}")
+    return kernels
+
+
+def join_wall(eng, reps: int = 5) -> tuple:
+    """``reps`` warm joins at TAU (after one more): the median host-clock
+    ms (each join ends with its pairs on the host) and the stage split
+    per join; and the last result."""
+    eng.all_pairs(TAU)
+    before = dict(eng.timer.totals)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = eng.all_pairs(TAU)
+        times.append((time.perf_counter() - t0) * 1e3)
+    stages = {k: (v - before.get(k, 0.0)) / reps * 1e3
+              for k, v in eng.timer.totals.items()
+              if k != "all_pairs" and v != before.get(k, 0.0)}
+    return {"join_ms": float(np.median(times)),
+            "join_stages_ms": stages}, res
+
+
+def mesh_dims_step(eng: MeshEngine, csr: CSRMatrix, dev,
+                   label: str) -> dict:
+    """Column growth and dormant activation on a streamed mesh: phase 8's
+    64 shifted rows (``dim_cap`` grows: every block widens on its card,
+    and a dims layout relays columns between cards), then 8 copies of
+    them (their archived singleton dims activate, without growth).  The
+    shifted rows share no dim with the index, so the outputs must equal
+    the fp64 pairs among the 72 new rows."""
+    vecs = shifted_rows(csr)
+    vecs = vecs + vecs[:8]
+    n0 = eng.n_rows
+    ids = [str(n0 + k) for k in range(72)]
+    cap0, dorm0 = eng.dim_cap, eng.stats["dormant_dims"]
+    out1 = eng.insert(list(zip(ids[:64], vecs[:64])), tau=TAU).output
+    cap1, dorm1 = eng.dim_cap, eng.stats["dormant_dims"]
+    out2 = eng.insert(list(zip(ids[64:], vecs[64:])), tau=TAU).output
+    dorm2 = eng.stats["dormant_dims"]
+    if not (cap1 > cap0 and dorm1 > dorm0 and eng.dim_cap == cap1
+            and dorm2 < dorm1):
+        raise AssertionError(f"{label} new dims: dim_cap {cap0} -> {cap1} "
+                             f"-> {eng.dim_cap}, dormant dims {dorm0} -> "
+                             f"{dorm1} -> {dorm2}")
+    q = dense_rows(CSRMatrix.from_vectors(vecs, csr.n_cols), 0, 72, 65536,
+                   dev)
+    ii, jj = torch.nonzero(torch.triu(q @ q.T >= TAU, diagonal=1),
+                           as_tuple=True)
+    want_new = {(n0 + i, n0 + j) for i, j in zip(ii.tolist(), jj.tolist())}
+    got = {(min(int(a), int(c)), max(int(a), int(c)))
+           for out in (out1, out2) for a, cs_ in out.items() for c in cs_}
+    if got != want_new or not want_new:
+        raise AssertionError(f"{label} new dims: {len(got ^ want_new)} pairs "
+                             f"off the fp64 oracle")
+    check_placement(eng.x_blocks, eng.mesh.devices, label)
+    log(f"{label} new dims: dim_cap {cap0} -> {cap1}, dormant dims {dorm0} "
+        f"-> {dorm1} -> {dorm2}; {len(got)} new pairs equal the fp64 oracle")
+    return {"dims_outputs": [out1, out2], "new_pairs": want_new,
+            "dims_caps": [cap0, cap1], "dormant": [dorm0, dorm1, dorm2]}
+
+
+def index_by_id(eng: MeshEngine, dev) -> torch.Tensor:
+    """A mesh's live rows assembled from its blocks on ``dev``, in the
+    order of their sorted ids: two meshes that took the same rows in
+    another order (the server's concurrent clients) give one tensor."""
+    nr, nd = eng.grid
+    x = torch.cat([torch.cat([eng.x_blocks[r * nd + d].to(dev)
+                              for d in range(nd)], dim=1)
+                   for r in range(nr)])
+    order = np.argsort(np.array(eng.ids), kind="stable")
+    return x[:eng.n_rows][torch.from_numpy(order).to(dev)]
+
+
+def cards_dense(cards, csr: CSRMatrix, want32: set, qsets, kernels: list,
+                smi: str) -> dict:
+    """Phase 17a: ``MeshEngine`` in phase 11a's three layouts, first with
+    the 4 shards on card 0, then one shard a card (``mesh_dense_stream``:
+    build, join, stream with growth, the streamed join with kernel 3 once
+    a card and bit for bit against its plain version on each card, top-k,
+    frozen matching, the rows layout served in-process, the timings), then
+    the warm join's wall time, the new dims and the join of the grown
+    index.  Every output, candidate list, top-k list, frozen match and
+    block over the cards equals the same mesh's on card 0, bit for bit
+    (the rows the server's two clients raced in are compared by id: their
+    order in the index differs from run to run); each pair set equals the
+    fp64 oracle.  Returns each layout's timings
+    and per-card peak memory, on card 0 and over the cards."""
+    n = len(cards)
+    keys = ("join", "outputs", "cand", "topk", "frozen", "dims_outputs",
+            "join_grown")
+    out = {}
+    for layout, shape, axis in MESH_LAYOUTS:
+        refs = {}
+        for where_, devs in (("card0", [cards[0]] * n), ("cards", cards)):
+            label = f"phase 17a {layout} mesh, {where(devs)}"
+            torch.cuda.empty_cache()
+            reset_peaks(cards)
+            ref = mesh_dense_stream(
+                devs, csr, want32, None, qsets, kernels, smi, layout, shape,
+                axis, phase="17a",
+                shards=tuple(range(n)) if where_ == "cards" else (0,),
+                tag=f"mesh_{where_}", keep=True)
+            eng = ref.pop("eng")
+            wall, res0 = join_wall(eng)
+            ref.update(mesh_dims_step(eng, csr, cards[0], label))
+            res = eng.all_pairs(TAU)
+            ref["join_grown"] = sorted((min(a, b), max(a, b), v)
+                                       for a, b, v in res.id_pairs())
+            if (set(zip(res.i.tolist(), res.j.tolist()))
+                    != set(zip(res0.i.tolist(), res0.j.tolist()))
+                    | ref["new_pairs"]):
+                raise AssertionError(f"{label}: the grown index's join is "
+                                     f"not the old pairs with the new")
+            ref["timings"].update(wall, max_memory_allocated_per_card=peaks(
+                cards))
+            log(f"{label} join wall and memory: {json.dumps(wall)}; peaks "
+                f"{ref['timings']['max_memory_allocated_per_card']}")
+            x = index_by_id(eng, cards[0])
+            if where_ == "card0":
+                ref["x"] = x
+            else:
+                if not torch.equal(x, refs["card0"]["x"]):
+                    raise AssertionError(f"{label}: the index differs from "
+                                         f"card 0's")
+                log(f"{label}: every block, assembled by row id, equals "
+                    f"card 0's bit for bit ({eng.n_rows} rows)")
+                del refs["card0"]["x"]
+            del x
+            del eng, res, res0
+            refs[where_] = ref
+        same_as_card0(refs["cards"], refs["card0"], keys,
+                      f"phase 17a {layout} mesh over {n} cards")
+        out[layout] = {w: refs[w]["timings"] for w in refs}
+    return out
+
+
+def cards_chunked(cards, csr: CSRMatrix, want: set, qsets, kernels: list,
+                  smi: str) -> dict:
+    """Phase 17b: ``MeshChunkedAllPairs`` over 4 shards on card 0, then
+    one shard a card (``mesh_chunked_stream``: build, join, stream on the
+    rebuild route, the streamed join with kernel 4 once a shard a panel
+    pair and exactly its plain version on each card, top-k, frozen
+    matching, a per-chunk capacity growth on every shard, its join, the
+    timings), then the warm join's wall time.  Everything over the cards
+    equals the same mesh's on card 0, bit for bit; each pair set equals
+    the fp64 oracle."""
+    n = len(cards)
+    keys = ("join", "outputs", "cand", "topk", "frozen", "grown",
+            "join_grown")
+    refs = {}
+    for where_, devs in (("card0", [cards[0]] * n), ("cards", cards)):
+        torch.cuda.empty_cache()
+        reset_peaks(cards)
+        ref = mesh_chunked_stream(
+            devs, csr, want, qsets, kernels, smi, n=n, phase="17b",
+            shards=tuple(range(n)) if where_ == "cards" else (0,),
+            tag=f"mesh_{where_}", keep=True)
+        eng = ref.pop("eng")
+        wall, _ = join_wall(eng)
+        ref["timings"].update(wall, max_memory_allocated_per_card=peaks(
+            cards))
+        log(f"phase 17b chunked mesh, {where(devs)} join wall and memory: "
+            f"{json.dumps(wall)}; peaks "
+            f"{ref['timings']['max_memory_allocated_per_card']}")
+        del eng
+        refs[where_] = ref
+    same_as_card0(refs["cards"], refs["card0"], keys,
+                  f"phase 17b chunked mesh over {n} cards")
+    return {w: refs[w]["timings"] for w in refs}
+
+
+def cards_scale(cards, csr: CSRMatrix, kernels: list, smi: str) -> dict:
+    """Phase 17c: ``MeshChunkedAllPairs`` over the cards joins the 500,000
+    rows twice; its pair set must equal one-card ``ChunkedAllPairs``' on
+    the same corpus.  Both wall times (host clock, each join) with the
+    stage split, and each card's peak memory."""
+    n = len(cards)
+    rec = {"card": smi, "rows": csr.n_rows}
+    res = {}
+    for name, make in (
+            ("one_card", lambda: ChunkedAllPairs(AllPairsConfig(),
+                                                 cards[0])),
+            ("cards", lambda: MeshChunkedAllPairs(
+                AllPairsConfig(), mesh=make_mesh(n, devices=cards)))):
+        torch.cuda.empty_cache()
+        reset_peaks(cards)
+        zero_launches()
+        eng = make()
+        t0 = time.perf_counter()
+        eng.build(csr)
+        r = {"build_s": time.perf_counter() - t0, "join_s": []}
+        for _ in range(2):
+            before = dict(eng.timer.totals)
+            t0 = time.perf_counter()
+            res[name] = eng.all_pairs(TAU)
+            r["join_s"].append(time.perf_counter() - t0)
+        r["stages_s"] = {k: v - before.get(k, 0.0)
+                         for k, v in eng.timer.totals.items()
+                         if k != "all_pairs" and v != before.get(k, 0.0)}
+        geom = eng._panel_geom()
+        pairs = geom[3] * (geom[3] + 1) // 2
+        r.update(geom=list(geom), pairs=res[name].n_pairs,
+                 launches=dict(ts.LAUNCHES), launches_by_card=(
+                     launches_by_card()),
+                 max_memory_allocated_per_card=peaks(cards))
+        want_l = ({"panel_score_bits_int8": {cards[0].index: 2 * pairs}}
+                  if name == "one_card" else
+                  {"int8_matmul": card_counts(cards, 2 * pairs)})
+        got_l = {k: v for k, v in r["launches_by_card"].items() if v}
+        if got_l != want_l:
+            raise AssertionError(f"phase 17c {name}: launches by card "
+                                 f"{got_l}, expected {want_l}")
+        rec[name] = r
+        log(f"phase 17c {name}, {csr.n_rows} rows: {json.dumps(r)}")
+        del eng
+    if res["cards"].pair_set() != res["one_card"].pair_set() or not (
+            res["cards"].n_pairs):
+        raise AssertionError(
+            f"phase 17c: the mesh over {n} cards found "
+            f"{res['cards'].n_pairs} pairs, one card "
+            f"{res['one_card'].n_pairs}; the sets differ")
+    k4 = next(k for k in kernels if k["name"] == "int8_matmul")
+    k4["scale_join_launches_by_card"] = rec["cards"]["launches_by_card"][
+        "int8_matmul"]
+    k4["launches"] += rec["cards"]["launches"]["int8_matmul"]
+    log(f"phase 17c: the {csr.n_rows}-row join over {n} cards equals "
+        f"one-card ChunkedAllPairs ({res['cards'].n_pairs} pairs); join "
+        f"seconds {rec['cards']['join_s']} over the cards, "
+        f"{rec['one_card']['join_s']} on one")
+    return rec
+
+
+def cards_serve(cards, work: str, csr: CSRMatrix, want32: set,
+                kernels: list, smi: str) -> dict:
+    """Phase 17d: ``python -m apsim_tpu_torch.cli serve --mesh
+    --mesh-shape N`` (rows layout, its launch counts printed at exit) over
+    the cards: a load RPC bulk-loads phase 3's rows from a store, the
+    ``all_pairs`` RPC equals the fp64 oracle, two clients stream
+    ``SERVE_ROWS`` fresh rows whose pushed outputs equal the fp64 oracle,
+    SIGINT writes the final checkpoint (kernel 3 launched once a card).
+    The checkpoint restores onto a mesh over the cards and onto a one-card
+    ``Engine``, whose joins (kernel 3 once a card; kernel 1 on card 0,
+    also bit for bit against its plain version at the restored operands)
+    are equal, pairs and similarities."""
+    from apsim_tpu_torch.etl.store import VectorStore
+    from apsim_tpu_torch.serve import ClientConnection
+
+    n = len(cards)
+    dev = cards[0]
+    ids = [str(i) for i in range(csr.n_rows)]
+    store = os.path.join(work, "store17")
+    VectorStore(store, run_mode="PRODUCT").write("P17", csr, ids)
+    cfgfile = os.path.join(work, "p17d.json")
+    with open(cfgfile, "w") as f:
+        json.dump({"shard_axis": "rows", "similarity_threshold": TAU,
+                   "io_trigger_period_ms": 5}, f)
+    ck = os.path.join(work, "ck17")
+    fresh = synthetic_corpus(SERVE_ROWS, seed=31)
+    want_fresh = {(min(a, b), max(a, b)) for a, b in (
+        (ids[a] if a < csr.n_rows else f"f{a - csr.n_rows}",
+         ids[b] if b < csr.n_rows else f"f{b - csr.n_rows}")
+        for a, b in batch_oracle([csr], fresh, csr.n_rows, TAU, dev))}
+    cmd = [sys.executable, "-c", CLI_WRAP, "serve", "--mesh", "--mesh-shape",
+           str(n), "--config", cfgfile, "--store", store, "--table", "P17",
+           "--checkpoint-dir", ck, "--host", "127.0.0.1", "--port", "0",
+           "--device", "cuda"]
+    err_path = os.path.join(work, "serve17.err")
+    rec = {"card": smi, "rows": csr.n_rows, "fresh_rows": SERVE_ROWS}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        srv = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                               stderr=err, text=True)
+        try:
+            line = srv.stdout.readline()
+            if not line.startswith("serving on "):
+                raise AssertionError(f"phase 17d serve: {line!r}")
+            rec["start_seconds"] = time.perf_counter() - t0
+            addr = [line.split()[-1]]
+            cc = ClientConnection(addr)
+            t0 = time.perf_counter()
+            cc.load_data("P17", 0, csr.n_rows - 1)
+            cc.flush()
+            rec["load_rpc_seconds"] = time.perf_counter() - t0
+            if cc.stats()["n_rows"] != csr.n_rows:
+                raise AssertionError(f"phase 17d load RPC: "
+                                     f"{cc.stats()['n_rows']} rows")
+            t0 = time.perf_counter()
+            served = cc.all_pairs(TAU)
+            rec["all_pairs_rpc_seconds"] = time.perf_counter() - t0
+            got = {(int(a), int(b)) if int(a) < int(b) else (int(b), int(a))
+                   for a, b, _ in served}
+            if got != want32:
+                raise AssertionError(f"phase 17d: the all_pairs RPC differs "
+                                     f"from the fp64 oracle: "
+                                     f"{len(got ^ want32)} pairs")
+            rec.update(stream_two_clients(
+                addr, fresh, want_fresh, lambda: cc.stats()["n_rows"],
+                csr.n_rows + SERVE_ROWS, "phase 17d"))
+            cc.close()
+            t0 = time.perf_counter()
+            srv.send_signal(signal.SIGINT)
+            stdout, _ = srv.communicate(timeout=180)
+            rec["sigint_to_exit_seconds"] = time.perf_counter() - t0
+            if srv.returncode != 0:
+                raise AssertionError(f"phase 17d serve exited "
+                                     f"{srv.returncode}")
+        finally:
+            if srv.poll() is None:
+                srv.kill()
+                srv.wait()
+    launched = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+                if ln.startswith("LAUNCHES_BY_CARD ")]
+    want_cards = json.loads(json.dumps(card_counts(cards)))
+    if not launched or launched[-1]["panel_score_bits_int8"] != want_cards:
+        with open(err_path) as f:
+            tail = f.read()[-2000:]
+        raise AssertionError(f"phase 17d serve: launches by card "
+                             f"{launched}, expected kernel 3 {want_cards}; "
+                             f"{tail}")
+    rec["launches_by_card"] = launched[-1]
+    log(f"phase 17d serve --mesh over {n} cards: the all_pairs RPC equals "
+        f"the fp64 oracle ({len(want32)} pairs); {SERVE_ROWS} fresh rows "
+        f"streamed by 2 clients, {len(want_fresh)} pushed pairs equal the "
+        f"fp64 oracle; SIGINT wrote the checkpoint; kernel 3 launched "
+        f"{launched[-1]['panel_score_bits_int8']}")
+
+    joins = {}
+    cfg = MeshEngine.checkpoint_engine_config(ck).replace(shard_axis="rows")
+    for name, make in (
+            ("cards", lambda: MeshEngine.load(
+                ck, config=cfg, mesh=make_mesh(n, devices=cards))),
+            ("one_card", lambda: Engine.load(ck, device=dev))):
+        t0 = time.perf_counter()
+        eng = make()
+        rec[f"restore_{name}_seconds"] = time.perf_counter() - t0
+        if eng.n_rows != csr.n_rows + SERVE_ROWS:
+            raise AssertionError(f"phase 17d restore {name}: {eng.n_rows} "
+                                 f"rows")
+        zero_launches()
+        res = eng.all_pairs(TAU)
+        by_card = launches_by_card()
+        expect = ({"panel_score_bits_int8": card_counts(cards)}
+                  if name == "cards" else {"score_bits_int8": {dev.index: 1}})
+        if {k: v for k, v in by_card.items() if v} != expect:
+            raise AssertionError(f"phase 17d restore {name}: launches by "
+                                 f"card {by_card}, expected {expect}")
+        joins[name] = {(a, b): s for a, b, s in res.id_pairs()}
+        if name == "one_card":
+            tm, tn = eng._tiles()
+            bi, bj = blocks(eng.row_cap, tm, tn, dev)
+            k1rec = compare("int8", eng._operands(True), bi, bj,
+                            eng._tau_eff(TAU), tm, tn, timed=True)
+            ops = eng._operands(True)
+            k1rec.update(score_bound(ops[:1], ops[1].numel() * 4, bi, bj,
+                                     tm, tn, (0, 0), PEAK_INT8))
+            k1 = next(k for k in kernels if k["name"] == "score_bits_int8")
+            k1.update({"launches": k1["launches"] + 1,
+                       "max_abs_err": max(k1["max_abs_err"],
+                                          k1rec["max_abs_err"]),
+                       **{f"restore_{f}": k1rec[f] for f in (
+                           "ms", "plain_ms", "bound_ms", "bound_by")}})
+            log(f"phase 17d kernel 1 vs plain at the one-card restore's "
+                f"operands: {json.dumps(k1rec)}")
+        del eng, res
+    want_all = ({(min(str(a), str(b)), max(str(a), str(b)))
+                 for a, b in want32} | want_fresh)
+    got_pairs = {(min(a, b), max(a, b)) for a, b in joins["cards"]}
+    if not equal_bits(sorted(joins["cards"].items()),
+                      sorted(joins["one_card"].items())) or (
+            got_pairs != want_all):
+        raise AssertionError(f"phase 17d: the restored joins differ (over "
+                             f"the cards {len(joins['cards'])}, one card "
+                             f"{len(joins['one_card'])}, oracle "
+                             f"{len(want_all)})")
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k3["launches"] += 2 * n
+    k3["serve_launches_by_card"] = launched[-1]["panel_score_bits_int8"]
+    log(f"phase 17d: the checkpoint restores onto {n} cards and onto one "
+        f"card; their joins are equal, pairs and similarities, and equal "
+        f"the fp64 oracle ({len(want_all)} pairs); {json.dumps(rec)}")
+    return rec
+
+
+def first_cards(n: int) -> list:
+    """The first ``n`` visible cards, one for each shard."""
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def mesh_cards_main(n: int) -> int:
+    """``--mesh-cards N``: phase 17 alone, on a machine with at least N
+    cards: the one-process meshes with one shard a card, each leg held
+    bit for bit against the same mesh with every shard on card 0 (built
+    in the same run) and against the fp64 oracle; the references rebuilt
+    on card 0.  The same last lines as the whole script."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if n < 2:
+        raise ValueError(f"--mesh-cards {n}: a mesh over cards needs two")
+    have = torch.cuda.device_count()
+    if have < n:
+        raise AssertionError(f"--mesh-cards {n} needs {n} cards, have "
+                             f"{have}")
+    t_start = time.perf_counter()
+    cards = first_cards(n)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = smi_line()
+    log(f"cards: {smi}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {have}; phase 17 over {n}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    scale_path = os.path.join(work, "scale.npz")
+    gen = subprocess.Popen([sys.executable, "-c", SCALE_GEN, here,
+                            scale_path, str(SCALE_ROWS)], cwd=here)
+    try:
+        summary = {"card": smi, "cards": n,
+                   "peer": card_topology(n)}
+        _build.kernels()
+        kernels = card_kernels(cards, smi)
+        dev = cards[0]
+        big_csr = synthetic_corpus(CARDS_ROWS, seed=0)
+        want32 = oracle_pairs(big_csr, TAU, dev)
+        q8 = query_sets(big_csr, dev)
+        summary["17a"] = cards_dense(cards, big_csr, want32, q8, kernels,
+                                     smi)
+        del q8
+        torch.cuda.empty_cache()
+        ooc_csr = synthetic_corpus(OOC_ROWS, seed=0)
+        want = oracle_pairs(ooc_csr, TAU, dev)
+        q9 = query_sets(ooc_csr, dev)
+        summary["17b"] = cards_chunked(cards, ooc_csr, want, q9, kernels,
+                                       smi)
+        del q9, ooc_csr, want
+        torch.cuda.empty_cache()
+        if gen.wait(timeout=600) != 0:
+            raise AssertionError("phase 17c: the corpus process failed")
+        scale_csr, _ = load_csr(scale_path)
+        summary["17c"] = cards_scale(cards, scale_csr, kernels, smi)
+        del scale_csr
+        torch.cuda.empty_cache()
+        summary["17d"] = cards_serve(cards, work, big_csr, want32, kernels,
+                                     smi)
+    finally:
+        if gen.poll() is None:
+            gen.kill()
+            gen.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k4 = next(k for k in kernels if k["name"] == "int8_matmul")
+    for k in (k3, k4):  # 17a's rows join and 17b's streamed join
+        k["launches"] += k["mesh_cards_join_launches"]
+        k.update({f: k[f"mesh_cards_{f}"] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+            max_abs_err=k["mesh_cards_max_abs_err"])
+    k4["library_ms"] = k4["mesh_cards_library_ms"]
+    log(f"phase 17 summary: {json.dumps(summary)}")
+    log(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3618,4 +4377,6 @@ if __name__ == "__main__":
                               sys.argv[4]))
     if sys.argv[1:2] == ["--multihost"]:
         sys.exit(multihost_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-cards"]:
+        sys.exit(mesh_cards_main(int(sys.argv[2])))
     sys.exit(main())
