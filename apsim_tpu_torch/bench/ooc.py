@@ -34,7 +34,9 @@ rows (``synthetic_corpus(2 B, [201 + k, seed])``) run with the router forced
 to the host route and to the device route, each against the oracle:
 ``router_ab[B]`` says which the router picks for such a batch and whether
 that one was the faster (for B above 512 only with ``--router-ab``: the
-host route's cost grows with the batch's document-frequency mass).
+host route's cost grows with the batch's document-frequency mass), with
+each forced batch's stage split and the router's inputs (the index's nnz
+and the batch's document-frequency mass).
 ``--stream-only`` skips the joins.  One JSON object per size goes to
 stderr as it finishes, all of them to stdout at the end.
 """
@@ -227,8 +229,8 @@ def run_ooc(
         "panel_geom": dict(zip(("rb", "tm", "tn", "n_panels", "d_cap"),
                                geom)) if geom else None,
         "panel_path": eng._panel_ok(),
-        "sweep": "resident" if geom and geom[3] * geom[0] * geom[4]
-        <= eng._panel_resident_bytes else "rolling",
+        "sweep": "resident" if geom and eng._keeps_all(
+            geom[3], geom[0], geom[4]) else "rolling",
     }
     if stream_rows:
         report["stream_budget_mb"] = eng.cfg.match_slab_budget_mb
@@ -388,14 +390,23 @@ def _stream(eng, report: Dict, index: list, tau: float, stream_rows: int,
             ab["router_choice"] = ("host_spgemm"
                                    if eng._use_host_match(part.indices)
                                    else dev_name)
+        # the router's inputs: the index's nnz before the batch and the
+        # batch's document-frequency mass (its spGEMM intersections)
+        ab[name + "_index_nnz"] = int(eng.shadow_csr().indptr[-1])
+        ab[name + "_df_mass"] = (None if eng._ext_df is None else int(
+            eng._ext_df[part.indices].sum()))
         batch = [(str(n0 + i), part.row(i)) for i in range(bs)]
         eng._use_host_match = lambda q, _f=force: _f  # shadow the router
+        before = dict(eng.timer.totals)
         try:
             t0 = time.perf_counter()
             out = eng.insert(batch, tau=tau)
             ab[name + "_batch_seconds"] = time.perf_counter() - t0
         finally:
             del eng._use_host_match
+        ab[name + "_stages_ms"] = {
+            k: (eng.timer.totals.get(k, 0.0) - before.get(k, 0.0)) * 1e3
+            for k in STREAM_STAGES}
         if eng.last_route != name:
             raise AssertionError(f"forced {name}, took {eng.last_route}")
         parity &= pairs_of(out) == batch_oracle(index, part, n0, tau,

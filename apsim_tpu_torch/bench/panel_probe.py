@@ -12,7 +12,11 @@ calibrated on the card from measurement:
     arrays) beside its bound: the int8 operations of the padded join
     (``mfu.int8_join_ops``) over the card's int8 peak;
   - the slab build per panel and one off-diagonal panel pair (kernel 3 +
-    the pair's compaction), each ending in a synchronize;
+    the pair's compaction), each ending in a synchronize; then an
+    off-diagonal and a diagonal pair end to end and their kernel alone
+    (CUDA events, median of 5): the overhead a pair adds beyond its kernel
+    and the kernel's rate in multiply-adds per second, the two figures of
+    the ``_panel_geom`` cost model;
   - when the slabs exceed the resident budget (the rolling sweep), the join
     at several ``B`` (row panels resident for one scan over the column
     panels; the in-flight bound is raised to hold ``B`` + 1 slabs) and at
@@ -30,10 +34,12 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from ..config import AllPairsConfig
 from ..engine.chunked import ChunkedAllPairs
+from ..ops import panel as panel_ops
 from .mfu import card_peaks, int8_join_ops
 from .scale import synthetic_corpus
 
@@ -44,6 +50,51 @@ B_SWEEP = (1, 2, 4, 6, 8, 12, 16)  # capped at the panel count
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def device_ms(fn, dev, reps: int = 5) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs: CUDA events on
+    the card, the host clock on the CPU."""
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize(dev)
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def pair_split(eng, state, xi, xj, tau_eff, dev) -> dict:
+    """Panel pairs (0, 1) and (0, 0) of the join state, each end to end
+    (kernel 3 + its compaction chain, ``_op_panel_pair``) and the kernel
+    alone, median ms of 5; the overhead a pair adds beyond its kernel
+    (``_panel_pp_resident``) and the kernel's rate in multiply-adds per
+    second (``_panel_int8_rate``), each pair's multiply-adds counted over
+    its scheduled blocks."""
+    rb, tm, tn, _, d_cap = state["geom"]
+    diag, off = eng._panel_schedules(state)
+    out = {}
+    for name, (pi, pj), x2, (bi, bj) in (("off", (0, 1), xj, off),
+                                        ("diag", (0, 0), xi, diag)):
+        aux = state["aux_of"]
+        pair = device_ms(lambda: eng._op_panel_pair(
+            state, xi, x2, pi, pj, tau_eff), dev)
+        kern = device_ms(lambda: panel_ops.panel_score_bits_int8(
+            xi, x2, aux[pi], aux[pj], bi, bj, (pi * rb, pj * rb), tau_eff,
+            tm, tn), dev)
+        macs = int(bi.numel()) * tm * tn * d_cap
+        out[name] = {"pair_ms": pair, "kernel_ms": kern,
+                     "overhead_ms": pair - kern, "macs": macs,
+                     "kernel_macs_per_s": macs / kern * 1e3}
+    return out
 
 
 def main(argv=None) -> dict:
@@ -135,9 +186,12 @@ def main(argv=None) -> dict:
                          f"int8 bound {pair_ops / peak * 1e3:.2f} ms, ")
                 log(f"pair(off-diag) rep{rep}: {dt * 1e3:.2f} ms "
                     f"({bound}{pair_ops / dt / 1e12:.1f} TOPS achieved)")
+            report["pair_split"] = pair_split(eng, state, xi, xj, tau_eff,
+                                              dev)
+            log(f"pair split: {json.dumps(report['pair_split'])}")
             del xi, xj
 
-    keep_all = n_panels * slab_bytes <= eng._panel_resident_bytes
+    keep_all = eng._keeps_all(n_panels, rb, d_cap)
     report["mode"] = "resident" if keep_all else "rolling"
     log(f"mode: {report['mode']}")
     if not keep_all:

@@ -26,7 +26,7 @@ Key mapping (reference key -> field), citations into /root/reference:
   rawDataTable          -> raw_data_table        (conf/app.conf:14)
   benchmark.*           -> bench_*               (conf/app_client_template.conf:20-27)
 
-TPU-specific additions: dtype / tile sizes / mesh shape / shard axis.
+Engine additions: dtype / tile sizes / mesh shape / shard axis.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class AllPairsConfig:
     similarity_threshold: float = 0.7  # conf/app.conf:15
     index_threshold: float = 0.0       # streaming component filter
     # Accepted-but-collapsed reference keys.  The actor topology they
-    # configured does not exist on a TPU slice; they are kept so reference
+    # configured does not exist on a device mesh; they are kept so reference
     # config files load unchanged, with these fates (docs/CONFIG.md):
     max_shard_num: int = 10            # conf/app.conf:12 — COLLAPSED into
                                        # mesh_shape: the dim-shard count is
@@ -84,19 +84,23 @@ class AllPairsConfig:
                                        # mesh axis (SURVEY.md §2 parallelism
                                        # table, row 2)
     io_trigger_period_ms: int = 10     # conf/app.conf:9 (micro-batch flush)
-    max_flush_batch: int = 4096        # TPU-aware deviation from the
-                                       # reference (which drains its whole
-                                       # buffer per IOTrigger tick): a flush
-                                       # coalesces AT MOST this many vectors
-                                       # per engine micro-batch.  Unbounded
-                                       # coalescing overshoots the
-                                       # throughput-optimal batch (measured
-                                       # r5: 15k-row batches served 375
-                                       # vec/s where 2k-row batches serve
-                                       # 1,322) and keeps minting pow2 shape
-                                       # buckets, each a fresh multi-second
-                                       # jit compile mid-serve.  0 = follow
-                                       # the reference: drain everything.
+    max_flush_batch: int = 4096        # deviation from the reference
+                                       # (which drains its whole buffer per
+                                       # IOTrigger tick): a flush coalesces
+                                       # AT MOST this many vectors per
+                                       # engine micro-batch.  On an NVIDIA
+                                       # H100 80GB HBM3 at 700 W, serving a
+                                       # 500k-row chunked index at 9,000
+                                       # vec/s offered for 15 s (serve_probe
+                                       # 500000 --flush-cap N, two calls,
+                                       # PERF.md), a cap of 4,096
+                                       # sustained 7,644 / 7,724 vec/s,
+                                       # 2,048 8,019 / 7,372 (no difference
+                                       # beyond the noise), 0 (drain
+                                       # everything, batches to 28,156
+                                       # rows) 6,794; at 3,000 vec/s all
+                                       # three kept up.  0 = follow the
+                                       # reference.
     output_io_duration_ms: int = 0     # 0 => immediate emission
     run_mode: str = "DEBUG"            # conf/app.conf:16
     io_range_num: int = 1              # conf/app.conf:13
@@ -108,21 +112,28 @@ class AllPairsConfig:
     bench_total_message_count: int = 50
     bench_children_num: int = 1
 
-    # --- TPU engine knobs (new) ---
+    # --- engine knobs (new) ---
     admission: str = "ones"            # max-weight admission pruning:
                                        #   "ones" = reference's 1.0 stub
                                        #   (EntryProxyActor.scala:51-57),
                                        #   "real" = running max weights,
                                        #   "off"
     dtype: str = "float32"             # device score dtype: float32 | bfloat16
-    matmul_precision: str = "default"  # MXU passes: "default" (single-pass
-                                       # bf16 — 2.5x faster; exactness is
-                                       # preserved by the wide rescore margin
-                                       # + fp64 rescore) | "highest"
-                                       # (fp32-exact passes, narrow margin)
-    use_pallas: str = "auto"           # all-pairs hot op: "auto" = Pallas
-                                       # upper-triangle kernel on single-chip
-                                       # TPU, XLA elsewhere; "on" | "off"
+    matmul_precision: str = "default"  # products: "default" (bf16
+                                       # operands, fp32 sums; exactness is
+                                       # kept by the wide rescore margin +
+                                       # fp64 rescore) | "highest" (true
+                                       # fp32 products, narrow margin; the
+                                       # rectangle join at 32,768 rows: 56.5
+                                       # ms default, 0.769 s highest on an
+                                       # NVIDIA H100 80GB HBM3 at 700 W,
+                                       # chip_smoke.py phase 7, PERF.md)
+    use_pallas: str = "auto"           # all-pairs hot op: "auto" = the
+                                       # hand-written upper-triangle kernels
+                                       # (csrc/score_bits.cu) where the
+                                       # capacities tile and the bit-packed
+                                       # hits fit 2 GB, else the rectangle
+                                       # join; "on" | "off"
     extract_cap: int = 1 << 18         # device pair-buffer capacity
                                        # (auto-grows ×4 on overflow)
     extract_group: int = 8             # rows per group in the two-level
@@ -140,13 +151,17 @@ class AllPairsConfig:
                                        # makes the emitted pair set exact)
     mesh_shape: tuple = ()             # e.g. (8,) — empty => single device
     shard_axis: str = "dims"           # "dims" (reference parity) | "rows"
-    pallas_int8: bool = True           # score the Pallas join at int8
-                                       # (2x MXU rate, half the operand DMA)
-                                       # with a per-pair quantization bound
-                                       # in the epilogue — exact (proven
-                                       # superset + fp64 rescore; Enron
-                                       # tau=0.8: 78 ms vs 95 ms at bf16,
-                                       # identical pair set). Auto-gated on
+    pallas_int8: bool = True           # score the kernel join at int8
+                                       # (2x the tensor cores' bf16 rate,
+                                       # half the operand bytes) with a
+                                       # per-pair quantization bound in the
+                                       # epilogue — exact (proven superset +
+                                       # fp64 rescore; 8,586 synthetic rows
+                                       # at tau=0.8: 3.95-4.30 ms a join vs
+                                       # 6.13-6.51 ms at bf16, identical
+                                       # pair set, on an NVIDIA H100 80GB
+                                       # HBM3 at 700 W, bench_torch.py,
+                                       # PERF.md). Auto-gated on
                                        # int32 accumulator safety
                                        # (max_nnz < 66k) and adaptively
                                        # demoted to bf16 if a corpus makes
@@ -160,9 +175,22 @@ class AllPairsConfig:
                                        # micro-batch.  Enabled while the
                                        # stacked slabs fit this budget
                                        # (n_chunks·row_cap·chunk_width·2 B at
-                                       # bf16); beyond it the engine falls
-                                       # back to the per-batch rebuild.  0
-                                       # disables the cache.
+                                       # bf16); beyond it the paneled route.
+                                       # 0 disables the cache.  On an NVIDIA
+                                       # H100 80GB HBM3 at 700 W (bench/
+                                       # constants_ab, PERF.md) the stack is
+                                       # faster at bs 32 (8.2 / 11.0 / 19.9
+                                       # ms against 10.9 / 17.8 / 35.6 at
+                                       # 100k / 200k / 500k rows), even at
+                                       # 256 and slower from 1,024 on
+                                       # (1.0-1.35x; 1.2-2.1x at 4,096), at
+                                       # every size, while the card holds
+                                       # the 500k stack (peak 43.8 GB): so
+                                       # the budget is no memory limit but
+                                       # the reach of a trade, kept at the
+                                       # largest stack measured on the
+                                       # route, 7,168 MiB (the 100k stream's
+                                       # 114,688-row capacity).
     profile_dir: str = ""              # when set, write a torch.profiler
                                        # trace of every all_pairs/insert
                                        # (Chrome trace JSON: Perfetto);

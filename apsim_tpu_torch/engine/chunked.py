@@ -304,10 +304,15 @@ class ChunkedAllPairs:
         self._sort_state = None
 
     # ------------------------------------------------------------ stripe join
-    # accumulator budget of the automatic stripe width (bytes): carried
-    # over from the JAX package, where it was sized for a TPU v5e; still
-    # to recalibrate on the H100
-    _stripe_acc_budget = 6 << 30
+    # budget of the automatic stripe width (bytes): every fp32 accumulator
+    # that a stripe join holds on one card at once (``_stripe_accs``),
+    # sized for an NVIDIA H100 80GB HBM3 (700 W limit; ``bench/ooc.py
+    # --stripes``, PERF.md): a stripe join peaks at about 2.2x its fp32
+    # accumulator plus the index (8.0 GB at 100,000 rows with a 3.5 GB
+    # accumulator, 13.0 GB at 499,712 rows with 4.3 GB), so 16 GiB keeps
+    # the widest stripe, 8,192, through 500k rows near 42 GB (37.3 GB
+    # measured at 499,712 rows)
+    _stripe_acc_budget = 1 << 34  # 16 GiB
     # int8 stripes (int8 slabs, kernel 4, int32 accumulator): opt-in; set
     # the attribute True.  Times on the H100 in PERF.md.  An instance also
     # demotes itself when the int32-accumulator gate trips.
@@ -315,10 +320,10 @@ class ChunkedAllPairs:
 
     def _q_super(self) -> int:
         """Stripe width: the widest power of two, from 1,024 to 8,192,
-        whose fp32 accumulator (row_cap x stripe) stays under
-        ``_stripe_acc_budget``, clamped to the row capacity (a power of two
-        at most 8,192 always divides ``row_cap``), from the current row
-        count at every call."""
+        whose fp32 accumulators (``_stripe_accs`` of row_cap x stripe) stay
+        under ``_stripe_acc_budget``, clamped to the row capacity (a power
+        of two at most 8,192 always divides ``row_cap``), from the current
+        row count at every call."""
         if self.super_tile is not None:
             # round DOWN to a power of two that DIVIDES row_cap.  Above
             # 8,192 rows row_cap is a multiple of 8,192 but not a power of
@@ -335,11 +340,17 @@ class ChunkedAllPairs:
                 st //= 2
             return st
         padded = round_up(max(self.n_rows, 1), 8192)
-        budget = self._stripe_acc_budget // (4 * padded)
+        accs = self._stripe_accs()
+        budget = self._stripe_acc_budget // (4 * padded * accs)
         st = 1024
         while st * 2 <= min(budget, 8192):
             st *= 2
         return min(st, self.row_cap)
+
+    def _stripe_accs(self) -> int:
+        """fp32 ``[row_cap, stripe]`` accumulators that a stripe join holds
+        on one card at once: one here."""
+        return 1
 
     def _quantize_entries(self):
         """``(q2d, aux, max_nnz)`` of the current entry buffers (the mesh
@@ -404,22 +415,46 @@ class ChunkedAllPairs:
                     torch.cat([c for _, c in found]).cpu().numpy())
 
     # ------------------------------------------------------------- panel join
-    # cost-model calibration, carried over from the JAX package (measured
-    # on a TPU v5e): per-panel-pair overhead beyond the int8 work, ~1 ms
-    # with all slabs resident, ~30 ms rolling; the int8 rate 390e12 and the
-    # 6 GB all-resident threshold below are the same v5e figures.  Still to
-    # recalibrate on the H100.
-    _panel_pp_resident = 1e-3
-    _panel_pp_rolling = 30e-3
-    # hard per-slab size guard (bytes); the cost model picks rb below it
-    _panel_slab_budget = 1536 << 20
-    # sweep budgets (bytes), v5e-sized: resident if ALL slabs fit; the
-    # rolling sweep's in-flight slab bound otherwise
-    _panel_resident_bytes = 6 << 30
-    _panel_sweep_bytes = 10 << 30
+    # The planner's constants (``_pick_panel_rows``, ``_keeps_all``), each
+    # measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit on
+    # ``synthetic_corpus`` at 100,000 and 499,712 rows (d_cap 32,768) with
+    # ``python -m apsim_tpu_torch.bench.panel_probe 100000`` / ``500000``
+    # and ``python -m apsim_tpu_torch.bench.constants_ab`` (joins at
+    # 8,192-, 16,384- and 32,768-row panels in turns); PERF.md gives the
+    # runs.
+    # Kernel 3's rate, in multiply-adds per second (the unit of the cost
+    # model's padded^2 / 2 * d_cap): its stage in the join at 16,384-row
+    # panels, 7.44e14-7.66e14 (8.30e14-8.44e14 at 8,192 rows, 6.51e14-
+    # 6.70e14 at 32,768; panel_probe's pair alone: 8.12e14 at 8,192 rows,
+    # 6.57e14 at 32,768).
+    _panel_int8_rate = 7.5e14
+    # Seconds a panel pair adds to the join beyond its kernel work (the
+    # compaction chain with its host syncs, the slab and the host loop):
+    # (join - kernel - rescore) / pairs at 16,384-row panels, 1.57-1.92 ms
+    # (1.00-1.46 ms at 8,192 rows; panel_probe's pair alone, CUDA events:
+    # 0.70 ms beyond its kernel at 8,192 rows, 0.76 ms at 32,768).
+    _panel_pp_resident = 1.7e-3
+    # The same when the slabs roll: plus at most one slab build a pair (the
+    # B = 1 worst case; 0.48 ms a 256 MiB slab, 0.85 ms a 1 GiB slab).
+    # panel_probe 500000 found the rolling sweep within 2 % of itself at
+    # every B from 1 to 16 (7.05-7.19 s).
+    _panel_pp_rolling = 2.2e-3
+    # Hard per-slab size guard (bytes); the cost model picks rb below it.
+    # Kernel 3's rate falls as slabs grow (above: the tiles in flight share
+    # less of the L2), which a one-rate model cannot see: at 499,712 rows
+    # the join took 6.40-6.51 s on 512 MiB slabs (16,384 rows), 6.98-7.11 s
+    # on 256 MiB and 7.19-7.22 s on 1 GiB.
+    _panel_slab_budget = 512 << 20
+    # Sweep budgets (bytes): resident if ALL slabs fit, else the rolling
+    # sweep's in-flight slab bound.  Sized for the card's 79.2 GiB: the
+    # 499,712-row join peaked at 20.3-21.0 GB with its 15.5 GiB of slabs
+    # resident (19.4-21.6 GB from 256 MiB to 1 GiB slabs), so a 32 GiB
+    # sweep peaks near 40 GB.
+    _panel_resident_bytes = 32 << 30
+    _panel_sweep_bytes = 1 << 34  # 16 GiB
     _panel_B_cap = 6  # resident row panels per column scan (rolling)
-    # one dense-kernel launch over the whole padded matrix: OPT-IN (on the
-    # TPU it measured slower than the sweep)
+    # one dense-kernel launch over the whole padded matrix: opt-in (the
+    # JAX package's tier; not timed on the card)
     _use_single_slab = False
 
     def _panel_ok(self) -> bool:
@@ -433,43 +468,57 @@ class ChunkedAllPairs:
         JAX package's rule), else (64, 128), the smallest the CUDA kernel
         takes (``tm % 64``, ``tn % 128``).  ``d_cap`` is rounded up to the
         kernel's 128-byte K stage (zero columns add nothing).  ``rb``, a
-        multiple of both tiles, minimizes the JAX package's cost model:
-        padded int8 work (padding rows multiply zeros, quadratically)
-        against a per-panel-pair overhead."""
+        multiple of both tiles, is the cost model's (``_pick_panel_rows``)."""
         gkey = (self.n_rows, self._n_chunks, self._chunk_width)
         if self._panel_geom_cache is not None and (
                 self._panel_geom_cache[0] == gkey):
             return self._panel_geom_cache[1]
         d_cap = round_up(self._n_chunks * self._chunk_width, ts.K_QUANTUM)
         tm, tn = (1024, 512) if d_cap % 2048 == 0 else (64, 128)
-        step = max(tm, tn)  # both powers of two: rb % step covers both
         n = max(self.n_rows, 1)
         geom = None
-        if self.panel_rows is not None:
+        if self.panel_rows is None:
+            # both tiles are powers of two: rb % max(tm, tn) covers both
+            rb = self._pick_panel_rows(n, d_cap, max(tm, tn))
+            geom = (rb, tm, tn, round_up(n, rb) // rb, d_cap)
+        elif self.panel_rows % tm == 0 and self.panel_rows % tn == 0:
             rb = self.panel_rows
-            if rb % tm == 0 and rb % tn == 0:
-                geom = (rb, tm, tn, round_up(n, rb) // rb, d_cap)
-        else:
-            budget_rows = max(step, self._panel_slab_budget // d_cap)
-            best = None
-            rb = step
-            while rb <= budget_rows:
-                padded = round_up(n, rb)
-                np_ = padded // rb
-                pairs = np_ * (np_ + 1) // 2
-                keep_all = np_ * rb * d_cap <= (6 << 30)
-                per_pair = (
-                    self._panel_pp_resident if keep_all
-                    else self._panel_pp_rolling
-                )
-                cost = padded * padded / 2 * d_cap / 390e12 + pairs * per_pair
-                if best is None or cost < best[0]:
-                    best = (cost, rb, padded)
-                rb *= 2
-            _, rb, padded = best
-            geom = (rb, tm, tn, padded // rb, d_cap)
+            geom = (rb, tm, tn, round_up(n, rb) // rb, d_cap)
         self._panel_geom_cache = (gkey, geom)
         return geom
+
+    def _keeps_all(self, n_panels: int, rb: int, d_cap: int) -> bool:
+        """Whether every slab of the geometry stays resident for the whole
+        sweep (``_panel_resident_bytes``): the sweep's mode, the cost
+        model's per-pair overhead and the single-slab tier's guard."""
+        return (n_panels * self._slab_bytes(rb, d_cap)
+                <= self._panel_resident_bytes)
+
+    def _pick_panel_rows(self, n: int, d_cap: int, rb0: int) -> int:
+        """The panel height, from ``rb0`` doubling while a pair's largest
+        tensor (``_pair_bytes``) fits ``_panel_slab_budget`` (``rb0`` in any
+        case), that minimises the join's modelled cost: the
+        padded join's int8 multiply-adds (``padded^2 / 2 * d_cap``: padding
+        rows multiply zeros, quadratically) over ``_panel_int8_rate``, plus
+        a fixed overhead per panel pair (``_panel_pp_resident``, or
+        ``_panel_pp_rolling`` when the slabs do not all stay resident).
+        ``d_cap`` is the global width; a slab's bytes are
+        ``_slab_bytes`` (one shard's share on a mesh)."""
+        best = None
+        rb = rb0
+        while best is None or (self._pair_bytes(rb, d_cap)
+                               <= self._panel_slab_budget):
+            padded = round_up(n, rb)
+            n_panels = padded // rb
+            per_pair = (self._panel_pp_resident
+                        if self._keeps_all(n_panels, rb, d_cap)
+                        else self._panel_pp_rolling)
+            cost = (padded * padded / 2 * d_cap / self._panel_int8_rate
+                    + n_panels * (n_panels + 1) // 2 * per_pair)
+            if best is None or cost < best[0]:
+                best = (cost, rb)
+            rb *= 2
+        return best[1]
 
     def _panel_state(self):
         """Per-corpus join state: the row-sorted int8 COO, the panels'
@@ -545,10 +594,12 @@ class ChunkedAllPairs:
         )
 
     def _single_slab_ok(self, state) -> bool:
+        """The opt-in single-slab tier, while its one slab (the whole padded
+        matrix) fits the resident budget."""
         if not self._use_single_slab:
             return False
         rb, _, _, n_panels, d_cap = state["geom"]
-        return n_panels * rb * d_cap <= (6 << 30)
+        return self._keeps_all(n_panels, rb, d_cap)
 
     def _all_pairs_single_slab(self, state, tau_eff):
         """One dense int8 kernel launch over the full padded matrix,
@@ -588,6 +639,11 @@ class ChunkedAllPairs:
         are compared against (the mesh subclass: one shard's share)."""
         return rb * d_cap
 
+    def _pair_bytes(self, rb: int, d_cap: int) -> int:
+        """Per-device bytes of the largest tensor a panel pair makes, which
+        ``_panel_slab_budget`` bounds: here a slab (kernel 3 writes bits)."""
+        return self._slab_bytes(rb, d_cap)
+
     def _sweep(self, state, tau_eff) -> list:
         """Every panel pair (I <= J) through ``_op_panel_pair``.  A slab is
         whatever ``_build_slab`` returns (one tensor here, a per-shard list
@@ -595,7 +651,7 @@ class ChunkedAllPairs:
         rb, _, _, n_panels, d_cap = state["geom"]
         slab_bytes = self._slab_bytes(rb, d_cap)
         found: list = []
-        if n_panels * slab_bytes <= self._panel_resident_bytes:
+        if self._keeps_all(n_panels, rb, d_cap):
             # all slabs resident for the whole sweep
             slabs = [self._build_slab(state, p) for p in range(n_panels)]
             for pi in range(n_panels):
@@ -886,12 +942,20 @@ class ChunkedAllPairs:
     # intersections (the batch's document-frequency mass) against the
     # device's per-entry densify cost.
     _host_stream_match = True
-    # Cost constants carried over from the JAX package, calibrated there on
-    # a TPU v5e and its host; not yet measured for the H100 machine
-    # (``bench/ooc.py --stream --router-ab`` measures both routes there).
-    _host_ns_per_nnz = 6.0      # corpus-stream term of the spGEMM
-    _host_ns_per_flop = 70.0    # per intersection + COO materialization
-    _rebuild_ns_per_nnz = 20.0  # device slab densify (per entry)
+    # Cost constants (ns), measured on the host of an NVIDIA H100 80GB HBM3
+    # at a 700 W power limit with both routes forced on the same batches
+    # (``python -m apsim_tpu_torch.bench.ooc 100000 499712 --stream 4096
+    # --stream-batch 32,256,1024 --router-ab --slab-budget-mb 0``, PERF.md):
+    # the spGEMM's "host_match" stage, least squares over six batches
+    # (11.5M-56.9M index entries, 4e7-6.3e9 df mass), is 12.4 ns per index
+    # entry plus 4.0 ns per unit of df mass, within 6 %; the device route's
+    # (paneled) product, per index entry, 0.47-0.51 ns at bs 32 and 256
+    # (0.93-1.34 at 1,024).  The host's corpus walk alone costs more than
+    # the device route, so the router keeps every batch on the card: no
+    # measured host makes the spGEMM pay (ROADMAP queue 7, item 4).
+    _host_ns_per_nnz = 12.4     # corpus-stream term of the spGEMM
+    _host_ns_per_flop = 4.0     # per intersection + COO materialization
+    _rebuild_ns_per_nnz = 0.5   # device route, per index entry
 
     def _use_host_match(self, q_ext_indices: np.ndarray) -> bool:
         """Route this batch's match to the host spGEMM?  ``q_ext_indices``
@@ -957,10 +1021,18 @@ class ChunkedAllPairs:
         ccsr = self._compact.map_csr(self._drop_unmapped(sub), extend=False)
         return self._match_ccsr(ccsr, n0, self._tau_eff(tau))
 
+    # the match's fp32 ``[row_cap, width]`` accumulator budget (bytes) on
+    # an NVIDIA H100 80GB HBM3 (700 W limit; ``bench/constants_ab``,
+    # PERF.md): at 499,712 rows a 4,096-row batch on the resident route
+    # took 0.596 s at width 2,048 (4 GiB) and 0.635 s at 4,096 (8 GiB),
+    # whose peak was 52.4 GB against 43.8, so the wider split buys nothing
+    _match_acc_budget = 4 << 30
+
     def _match_width_limit(self) -> int:
         """Largest power-of-two query width (at least 256) whose fp32
-        ``[row_cap, width]`` match accumulator stays under 6 GB."""
-        budget = (6 << 30) // (4 * self.row_cap)
+        ``[row_cap, width]`` match accumulator stays under
+        ``_match_acc_budget``."""
+        budget = self._match_acc_budget // (4 * self.row_cap)
         w = 256
         while w * 2 <= budget:
             w *= 2

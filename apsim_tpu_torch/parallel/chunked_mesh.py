@@ -157,6 +157,29 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         return (self._ent_gen,) + tuple(None if v is None else v._version
                                         for v in self._ent[2])
 
+    # Stripe budget (bytes) over every fp32 accumulator counted by
+    # ``_stripe_accs``.  Measured on an NVIDIA H100 80GB HBM3 at a 700 W
+    # power limit (``bench/constants_ab``, PERF.md): the mesh stripe join
+    # peaked 0.7-4.0 GB above its counted accumulators (4 and 8 shards on
+    # the card, 100,000 and 499,712 rows; the epilogue runs on the sum in
+    # row chunks), so 32 GiB keeps it near the single engine's 37.3 GB.
+    # With 4 shards on the card the wider stripes it allows were the
+    # faster: 51.2 s at width 2,048 against 56.0 s at 1,024 (499,712 rows,
+    # peak 24.5 GB), 2.17 s at 8,192 against 2.25 s at 4,096 (100,000).
+    _stripe_acc_budget = 1 << 35  # 32 GiB
+
+    def _stripe_accs(self) -> int:
+        """Counted on the busiest card: every local shard's fp32 partial,
+        live until the sum (``ops/chunked_mesh._reduced``), the sum, and
+        one more where a partial or the running sum crosses from another
+        card or process.  One shard holds one."""
+        if self.n_shards == 1:
+            return 1
+        local = [str(self.mesh.devices[s]) for s in self.mesh.local_shards]
+        busiest = max(local.count(d) for d in local)
+        spread = len(set(local)) > 1 or self.mesh.n_procs > 1
+        return busiest + 1 + int(spread)
+
     def _op_stripe(self, q0: int, tau_eff, super_tile: int):
         q8 = self._int8_slabs()
         if q8 is not None:
@@ -176,51 +199,52 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     def _panel_geom(self):
         """``(rb, 64, 128, n_panels, d_cap)`` or None.  Kernel 4 runs per
         shard on ``[rb, d_cap / n_shards]`` slabs at its fixed 64 x 128
-        tiles, so a ``panel_rows`` override needs ``rb % 128``.  The cost
-        model is the JAX mesh variant's: padded int8 work over the global
-        width against a per-pair overhead, with the keep-all threshold and
-        the slab budget per shard.  ``d_cap`` here is ``n_shards`` slab
-        widths."""
+        tiles, so a ``panel_rows`` override needs ``rb % 128``.  ``rb`` is
+        the single-device engine's cost model (``_pick_panel_rows``) from 512
+        rows, over the global width, with the budgets per shard
+        (``_slab_bytes``, ``_pair_bytes``).  ``d_cap`` here is ``n_shards``
+        slab widths."""
         gkey = (self.n_rows, self._n_chunks, self._chunk_width)
         if self._panel_geom_cache is not None and (
                 self._panel_geom_cache[0] == gkey):
             return self._panel_geom_cache[1]
-        d_glob = self._n_chunks * self._chunk_width
-        d_local = panel_mesh.slab_width(d_glob, self.n_shards)
+        d_cap = self.n_shards * panel_mesh.slab_width(
+            self._n_chunks * self._chunk_width, self.n_shards)
         n = max(self.n_rows, 1)
+        rb = self.panel_rows
+        if rb is None:
+            rb = self._pick_panel_rows(n, d_cap, 512)
         geom = None
-        if self.panel_rows is not None:
-            rb = self.panel_rows
-            if rb % panel_mesh.MM_TN == 0:
-                geom = rb
-        else:
-            budget_rows = max(64, self._panel_slab_budget // d_local)
-            best = None
-            rb = 512
-            while rb <= budget_rows:
-                padded = round_up(n, rb)
-                np_ = padded // rb
-                pairs = np_ * (np_ + 1) // 2
-                keep_all = np_ * rb * d_local <= (6 << 30)
-                per_pair = (
-                    self._panel_pp_resident if keep_all
-                    else self._panel_pp_rolling
-                )
-                cost = (padded * padded / 2 * d_glob / 390e12
-                        + pairs * per_pair)
-                if best is None or cost < best[0]:
-                    best = (cost, rb)
-                rb *= 2
-            geom = None if best is None else best[1]
-        if geom is not None:
-            rb = geom
+        if rb % panel_mesh.MM_TN == 0:
             geom = (rb, panel_mesh.MM_TM, panel_mesh.MM_TN,
-                    round_up(n, rb) // rb, self.n_shards * d_local)
+                    round_up(n, rb) // rb, d_cap)
         self._panel_geom_cache = (gkey, geom)
         return geom
 
+    # The mesh join's rate for the cost model (``_pick_panel_rows``), in
+    # multiply-adds per second: kernel 4, the int32 reduce and the eager
+    # bound epilogue together, (join - pairs * ``_panel_pp_resident``) over
+    # padded^2 / 2 * d_cap, measured on an NVIDIA H100 80GB HBM3 at a 700 W
+    # power limit with 4 shards on the one card (``bench/constants_ab``,
+    # PERF.md): 2.1e14 at 100,000 rows on 8,192-row panels, 2.3e14 at
+    # 499,712 rows on 16,384-row panels (8 shards on the card: 1.8e14 and
+    # 2.0e14, the same picks the faster).  It holds for shards on one card
+    # only: one shard a card (``cli serve --mesh``) splits the kernel stage
+    # and grows the reduce, and is not measured.
+    _panel_int8_rate = 2.2e14
+    # A shard's slab and its int32 ``[rb, rb]`` partial product at most
+    # 1 GiB (``_pair_bytes``): on 16,384-row panels the 499,712-row join
+    # with 4 shards on one card peaked at 27.1 GB and took 19.2 s, against
+    # 21.1 s on 8,192-row panels.
+    _panel_slab_budget = 1 << 30
+
     def _slab_bytes(self, rb: int, d_cap: int) -> int:
         return rb * (d_cap // self.n_shards)
+
+    def _pair_bytes(self, rb: int, d_cap: int) -> int:
+        """A shard's slab or its int32 ``[rb, rb]`` partial product (kernel
+        4's output, which the reduce sums), the larger."""
+        return max(self._slab_bytes(rb, d_cap), 4 * rb * rb)
 
     def _single_slab_ok(self, state) -> bool:
         return False

@@ -67,7 +67,13 @@ result line):
    sweep; the third timed with its stage split); the kernel against its
    plain version on one diagonal and one off-diagonal panel pair of that
    join (timed); one join with the rolling sweep; exact pair-set parity of
-   both joins with the fp64 oracle.
+   both joins with the fp64 oracle.  5c: ``ChunkedAllPairs`` with
+   ``chunk_dim`` 1,536 on 24,000 rows, whose ``d_cap`` is no multiple of
+   2,048, so the join takes (64, 128) block tiles and kernel 3's 64 x 128
+   thread-block instantiation: launches once per panel pair per join
+   (counters zeroed just before), the kernel bit for bit against its plain
+   version at the join's operands, the pair set against the fp64 oracle,
+   the third join timed.
 6. The mesh paths, their shards on the one card.  Kernel 4 (the per-shard
    int8 matmul) against its plain version, exact int32 equality, at two
    small shapes and at the mesh join's own per-shard operands (a diagonal
@@ -752,6 +758,49 @@ def ooc_join(eng: ChunkedAllPairs, label: str, reps: int,
     }
     log(f"{label}: {json.dumps(rec)}")
     return {"rec": rec, "res": res}
+
+
+OFF2048_ROWS = 24_000  # phase 5c's corpus
+OFF2048_CHUNK = 1536  # a chunk width whose d_cap is no multiple of 2,048
+
+
+def off2048_leg(dev, kernels: list) -> None:
+    """Phase 5c: ``ChunkedAllPairs`` with ``chunk_dim`` 1,536 on
+    ``synthetic_corpus(24000, seed=5)``, so ``d_cap`` is no multiple of
+    2,048 and the geometry takes (64, 128) block tiles, which kernel 3
+    runs through its 64 x 128 thread-block instantiation.  Counters zeroed
+    just before build + three joins: kernel 3 launched once per panel pair
+    per join; the kernel bit for bit against its plain version at the
+    join's last off-diagonal pair (timed); the pair set equal to the fp64
+    oracle; the third join timed with its stage split."""
+    csr = synthetic_corpus(OFF2048_ROWS, seed=5)
+    eng = ChunkedAllPairs(AllPairsConfig(), dev, chunk_dim=OFF2048_CHUNK)
+    zero_launches()
+    eng.build(csr)
+    label = f"phase 5c, chunk_dim {OFF2048_CHUNK}, {OFF2048_ROWS} rows"
+    j = ooc_join(eng, label, reps=3)
+    got = dict(ts.LAUNCHES)
+    rb, tm, tn, n_panels, d_cap = eng._panel_geom()
+    if (tm, tn) != (64, 128) or d_cap % 2048 == 0:
+        raise AssertionError(f"{label}: geometry {eng._panel_geom()} does "
+                             f"not take the (64, 128) tiles")
+    if ts.thread_block_tile(tm, tn) != (64, 128):
+        raise AssertionError(f"{label}: thread-block tile "
+                             f"{ts.thread_block_tile(tm, tn)}")
+    expect = {k: 0 for k in got}
+    expect["panel_score_bits_int8"] = 3 * n_panels * (n_panels + 1) // 2
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    rec = compare_panel(eng, 0, n_panels - 1, tm, tn, timed=True)
+    log(f"{label}: panel kernel at the join's operands: {json.dumps(rec)}")
+    check_parity(j["res"], oracle_pairs(csr, TAU, dev), label)
+    if not np.all(np.isfinite(j["res"].sims)):
+        raise AssertionError(f"{label}: non-finite sims")
+    k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
+    k3.update(off2048_launches=got["panel_score_bits_int8"],
+              off2048_ms=rec["ms"], off2048_plain_ms=rec["plain_ms"],
+              off2048_bound_ms=rec["bound_ms"],
+              off2048_join_seconds=j["rec"]["seconds"])
 
 
 def zero_launches() -> None:
@@ -4160,6 +4209,8 @@ def main() -> int:
             raise AssertionError("join produced no pairs or non-finite sims")
         log(f"out-of-core {label} join, {OOC_ROWS} rows: parity OK, "
             f"{len(got)} pairs equal the fp64 oracle")
+    off2048_leg(dev, kernels)
+    torch.cuda.empty_cache()
 
     # ---- phase 6: the mesh paths, their shards on the one card
     gen = torch.Generator(device=dev).manual_seed(6)

@@ -30,6 +30,7 @@ from apsim_tpu.vector.sparse import Vectors
 from apsim_tpu_torch.bench import ooc as pt_ooc
 from apsim_tpu_torch.engine import chunked as pt_chunked
 from apsim_tpu_torch.ops import tri_score as ts
+from apsim_tpu_torch.vector.batch import round_up
 
 from oracle import brute_force_pairs, brute_force_sims, random_sparse_corpus
 
@@ -202,21 +203,47 @@ def test_load_jax_checkpoint(corpus, flavor, tmp_path):
     assert got.pair_set() == want == brute_force_pairs(corpus, 0.4, ids)
 
 
-def test_cost_model_matches_jax():
-    """The panel height and count the port's cost model picks equal the
-    JAX package's at 32,768 compact columns (16 chunks of 2048)."""
-    picks = {}
-    for n in (20_000, 100_000, 500_000):
+# (n_rows, rb, n_panels) worked by hand from the port's constants at d_cap
+# 32,768 (16 chunks of 2,048; tiles (1024, 512), so rb doubles from 1,024 to
+# 16,384, the tallest whose 512 MiB slab fits ``_panel_slab_budget``; every
+# sweep stays under the 32 GiB resident budget), the cost of rb being
+# padded^2 / 2 * 32,768 / 7.5e14 + pairs * 1.7e-3 s:
+#    20,000: rb  4,096: 20,480 rows, 15 pairs: 0.0092 + 0.0255 = 0.0347
+#            rb  8,192: 24,576 rows,  6 pairs: 0.0132 + 0.0102 = 0.0234 <-
+#            rb 16,384: 32,768 rows,  3 pairs: 0.0235 + 0.0051 = 0.0286
+#   100,000: rb  8,192: 106,496 rows, 91 pairs: 0.2478 + 0.1547 = 0.4025
+#            rb 16,384: 114,688 rows, 28 pairs: 0.2873 + 0.0476 = 0.3349 <-
+#   500,000: rb  8,192: 507,904 rows, 1,953 pairs: 5.6355 + 3.3201 = 8.9556
+#            rb 16,384: 507,904 rows,   496 pairs: 5.6355 + 0.8432 = 6.4787 <-
+COST_PICKS = {20_000: (8192, 3), 100_000: (16384, 7), 500_000: (16384, 31)}
+
+
+def test_cost_model_matches_jax(corpus):
+    """The panel height and count the port's cost model picks at 32,768
+    compact columns (16 chunks of 2048) equal the values worked out by hand
+    from its own constants (``COST_PICKS``); the tiles and ``d_cap`` equal
+    the JAX package's (the same rule).  The results stay the JAX engine's:
+    at 220 rows the port's automatic geometry gives the pair set of JAX's
+    at its own, and the fp64 oracle's."""
+    for n, pick in COST_PICKS.items():
         out = []
         for eng in (JaxChunked(apsim_tpu.AllPairsConfig()),
                     pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu")):
             eng.n_rows, eng._n_chunks = n, 16
             eng._compact._base = 32768
             g = eng._panel_geom()
-            out.append((g[0], g[-2], g[-1], g[1], g[2]))
-        assert out[0] == out[1]
-        picks[n] = out[1][:2]
-    assert picks[100_000] == (8192, 13)
+            out.append((g[0], g[1], g[2], g[-2], g[-1]))
+        (_, jtm, jtn, _, jd), (rb, tm, tn, n_panels, d_cap) = out
+        assert (rb, n_panels) == pick
+        assert (tm, tn, d_cap) == (jtm, jtn, jd) == (1024, 512, 32768)
+        assert n_panels * rb >= n > (n_panels - 1) * rb
+    p = pt.ChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()), "cpu")
+    j = JaxChunked(apsim_tpu.AllPairsConfig(**cfg_kw(use_pallas="on")))
+    p.build(to_pt(corpus))
+    j.build(corpus)
+    assert p._panel_ok() and p.panel_rows is None
+    assert (p.all_pairs(0.4).pair_set() == j.all_pairs(0.4).pair_set()
+            == brute_force_pairs(corpus, 0.4))
 
 
 # case -> (config overrides, constructor overrides, engine attributes):
@@ -297,26 +324,35 @@ def test_tripped_int32_gate_takes_the_stripes(corpus, monkeypatch,
     assert pt.ChunkedAllPairs._int8_stripes is False  # class default
 
 
+# the automatic stripe width worked by hand from the port's 16 GiB
+# accumulator budget: 16 GiB / (4 * round_up(n, 8192)) floored to a power
+# of two in [1024, 8192], then clamped to row_cap (4,096 at 3,000 rows);
+# at 300,000 rows 16 GiB / (4 * 303,104) = 14,169 -> 8,192, where JAX's
+# budget gives 4,096
+AUTO_STRIPE = {20000: 8192, 100000: 8192, 3000: 4096, 300000: 8192}
+
+
 @pytest.mark.parametrize("n_rows,override", [
     (20000, 16384), (20000, None), (100000, None), (100000, 5000),
     (3000, 8192), (3000, None), (300000, None), (1, 7),
 ])
 def test_super_tile_rule_equals_jax(n_rows, override):
     """The stripe width: an override rounds down to a power of two that
-    divides row_cap (above 8,192 rows row_cap is no power of two); the
-    automatic width is the widest power of two under the accumulator
-    budget."""
+    divides row_cap (above 8,192 rows row_cap is no power of two), as
+    JAX's does; the automatic width is the widest power of two under the
+    port's accumulator budget (``AUTO_STRIPE``)."""
     p = pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu", super_tile=override)
     j = JaxChunked(apsim_tpu.AllPairsConfig(), super_tile=override)
     p.n_rows = j.n_rows = n_rows
     assert p.row_cap == j.row_cap
     st = p._q_super()
-    assert st == j._q_super() and p.row_cap % st == 0
+    assert st == (j._q_super() if override else AUTO_STRIPE[n_rows])
+    assert p.row_cap % st == 0
     assert st & (st - 1) == 0 and (override is None or st <= override)
     if (n_rows, override) == (20000, 16384):
         assert (p.row_cap, st) == (24576, 8192)
-    if (n_rows, override) == (100000, None):
-        assert st == 8192 and 4 * p.row_cap * st <= p._stripe_acc_budget
+    if override is None:
+        assert 4 * round_up(n_rows, 8192) * st <= p._stripe_acc_budget
     p._stripe_acc_budget = 1 << 20  # a small budget narrows the auto pick
     assert p._q_super() == (st if override else min(1024, p.row_cap))
 

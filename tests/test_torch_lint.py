@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # and slab studies
 BENCH_MODULES = ("suite", "baseline", "mfu", "scale", "join_probe",
                  "insert_probe", "panel_probe", "serve_probe", "tri_probe",
-                 "mesh_tri_probe", "ell_probe")
+                 "mesh_tri_probe", "ell_probe", "constants_ab")
 
 
 @pytest.mark.parametrize("target", ["apsim_tpu_torch", "chip_smoke.py",

@@ -31,6 +31,8 @@ from apsim_tpu_torch.engine import chunked as pt_chunked
 from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import panel_mesh
 from apsim_tpu_torch.ops import tri_score as ts
+from apsim_tpu_torch.parallel.mesh import Mesh
+from apsim_tpu_torch.vector.batch import round_up
 
 from oracle import brute_force_pairs, random_sparse_corpus
 
@@ -450,3 +452,100 @@ def test_unported_paths_raise(corpus, what, tmp_path):
     assert e.n_rows == corpus.n_rows + (what == "insert")
     assert e.all_pairs(0.5).pair_set() == brute_force_pairs(
         e.shadow_csr(), 0.5, e.ids)
+
+
+# the chunked mesh's rb worked by hand: ``ChunkedAllPairs._pick_panel_rows``
+# from 512 rows over d_cap 32,768 with the mesh's own rate (2.2e14) and pair
+# budget (a shard's int32 [rb, rb] partial, 4 * rb^2 bytes, within 1 GiB:
+# rb <= 16,384), cost = padded^2 / 2 * 32,768 / 2.2e14 + pairs * 1.7e-3 s:
+#    20,000: rb 8,192: 24,576 rows, 6 pairs: 0.0450 + 0.0102 = 0.0552 <-
+#            rb 4,096: 20,480 rows, 15 pairs: 0.0312 + 0.0255 = 0.0567
+#   100,000: rb  8,192: 106,496 rows, 91 pairs: 0.8446 + 0.1547 = 0.9993 <-
+#            rb 16,384: 114,688 rows, 28 pairs: 0.9795 + 0.0476 = 1.0271
+#   500,000: rb  8,192: 507,904 rows, 1,953 pairs: 19.212 + 3.320 = 22.532
+#            rb 16,384: 507,904 rows,   496 pairs: 19.212 + 0.843 = 20.055 <-
+MESH_PICKS = {20_000: (8192, 3), 100_000: (8192, 13), 500_000: (16384, 31)}
+# the single engine's (``tests/test_torch_chunked.py``, ``COST_PICKS``)
+SINGLE_PICKS = {20_000: (8192, 3), 100_000: (16384, 7), 500_000: (16384, 31)}
+
+
+@pytest.mark.parametrize("n", sorted(MESH_PICKS))
+def test_panel_rows_from_one_helper(n, monkeypatch):
+    """``ChunkedAllPairs`` and ``MeshChunkedAllPairs`` (1, 4 and 8 shards)
+    take rb from the one cost helper, ``ChunkedAllPairs._pick_panel_rows``,
+    once each, with their own width, first height and per-pair bytes; given
+    the same inputs it gives the same rb for either engine."""
+    real = pt.ChunkedAllPairs._pick_panel_rows
+    calls = []
+
+    def spy(self, n_rows, d_cap, rb0):
+        rb = real(self, n_rows, d_cap, rb0)
+        calls.append((self, n_rows, d_cap, rb0, rb))
+        return rb
+
+    monkeypatch.setattr(pt.ChunkedAllPairs, "_pick_panel_rows", spy)
+    single = pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu")
+    meshes = [pt.MeshChunkedAllPairs(pt.AllPairsConfig(), mesh=cpu_mesh(s))
+              for s in (1, 4, 8)]
+    for e in [single] + meshes:
+        e.n_rows, e._n_chunks = n, 16
+        e._compact._base = 32768
+        geom = e._panel_geom()
+        (who, n_rows, d_cap, rb0, rb), = [c for c in calls if c[0] is e]
+        assert (n_rows, d_cap, geom[0], geom[-1]) == (n, 32768, rb, 32768)
+        assert rb0 == (1024 if e is single else 512)
+        assert e._panel_geom() == geom  # cached: no second call
+    assert len(calls) == 4
+    assert (single._panel_geom()[0], single._panel_geom()[3]) == (
+        SINGLE_PICKS[n])
+    for m in meshes:
+        assert (m._panel_geom()[0], m._panel_geom()[3]) == MESH_PICKS[n]
+        assert m._panel_geom()[1:3] == (panel_mesh.MM_TM, panel_mesh.MM_TN)
+    # the same inputs (first height, constants, per-pair bytes) give the
+    # same rb for either engine
+    one = meshes[0]
+    for k in ("_panel_int8_rate", "_panel_slab_budget", "_pair_bytes"):
+        setattr(one, k, getattr(single, k))
+    for rb0 in (512, 1024):
+        assert real(one, n, 32768, rb0) == real(single, n, 32768, rb0)
+
+
+# the mesh's automatic stripe width worked by hand: its 32 GiB budget over
+# every fp32 [padded, stripe] accumulator live on the busiest card at once
+# (``_stripe_accs``): n shards on one card hold n partials and their sum
+# (n + 1); one shard a card, the lead card holds its partial, the sum and a
+# partial crossing in (3); two processes with two shards each on one card,
+# 2 + the sum + the running sum crossing in (4).  32 GiB / (4 * padded *
+# accs) floored to a power of two in [1,024, 8,192]:
+#   100,000 rows (padded 106,496): 1: 80,659; 4 on one card: 16,131; 8 on
+#     one: 8,962; 4 cards: 26,886; 2 processes: 20,164: all 8,192
+#   499,712 rows (padded 499,712): 1: 17,189 -> 8,192; 4 on one card:
+#     3,437 -> 2,048; 8 on one: 1,909 -> 1,024; 4 cards: 5,729 -> 4,096;
+#     2 processes: 4,297 -> 4,096
+# (the single engine's 16 GiB over its one accumulator: 8,192 at both)
+MESH_STRIPES = {"1": (1, 8192, 8192), "4 on one card": (5, 8192, 2048),
+                "8 on one card": (9, 8192, 1024), "4 cards": (3, 8192, 4096),
+                "2 processes": (4, 8192, 4096)}
+
+
+@pytest.mark.parametrize("layout", list(MESH_STRIPES))
+def test_mesh_stripe_width_counts_live_partials(layout):
+    """The stripe width of the mesh's stripe join counts every fp32
+    accumulator the busiest card holds at once (``MESH_STRIPES``), so the
+    partials and their sum stay within the mesh's budget."""
+    accs, st100k, st500k = MESH_STRIPES[layout]
+    n = {"1": 1, "2 processes": 4}.get(layout, int(layout[0]))
+    e = pt.MeshChunkedAllPairs(pt.AllPairsConfig(), mesh=cpu_mesh(n))
+    if layout == "4 cards":  # the layout alone decides: no card is touched
+        e.mesh = Mesh(devices=tuple(torch.device("cuda", i)
+                                    for i in range(4)))
+    if layout == "2 processes":
+        e.mesh = Mesh(devices=(torch.device("cpu"),) * 4,
+                      ranks=(0, 0, 1, 1), rank=1)
+    single = pt.ChunkedAllPairs(pt.AllPairsConfig(), "cpu")
+    assert e._stripe_accs() == accs and single._stripe_accs() == 1
+    assert e._stripe_acc_budget == 2 * single._stripe_acc_budget == 1 << 35
+    for n_rows, st in ((100_000, st100k), (499_712, st500k)):
+        e.n_rows = single.n_rows = n_rows
+        assert e._q_super() == st and single._q_super() == 8192
+        assert accs * 4 * round_up(n_rows, 8192) * st <= 1 << 35
