@@ -6,6 +6,9 @@
 //   score_bits_bf16        <- _kernel            (pallas_score_bits)
 //   panel_score_bits_int8  <- _kernel_int8_cross (panel_score_bits_int8)
 //   int8_matmul            <- _mm_kernel         (_int8_matmul)
+// and, as kernel 5, the epilogue XLA fuses behind _int8_matmul in the
+// mesh panel join (no Pallas kernel; see pair_bits_kernel below):
+//   pair_bits_int8         <- psum + int8_bound_mask + bitpack_mask
 //
 // The score kernels.  For every block p of a block list (bi[p], bj[p])
 // they score the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T over all of
@@ -767,6 +770,110 @@ int launch_matmul(const void* xi, const void* xj, int m, int n, int d,
   return launch_ring<T>(xi, m, xj, n, d, job, next_tile, stream);
 }
 
+// ----------------------------------- kernel 5: the mesh join's epilogue
+//
+// pair_bits_int8 replaces no Pallas kernel: it is the epilogue that XLA
+// fuses behind kernel 4 in apsim_tpu/ops/panel_mesh.py:183-213 (the psum
+// of the shards' int32 partial dots, int8_bound_mask, bitpack_mask and
+// the counts), which the port first ran as eager PyTorch.  For one row
+// slice of a panel pair's rectangle it sums the S int32 partials of each
+// cell (exact in any order: every sum stays below 2^30 under the engines'
+// int8 gate), admits the cell by int8_hit and the strict-upper test on
+// global coordinates, and writes the score kernels' layout for one block:
+// gb [1, rows/8, cols], g64 [1, rows/64, cols] and the counts, here int64
+// (a 65,536-row rectangle has 2^32 cells).
+//
+// What bounds it: a few operations per 4 * S bytes read, so the memory
+// (S int32 in per live cell, a bit out).  So every partial is read once,
+// coalesced, and nothing else leaves the chip: a thread block of 128
+// threads covers 64 rows (one super-group) x 128 columns, a thread one
+// column, so a warp's loads of a row are 128 contiguous bytes of each
+// partial; a thread sums 8 rows of every partial at a time (8 independent
+// loads in flight), assembles their group byte in a register and stores it
+// (a warp writes 32 contiguous bytes); the 64 rows' aux entries sit in
+// shared memory (read as broadcasts), the column's in registers.  A cell
+// with row >= col is neither loaded nor tested, so a diagonal pair reads
+// half its bytes.  Counts: a warp reduction, then one 64-bit atomicAdd per
+// warp that saw a hit.
+constexpr int PB_ROWS = 64;        // rows of a thread block: a super-group
+constexpr int PB_COLS = 128;       // columns of a thread block, one a thread
+constexpr int PB_MAX_PARTS = 64;   // partials summed per cell at most
+
+__global__ void __launch_bounds__(PB_COLS)
+pair_bits_kernel(const int* const* __restrict__ parts, int n_parts,
+                 const float* __restrict__ aux_i,
+                 const float* __restrict__ aux_j, int rows, int cols,
+                 int row0, int col0, float tau, uint8_t* __restrict__ gb,
+                 uint8_t* __restrict__ g64,
+                 unsigned long long* __restrict__ cnt) {
+  __shared__ float saux[3][PB_ROWS];
+  __shared__ const int* sparts[PB_MAX_PARTS];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.y * PB_ROWS;       // the block's first row
+  const int c = blockIdx.x * PB_COLS + tid;  // this thread's column
+  for (int s = tid; s < n_parts; s += PB_COLS) sparts[s] = parts[s];
+  if (tid < PB_ROWS) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      saux[a][tid] = __ldg(aux_i + (long long)a * rows + r0 + tid);
+  }
+  __syncthreads();
+  const bool in = c < cols;
+  float aj = 0.f, bj = 0.f, nj = 0.f;
+  if (in) {
+    aj = __ldg(aux_j + c);
+    bj = __ldg(aux_j + cols + c);
+    nj = __ldg(aux_j + 2LL * cols + c);
+  }
+  // the block's rows r < live lie strictly above the diagonal: global
+  // row0 + r0 + r < global col0 + c
+  const long long upper = (long long)col0 + c - row0 - r0;
+  const int live = in ? (int)min(max(upper, 0LL), (long long)PB_ROWS) : 0;
+  int pairs = 0, groups = 0;
+  uint32_t any = 0;
+#pragma unroll 1
+  for (int g = 0; g < PB_ROWS / 8; ++g) {
+    uint32_t byte = 0;
+    const int lim = live - 8 * g;  // rows 8 g + o, o < lim, are live
+    if (lim > 0) {
+      int acc[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) acc[o] = 0;
+      const long long at = (long long)(r0 + 8 * g) * cols + c;
+      for (int s = 0; s < n_parts; ++s) {
+        const int* p = sparts[s] + at;
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          if (o < lim) acc[o] += __ldg(p + (long long)o * cols);
+      }
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const int r = 8 * g + o;
+        if (o < lim && int8_hit(acc[o], saux[0][r], saux[1][r], saux[2][r],
+                                aj, bj, nj, tau))
+          byte |= 1u << o;
+      }
+    }
+    if (in) gb[(long long)(r0 / 8 + g) * cols + c] = (uint8_t)byte;
+    pairs += __popc(byte);
+    groups += byte != 0;
+    any |= byte;
+  }
+  if (in) g64[(long long)blockIdx.y * cols + c] = any != 0;
+  int supers = any != 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    pairs += __shfl_xor_sync(0xffffffffu, pairs, off);
+    groups += __shfl_xor_sync(0xffffffffu, groups, off);
+    supers += __shfl_xor_sync(0xffffffffu, supers, off);
+  }
+  if ((tid & 31) == 0 && supers) {
+    atomicAdd(cnt + 0, (unsigned long long)pairs);
+    atomicAdd(cnt + 1, (unsigned long long)groups);
+    atomicAdd(cnt + 2, (unsigned long long)supers);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -829,6 +936,29 @@ int int8_matmul(const void* xi, const void* xj, int m, int n, int d,
   if (m % Big::BM == 0 && n % Big::BN == 0)
     return launch_matmul<Big>(xi, xj, m, n, d, out, next_tile, stream);
   return launch_matmul<Small>(xi, xj, m, n, d, out, next_tile, stream);
+}
+
+// Kernel 5, one row slice of a mesh panel pair.  parts: a device array of
+// n_parts pointers (1 to 64), each to a row-major int32 [rows, cols]
+// partial; aux_i f32 [3, rows], aux_j f32 [3, cols]; (row0, col0) the
+// global row of the slice's row 0 and the global column of its column 0;
+// gb uint8 [rows / 8, cols] and g64 uint8 [rows / 64, cols] (every byte
+// written); cnt int64 [3] (pairs, hit groups, hit supers), zero on entry.
+// rows % 64 must be 0.
+int pair_bits_int8(const void* parts, int n_parts, const void* aux_i,
+                   const void* aux_j, int rows, int cols, int row0, int col0,
+                   float tau_eff, void* gb, void* g64, void* cnt,
+                   void* stream) {
+  if (n_parts < 1 || n_parts > PB_MAX_PARTS || rows < 0 || cols < 0 ||
+      rows % PB_ROWS || rows / PB_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || cols == 0) return (int)cudaSuccess;
+  const dim3 grid((cols + PB_COLS - 1) / PB_COLS, rows / PB_ROWS);
+  pair_bits_kernel<<<grid, PB_COLS, 0, (cudaStream_t)stream>>>(
+      (const int* const*)parts, n_parts, (const float*)aux_i,
+      (const float*)aux_j, rows, cols, row0, col0, tau_eff, (uint8_t*)gb,
+      (uint8_t*)g64, (unsigned long long*)cnt);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -3,18 +3,27 @@
 
 The mesh chunked engine shards the chunk axis of its entry buffers, so a row
 panel's int8 slab is column-sharded: shard s densifies ``[rb, d_local]``
-from its own entries, a panel pair's score is the sum of the shards' int8
-partial dots (kernel 4, ``int8_matmul``, once per shard), the int32 sum is
-exact, and the quantization-bound epilogue and the compaction run once on
-the summed rectangle.  The per-pair bound proof of the dense kernel
-(``ops/tri_score.py``) carries over unchanged.
+from its own entries, and a panel pair's score is the sum of the shards'
+int8 partial dots (kernel 4, ``int8_matmul``, once per shard), an exact
+int32 sum.  The quantization-bound epilogue runs where the rows live: the
+pair's ``rb`` rows are cut into one contiguous slice per distinct device of
+the mesh, each device receives its slice's rows of the other devices'
+partials (``collectives.gather_rows``), and kernel 5 (``pair_bits_int8``)
+sums the partials of each cell, applies the bound and bit-packs in one
+pass, after which each device compacts its slice; the candidate lists meet
+on the lead device in slice order.  With every shard on one device there
+is one slice and the kernel reads the partials in place.  On a mesh over
+several processes the int32 sum still ends on the last shard's process
+(``collectives.psum``), which runs kernel 5 on it alone.  The per-pair
+bound proof of the dense kernel (``ops/tri_score.py``) carries over
+unchanged.
 
 The functions work on per-shard lists (one tensor per shard, on its
 device; None for a shard another process owns, on a mesh over several
 processes); the only data movement between shards is through
-``parallel/collectives.py``.  ``int8_matmul`` launches the CUDA kernel of
-``csrc/score_bits.cu`` for CUDA tensors (counted in
-``tri_score.LAUNCHES["int8_matmul"]``) and runs its plain PyTorch version
+``parallel/collectives.py``.  ``int8_matmul`` and ``pair_bits_int8``
+launch the CUDA kernels of ``csrc/score_bits.cu`` for CUDA tensors
+(counted in ``tri_score.LAUNCHES``) and run their plain PyTorch versions
 for CPU tensors.  The JAX function's ``optimization_barrier`` (a TPU compile
 workaround) and its caps / packed head (exact-length compaction needs none)
 have no counterpart.
@@ -24,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import pmax, psum, share, sum_home, sync
+from ..parallel.collectives import (gather_rows, pmax, psum, share,
+                                   sum_home, sync)
 from . import panel as panel_ops
 from . import tri_score as ts
 
@@ -35,11 +45,16 @@ __all__ = [
     "mesh_panel_state",
     "mesh_build_panel_slab",
     "mesh_panel_pair",
+    "pair_bits_int8",
+    "pair_bits_int8_plain",
+    "pair_candidates",
+    "row_slices",
     "slab_width",
 ]
 
 MM_TM, MM_TN = ts.THREAD_BLOCK_TILES[-1]  # kernel 4's smallest thread-block tile
-EPILOGUE_CELLS = ts.EPILOGUE_CELLS  # rectangle cells per epilogue chunk
+EPILOGUE_CELLS = ts.EPILOGUE_CELLS  # rectangle cells per plain epilogue chunk
+PAIR_MAX_PARTS = 64  # partials kernel 5 sums per cell at most
 
 
 def _check_mm(xi: torch.Tensor, xj: torch.Tensor) -> None:
@@ -205,10 +220,152 @@ def mesh_build_panel_slab(r_s, c_s, q_s, starts, p: int, rb: int,
     ]
 
 
-def _epilogue_rows(rb: int) -> int:
-    """Rows per epilogue chunk: a multiple of 64 (whole super-groups) that
-    keeps the chunk's f32 temporaries near ``EPILOGUE_CELLS`` cells."""
-    return ts.epilogue_rows(rb, rb, EPILOGUE_CELLS)
+def _epilogue_rows(rows: int, cols: int | None = None) -> int:
+    """Rows per chunk of the plain epilogue over a ``[rows, cols]`` slice
+    (default square): a multiple of 64 (whole super-groups) that keeps
+    the chunk's f32 temporaries near ``EPILOGUE_CELLS`` cells."""
+    return ts.epilogue_rows(rows, rows if cols is None else cols,
+                            EPILOGUE_CELLS)
+
+
+def _check_pair(parts, aux_i, aux_j) -> tuple:
+    """``(rows, cols)`` of kernel 5's operands; raise on anything it
+    refuses."""
+    if not 1 <= len(parts) <= PAIR_MAX_PARTS:
+        raise ValueError(f"pair_bits_int8 sums 1 to {PAIR_MAX_PARTS} "
+                         f"partials, got {len(parts)}")
+    if parts[0].dim() != 2:
+        raise ValueError("pair_bits_int8 partials must be 2-D")
+    rows, cols = parts[0].shape
+    dev = parts[0].device
+    for p in parts:
+        if (p.dtype != torch.int32 or tuple(p.shape) != (rows, cols)
+                or not p.is_contiguous() or p.device != dev):
+            raise ValueError(
+                f"pair_bits_int8 partials must be contiguous int32 "
+                f"[{rows}, {cols}] tensors on {dev}, got {p.dtype} "
+                f"{tuple(p.shape)} on {p.device}")
+    for name, aux, n in (("aux_i", aux_i, rows), ("aux_j", aux_j, cols)):
+        if (aux.dtype != torch.float32 or tuple(aux.shape) != (3, n)
+                or not aux.is_contiguous() or aux.device != dev):
+            raise ValueError(f"{name} must be contiguous f32 [3, {n}] on "
+                             f"{dev}")
+    if rows % ts.SUPER:
+        raise ValueError(f"pair_bits_int8 needs rows % {ts.SUPER} == 0, "
+                         f"got {rows}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return rows, cols
+
+
+def pair_bits_int8(parts, aux_i, aux_j, row0: int, col0: int, tau_eff):
+    """``(gb, g64, cnt)`` of one row slice of a mesh panel pair: kernel 5,
+    which replaces the epilogue XLA fuses behind ``_int8_matmul`` in
+    ``apsim_tpu/ops/panel_mesh.py:mesh_panel_pair`` (``psum``,
+    ``int8_bound_mask``, ``bitpack_mask`` and the counts).
+
+    ``parts``: the shards' int32 ``[rows, cols]`` partial dots of the
+    slice, all on one device; ``aux_i`` / ``aux_j`` the f32 ``[3, rows]`` /
+    ``[3, cols]`` (α, α·L1(q), nnz) tables; ``(row0, col0)`` the global row
+    and column of the slice's cell (0, 0).  A cell is a hit when the
+    quantization bound of its summed dot reaches ``tau_eff`` and its
+    global row lies below its global column.  Returns ``gb [1, rows/8,
+    cols]`` and ``g64 [1, rows/64, cols]`` uint8 and ``cnt [1, 3]`` int64,
+    as ``tri_score.bitpack_row_chunks`` lays them out; ``rows % 64 == 0``.
+    A CPU slice runs ``pair_bits_int8_plain``; a CUDA one launches the
+    kernel (counted in ``tri_score.LAUNCHES["pair_bits_int8"]``) or
+    raises."""
+    rows, cols = _check_pair(parts, aux_i, aux_j)
+    if min(row0, col0) < 0 or max(row0 + rows, col0 + cols) >= 2**31:
+        raise ValueError(f"global offsets ({row0}, {col0}) out of range")
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return pair_bits_int8_plain(parts, aux_i, aux_j, row0, col0,
+                                    tau_eff)
+    gb = torch.empty((1, rows // ts.GROUP, cols), dtype=torch.uint8,
+                     device=dev)
+    g64 = torch.empty((1, rows // ts.SUPER, cols), dtype=torch.uint8,
+                      device=dev)
+    cnt = torch.zeros((1, 3), dtype=torch.int64, device=dev)
+    # the partials' addresses as a device array, copied on the card's
+    # stream from pinned memory (no host wait)
+    ptrs = torch.tensor([p.data_ptr() for p in parts],
+                        dtype=torch.int64).pin_memory().to(
+                            dev, non_blocking=True)
+    ts._launch("pair_bits_int8", aux_i, (
+        ptrs.data_ptr(), len(parts), aux_i.data_ptr(), aux_j.data_ptr(),
+        rows, cols, int(row0), int(col0), float(tau_eff), gb.data_ptr(),
+        g64.data_ptr(), cnt.data_ptr(),
+    ))
+    return gb, g64, cnt
+
+
+def pair_bits_int8_plain(parts, aux_i, aux_j, row0: int, col0: int,
+                         tau_eff):
+    """Plain PyTorch version of kernel 5 (same outputs): the int32 sum of
+    the partials, ``panel.int8_bound_mask`` on global coordinates and
+    ``tri_score.bitpack_row_chunks``, in row chunks of whole super-groups
+    that bound the f32 temporaries (``EPILOGUE_CELLS``)."""
+    rows, cols = _check_pair(parts, aux_i, aux_j)
+    dev = parts[0].device
+    col_ids = col0 + torch.arange(cols, dtype=torch.int64, device=dev)
+
+    def mask_of(r0: int, r1: int):
+        d = parts[0][r0:r1]
+        for p in parts[1:]:
+            d = d + p[r0:r1]
+        row_ids = row0 + torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        return panel_ops.int8_bound_mask(
+            d, aux_i[:, r0:r1], aux_j, row_ids[:, None], col_ids[None, :],
+            tau_eff,
+        )
+
+    return ts.bitpack_row_chunks(mask_of, rows, cols,
+                                 _epilogue_rows(rows, cols), dev)
+
+
+def row_slices(rb: int, n: int) -> list:
+    """``n`` contiguous row slices ``(a, b)`` of an ``rb``-row rectangle, in
+    order, differing by at most one unit (so some are empty when ``rb`` has
+    fewer units than ``n``): whole 512-row cells when ``rb`` is a multiple
+    of 512, else whole 64-row super-groups, so that ``compact_bits`` scans
+    each slice as it scans the whole rectangle (``pair_candidates``)."""
+    unit = ts.SUPER2 if rb % ts.SUPER2 == 0 else ts.SUPER
+    units = rb // unit
+    cuts = [k * units // n * unit for k in range(n + 1)]
+    return list(zip(cuts, cuts[1:]))
+
+
+def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
+                    col0: int, rb: int, tau_eff, lead, timer=None):
+    """Global (row, col) int64 candidate lists of one panel pair from its
+    row slices, on ``lead``: slice ``k`` holds rows ``bounds[k] = (a, b)``
+    of the pair's ``rb`` rows, ``placed[k]`` the partial dots of those rows
+    on ``devices[k]`` (``collectives.gather_rows``).  Each device runs
+    kernel 5 on its slice ("epilogue"), then ``tri_score.compact_bits`` on
+    its bits; the lists cross to ``lead`` and are concatenated in slice
+    order ("compact").  Every slice compacts with the whole rectangle's
+    scan (``row_slices``' cuts), so the lists equal the whole rectangle's,
+    in order."""
+    pre = (rb // ts.SUPER) % (ts.SUPER2 // ts.SUPER) == 0
+    with ts._section(timer, "epilogue"):
+        bits = [pair_bits_int8(ps, aux_i[:, a:b].contiguous().to(dev),
+                               aux_j.to(dev), row0 + a, col0, tau_eff)
+                for ps, (a, b), dev in zip(placed, bounds, devices)]
+        sync(devices)
+    with ts._section(timer, "compact"):
+        rows, cols = [], []
+        for (gb, g64, cnt), (a, b), dev in zip(bits, bounds, devices):
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, rb,
+                                   pre_level=pre)
+            rows.append((r + (row0 + a)).to(lead))
+            cols.append((c + col0).to(lead))
+        if len(rows) == 1:
+            return rows[0], cols[0]
+        found = torch.cat(rows), torch.cat(cols)
+        sync(devices)
+        return found
 
 
 def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
@@ -216,60 +373,49 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
     """One panel pair end to end: global (row, col) int64 candidate lists
     on the lead device.
 
-    In order: kernel 4 on every shard's slab pair (stage "kernel"); the
-    exact int32 ``psum`` onto the lead device ("reduce");
-    ``panel.int8_bound_mask`` over the ``[rb, rb]`` rectangle on global
-    coordinates, then ``tri_score.bitpack_mask`` ("epilogue"), in row chunks
-    of whole super-groups that bound the f32 temporaries; the exact-length
-    ``tri_score.compact_bits`` on one ``(rb, rb)`` block with global block
-    ids ``(row0 // rb, col0 // rb)`` ("compact").  The JAX function
-    replicates the epilogue on every device; this computes it once.  The
-    counts are summed in int64, so a rectangle with 2^31 hits cannot wrap
-    (``compact_bits`` then refuses it).  On a mesh over several processes
-    each process launches kernel 4 for its own shards (None in ``xis`` /
-    ``xjs`` for the others'), the int32 sum ends on the last shard's
-    process, which runs the epilogue, and the candidate lists cross to the
-    others."""
-    home = sum_home(mesh)
-    dev = mesh.devices[home] if mesh.is_local(home) else mesh.lead
+    In order: kernel 4 on every shard's slab pair (stage "kernel"); each
+    distinct device's row slice of every shard's int32 partial placed on
+    it by ``collectives.gather_rows`` ("reduce": peer copies, none with
+    every shard on one device); on every device kernel 5 over its slice
+    ("epilogue") and the exact-length ``tri_score.compact_bits`` with
+    global offsets, the lists gathered on the lead device in slice order
+    ("compact"; ``pair_candidates``).  The JAX function replicates its
+    epilogue over the whole ``[rb, rb]`` rectangle on every device; here
+    each device computes only its own rows.  The counts are summed in
+    int64, so a rectangle with 2^31 hits cannot wrap (``compact_bits``
+    then refuses it).  On a mesh over several processes each process
+    launches kernel 4 for its own shards (None in ``xis`` / ``xjs`` for
+    the others'), the exact int32 ``psum`` ends on the last shard's
+    process ("reduce"), which runs kernel 5 on the sum as one slice, and
+    the candidate lists cross to the others."""
     rb = next(x for x in xis if x is not None).shape[0]
     with ts._section(timer, "kernel"):
         parts = [None if a is None else int8_matmul(a, b)
                  for a, b in zip(xis, xjs)]
         sync(mesh)
+    if mesh.n_procs > 1:
+        home = sum_home(mesh)
+        dev = mesh.devices[home] if mesh.is_local(home) else mesh.lead
+        with ts._section(timer, "reduce"):
+            d = psum(parts, dev, mesh, exact=True, to=home)
+            del parts
+            sync([dev])
+        found = None
+        if d is not None:
+            found = pair_candidates([[d]], [(0, rb)], [dev], aux_i, aux_j,
+                                    row0, col0, rb, tau_eff, dev, timer)
+            del d
+        return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
+    cards = list(dict.fromkeys(mesh.devices))
+    kept = [(ab, dev) for ab, dev in zip(row_slices(rb, len(cards)), cards)
+            if ab[1] > ab[0]]
+    bounds, devices = [ab for ab, _ in kept], [dev for _, dev in kept]
     with ts._section(timer, "reduce"):
-        d = psum(parts, dev, mesh, exact=True, to=home)
+        placed = gather_rows(parts, bounds, devices)
         del parts
-        sync([dev])
-    found = None
-    if d is not None:
-        found = _pair_epilogue(d, aux_i.to(dev), aux_j.to(dev), row0, col0,
-                               rb, tau_eff, dev, timer)
-        del d
-    return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
-
-
-def _pair_epilogue(d, aux_i, aux_j, row0: int, col0: int, rb: int, tau_eff,
-                   dev, timer):
-    """``mesh_panel_pair``'s epilogue and compaction on the summed ``d``."""
-    with ts._section(timer, "epilogue"):
-        cols = col0 + torch.arange(rb, dtype=torch.int64, device=dev)
-
-        def mask_of(r0: int, r1: int):
-            rows = row0 + torch.arange(r0, r1, dtype=torch.int64,
-                                       device=dev)
-            return panel_ops.int8_bound_mask(
-                d[r0:r1], aux_i[:, r0:r1], aux_j, rows[:, None],
-                cols[None, :], tau_eff,
-            )
-
-        gb, g64, cnt = ts.bitpack_row_chunks(
-            mask_of, rb, rb, _epilogue_rows(rb), dev)
-        sync([dev])
-    with ts._section(timer, "compact"):
-        bi = torch.tensor([row0 // rb], dtype=torch.int32, device=dev)
-        bj = torch.tensor([col0 // rb], dtype=torch.int32, device=dev)
-        return ts.compact_bits(gb, g64, cnt, bi, bj, rb, rb)
+        sync(devices)
+    return pair_candidates(placed, bounds, devices, aux_i, aux_j, row0, col0,
+                           rb, tau_eff, mesh.lead, timer)
 
 
 def slab_width(d_cap: int, n_shards: int) -> int:

@@ -59,13 +59,15 @@ SUPER = 64  # rows per level-0 super-group (8 group bytes)
 SUPER2 = 512  # rows per pre-level cell (reduced from g64 at compaction time)
 K_QUANTUM = 128  # the kernels stream K in 128-byte stages per row
 COL_QUANTUM = 128  # columns of the smallest CUDA thread-block tile
-THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of all four kernels
+THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of kernels 1-4
 
 # kernel launches per wrapper (only a launch of the CUDA kernel counts);
 # ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
-# ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py``
+# ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py`` and
+# ``pair_bits_int8`` the mesh panel pair's epilogue there
 LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
-            "panel_score_bits_int8": 0, "int8_matmul": 0}
+            "panel_score_bits_int8": 0, "int8_matmul": 0,
+            "pair_bits_int8": 0}
 # the same launches keyed by wrapper, then by card index
 LAUNCHES_BY_CARD = {name: {} for name in LAUNCHES}
 
@@ -478,20 +480,31 @@ def check_pair_count(total: int) -> None:
         )
 
 
-def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int):
+def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
+                 pre_level: bool | None = None):
     """Exact (row, col) int64 lists of every hit in the bit-packed structure.
 
     Three levels, as the JAX package's ``_compact_bits``: hit supers (64
     rows) → hit group bytes within them → hit bits within those, each a
     ``torch.nonzero`` over the previous level's hits; with ``tm`` a multiple
     of 512 a pre-level first reduces ``g64`` to 512-row cells and scans
-    those.  Eager PyTorch sizes ``nonzero`` by its result, so no capacity
-    or retry is needed: each level's length must equal the kernel's count
-    total, and a mismatch raises."""
+    those.  The lists come in the order of the scan: by 512-row cell (with
+    the pre-level) or 64-row super, then column, then row.  ``pre_level``
+    overrides the choice: the row slices of a taller block pass the block's
+    own (their heights whole 512-row cells when it is True), so that their
+    lists, concatenated in slice order, are the block's.  Eager PyTorch
+    sizes ``nonzero`` by its result, so no capacity or retry is needed:
+    each level's length must equal the kernel's count total, and a
+    mismatch raises."""
     n_blocks = bi.shape[0]
     total, groups, supers = cnt.sum(dim=0, dtype=torch.int64).tolist()
     check_pair_count(total)
-    if (tm // SUPER) % (SUPER2 // SUPER) == 0:
+    if pre_level is None:
+        pre_level = (tm // SUPER) % (SUPER2 // SUPER) == 0
+    elif pre_level and tm % SUPER2:
+        raise ValueError(f"a pre-level needs whole {SUPER2}-row cells, got "
+                         f"tm = {tm}")
+    if pre_level:
         # pre-level: scan the 8x smaller 512-row any-hit domain, then
         # gather the g64 bytes under its hits
         r8 = SUPER2 // SUPER

@@ -7,8 +7,10 @@ entry buffers is the shard axis: shard s owns a contiguous block of
 reference's ``dim % maxShardNum`` posting partition at out-of-core scale.
 A row panel's int8 slab is therefore column-sharded, and a panel pair's
 score is the exact int32 sum of the shards' partial dots (kernel 4,
-``ops/panel_mesh.py``), on which the quantization-bound epilogue and the
-compaction run once.  The host side (compact space, shadow CSR, rescore,
+``ops/panel_mesh.py``).  The sum, the quantization-bound epilogue and the
+bit-packing are one pass of kernel 5 over each card's row slice of the
+pair, whose rows of the other cards' partials are copied there first;
+each card compacts its slice.  The host side (compact space, shadow CSR, rescore,
 the sweeps, checkpoints, the insert's bookkeeping) is inherited; only
 placement, the panel geometry and the device ops are rerouted.
 
@@ -54,11 +56,11 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     ``[n_chunks / n_shards, chunk_cap]`` tensors on the shards' devices;
     ``_counts_dev`` is a per-shard list too.
 
-    One shard still takes the mesh path (kernel 4, then the bound epilogue
-    in eager PyTorch), which costs more than ``ChunkedAllPairs``' fused
-    kernel 3: 0.871 s against 0.347 s for the warm join of
-    ``synthetic_corpus(100000, seed=0)`` on an NVIDIA H100 80GB HBM3 at a
-    700 W power limit (``chip_smoke.py`` phases 5 and 6)."""
+    One shard still takes the mesh path (kernel 4, then kernel 5), which
+    costs more than ``ChunkedAllPairs``' fused kernel 3: 0.376 s against
+    0.335 s for the warm join of ``synthetic_corpus(100000, seed=0)`` on
+    8,192- and 16,384-row panels on an NVIDIA H100 80GB HBM3 at a 700 W
+    power limit (``chip_smoke.py`` phases 5 and 6)."""
 
     def __init__(self, config: AllPairsConfig | None = None,
                  mesh: Mesh | None = None, chunk_dim: int = 2048,
@@ -222,20 +224,25 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         return geom
 
     # The mesh join's rate for the cost model (``_pick_panel_rows``), in
-    # multiply-adds per second: kernel 4, the int32 reduce and the eager
-    # bound epilogue together, (join - pairs * ``_panel_pp_resident``) over
-    # padded^2 / 2 * d_cap, measured on an NVIDIA H100 80GB HBM3 at a 700 W
-    # power limit with 4 shards on the one card (``bench/constants_ab``,
-    # PERF.md): 2.1e14 at 100,000 rows on 8,192-row panels, 2.3e14 at
-    # 499,712 rows on 16,384-row panels (8 shards on the card: 1.8e14 and
-    # 2.0e14, the same picks the faster).  It holds for shards on one card
-    # only: one shard a card (``cli serve --mesh``) splits the kernel stage
-    # and grows the reduce, and is not measured.
-    _panel_int8_rate = 2.2e14
+    # multiply-adds per second: kernel 4, the placement of the partials'
+    # row slices and kernel 5 together, (join - pairs *
+    # ``_panel_pp_resident``) over padded^2 / 2 * d_cap, measured on an
+    # NVIDIA H100 80GB HBM3 at a 700 W power limit with 4 shards on the
+    # one card (``bench/constants_ab``, PERF.md): 5.7-6.3e14 at 100,000
+    # rows on 8,192-row panels, 5.9-6.1e14 on 16,384, 6.7e14 at 499,712
+    # rows on 16,384 (8 shards on the card: 4.6e14).  With one shard a
+    # card (``chip_smoke.py --mesh-cards 4``, four such cards) the same
+    # joins ran at 5.1e14 (100,000 rows) and 5.5e14 (499,712), within
+    # 18.8 % of it, and any rate from 2.8e14 to 1.5e15 gives the same
+    # picks (8,192-row panels at 20,000 rows, 16,384 at 100,000 and
+    # 499,712), so one rate serves both layouts.  At 100,000 rows 16,384
+    # is the faster: 0.40-0.41 s against 0.45-0.47 s on 8,192 (8 shards:
+    # 0.50-0.51 against 0.55-0.56).
+    _panel_int8_rate = 6.2e14
     # A shard's slab and its int32 ``[rb, rb]`` partial product at most
     # 1 GiB (``_pair_bytes``): on 16,384-row panels the 499,712-row join
-    # with 4 shards on one card peaked at 27.1 GB and took 19.2 s, against
-    # 21.1 s on 8,192-row panels.
+    # with 4 shards on one card peaked at 23.2-23.8 GB and took 7.11-7.20
+    # s, against 9.41-9.44 s on 8,192-row panels.
     _panel_slab_budget = 1 << 30
 
     def _slab_bytes(self, rb: int, d_cap: int) -> int:

@@ -52,8 +52,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["psum", "pmax", "all_gather", "share", "sync", "as_mesh",
-           "sum_home", "TRAFFIC", "reset_traffic"]
+__all__ = ["psum", "pmax", "all_gather", "gather_rows", "share", "sync",
+           "as_mesh", "sum_home", "TRAFFIC", "reset_traffic"]
 
 TRAFFIC = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
@@ -327,6 +327,58 @@ def all_gather(parts: Sequence, dim: int, device, mesh=None, shards=None,
     ranks = None if need is None else {mesh.ranks[s] for s in need}
     got = _exchange(list(parts), owners, device, ranks)
     return None if got is None else torch.cat(got, dim=dim)
+
+
+_PEER_STREAMS: dict = {}  # (source card, destination card) -> streams
+
+
+def _peer_streams(src: torch.device, dst: torch.device):
+    """A side stream on each end of one (source, destination) card pair,
+    made once: PyTorch orders a copy between cards against both cards'
+    current streams, so copies that share those streams run one at a
+    time."""
+    key = (src.index, dst.index)
+    if key not in _PEER_STREAMS:
+        _PEER_STREAMS[key] = (torch.cuda.Stream(src), torch.cuda.Stream(dst))
+    return _PEER_STREAMS[key]
+
+
+def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence) -> list:
+    """The shards' tensors cut into row slices, each slice on its own
+    device (one process): for slice ``k``, rows ``bounds[k] = (a, b)`` of
+    every part, in shard order, on ``devices[k]``.  A part already there
+    gives a view; any other crosses as a copy of its rows.  A
+    reduce-scatter by rows that leaves the adds to the reader: each row of
+    each part travels once, to the one device that sums it.
+
+    Copies between cards run at once, each (source, destination) pair on
+    side streams of its own (``_peer_streams``) that first wait for both
+    cards' current streams; each destination's current stream then waits
+    for its copies, so work queued there afterwards reads them."""
+    out, pending = [], []
+    for (a, b), dev in zip(bounds, devices):
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        row = []
+        for p in parts:
+            part = p[a:b]
+            if part.device == dev or "cpu" in (dev.type, part.device.type):
+                row.append(part.to(dev))
+                continue
+            src_s, dst_s = _peer_streams(part.device, dev)
+            src_s.wait_stream(torch.cuda.current_stream(part.device))
+            dst_s.wait_stream(torch.cuda.current_stream(dev))
+            got = torch.empty(part.shape, dtype=part.dtype, device=dev)
+            with torch.cuda.stream(src_s), torch.cuda.stream(dst_s):
+                got.copy_(part, non_blocking=True)
+            part.record_stream(src_s)  # the source's memory stays until then
+            pending.append((dev, dst_s))
+            row.append(got)
+        out.append(row)
+    for dev, dst_s in pending:
+        torch.cuda.current_stream(dev).wait_stream(dst_s)
+    return out
 
 
 def share(outs: Sequence, owners: Sequence[int], device, mesh=None,

@@ -83,8 +83,14 @@ result line):
    ``make_mesh(1)``, counters zeroed, build + ``all_pairs(0.8)`` three times
    (the third timed with its stage split), kernel 4 launched once per panel
    pair per join; then once over ``make_mesh(8, devices=[cuda:0] * 8)``,
-   8 launches per panel pair.  ``MeshEngine(shard_axis="rows")`` over 4
-   shards of the card on phase 3's corpus, three joins, kernel 3 launched 4
+   8 launches per panel pair.  Kernel 5 (``pair_bits_int8``, the pair's
+   summed-partial epilogue) launches once per panel pair at either shard
+   count (one row slice on the one card); at 1 and 8 shards it is held
+   bit for bit (gb, g64, counts) against its plain version at the join's
+   own partials of a diagonal and an off-diagonal pair, timed beside it,
+   with its bound (its bytes over the memory rate).
+   ``MeshEngine(shard_axis="rows")`` over 4 shards of the card on phase
+   3's corpus, three joins, kernel 3 launched 4
    times per join; then kernel 3 against its plain version, bit-identical,
    at the first and the last shard's own launch of that join (the gathered
    int8 index, the shard's striped schedule and valid flags).  Every mesh
@@ -275,12 +281,14 @@ result line):
     own card), then the warm join's wall time (median of 5, stage split),
     new dims (column growth, dormant activation) against the fp64 oracle
     and the join of the grown index.  17b: ``MeshChunkedAllPairs`` over N
-    cards on phase 5's corpus through ``mesh_chunked_stream`` (kernel 4
-    once a card a panel pair, exactly its plain version on each card).
-    17c: ``MeshChunkedAllPairs`` over the cards joins
+    cards on phase 5's corpus through ``mesh_chunked_stream`` (kernels 4
+    and 5 once a card a panel pair, kernel 4 exactly its plain version on
+    each card, kernel 5 bit for bit its plain version on each card's row
+    slice of the partials).  17c: ``MeshChunkedAllPairs`` joins
     ``synthetic_corpus(500000)`` (made in a process of its own meanwhile)
-    twice, its pair set equal to one-card ``ChunkedAllPairs``'; wall
-    times, stage split, each card's peak memory.  17d: ``python -m
+    twice with every shard on card 0 and twice over the cards, the two bit
+    for bit equal and their pair set that of one-card ``ChunkedAllPairs``;
+    wall times, stage split, each card's peak memory.  17d: ``python -m
     apsim_tpu_torch.cli serve --mesh --mesh-shape N`` (rows layout): a load
     RPC of phase 3's rows, the ``all_pairs`` RPC against the fp64 oracle,
     two clients streaming fresh rows against it, SIGINT (kernel 3 once a
@@ -330,7 +338,7 @@ from apsim_tpu_torch.ops import _build, panel as panel_ops, tri_score as ts
 from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import mesh_pallas, panel_mesh
 from apsim_tpu_torch.ops import score as score_ops
-from apsim_tpu_torch.parallel.collectives import all_gather
+from apsim_tpu_torch.parallel.collectives import all_gather, gather_rows
 from apsim_tpu_torch.vector.batch import round_up
 
 TAU = 0.8
@@ -341,6 +349,9 @@ REPLACES = {
     "score_bits_bf16": "apsim_tpu/ops/pallas_score.py:117",  # _kernel
     "panel_score_bits_int8": "apsim_tpu/ops/panel.py:151",  # _kernel_int8_cross
     "int8_matmul": "apsim_tpu/ops/panel_mesh.py:42",  # _mm_kernel
+    # not a Pallas kernel: the psum + bound + bit-pack XLA fuses in
+    # mesh_panel_pair's shard_map body
+    "pair_bits_int8": "apsim_tpu/ops/panel_mesh.py:183",
 }
 OOC_ROWS = 100_000
 # H100 SXM peaks (NVIDIA data sheet, dense; ``bench/mfu.py``): int8 ops/s,
@@ -846,6 +857,83 @@ def compare_mm(xi, xj, label: str) -> dict:
     rec.update(bound(ops, (m + n) * d + 4 * m * n, PEAK_INT8))
     log(f"kernel 4: {json.dumps(rec)}")
     return rec
+
+
+# operations of kernel 5 per strict-upper cell beyond the S - 1 int32
+# adds: the bound's 12 float operations and the compare
+PAIR_BITS_OPS = 13
+
+
+def compare_pair_bits(eng: MeshChunkedAllPairs, pi: int, pj: int,
+                      label: str) -> list:
+    """Kernel 5 against its plain version at panel pair ``(pi, pj)`` of a
+    mesh join's own operands: every shard's kernel 4 partial, cut into row
+    slices on the mesh's cards as the join cuts them
+    (``panel_mesh.row_slices``, ``gather_rows``).  On each card gb, g64
+    and the counts bit for bit, timed (CUDA events, median of 5) beside
+    the plain version; its bound: the partials of the strict-upper cells
+    read once (the kernel loads no other), the aux tables, the bits and
+    counts written, over the memory rate, against the S - 1 adds and
+    ``PAIR_BITS_OPS`` per such cell over the fp32 rate.  One record a
+    card."""
+    st = eng._panel_state()
+    rb = st["geom"][0]
+    xi, xj = eng._build_slab(st, pi), eng._build_slab(st, pj)
+    parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
+    del xi, xj
+    cards = list(dict.fromkeys(eng.mesh.devices))
+    kept = [(ab, c) for ab, c in zip(panel_mesh.row_slices(rb, len(cards)),
+                                     cards) if ab[1] > ab[0]]
+    bounds, devs = [ab for ab, _ in kept], [c for _, c in kept]
+    placed = gather_rows(parts, bounds, devs)
+    del parts
+    tau_eff = eng._tau_eff(TAU)
+    zero = torch.zeros(1, dtype=torch.int64)
+    recs = []
+    for ps, (a, b), dev in zip(placed, bounds, devs):
+        args = (ps, st["aux_of"][pi][:, a:b].contiguous().to(dev),
+                st["aux_of"][pj].to(dev), pi * rb + a, pj * rb, tau_eff)
+        with torch.cuda.device(dev):
+            k = panel_mesh.pair_bits_int8(*args)
+            torch.cuda.synchronize(dev)
+            p = panel_mesh.pair_bits_int8_plain(*args)
+        for name, x, y in zip(("gb", "g64", "cnt"), k, p):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"pair_bits_int8 differs from plain ({label}, card "
+                    f"{dev.index}, rows {a}-{b}): {name}, "
+                    f"{int((x != y).sum())} elements")
+        cells = upper_cells(zero, zero, b - a, rb, (pi * rb + a, pj * rb))
+        n = len(ps)
+        nbytes = (4 * n * cells + 12 * (b - a + rb) + 8 * n
+                  + (b - a) // 8 * rb + (b - a) // 64 * rb + 24)
+        rec = {"label": label, "card": dev.index, "pair": [pi, pj],
+               "rows": [a, b], "cols": rb, "parts": n,
+               "upper_cells": cells, "bytes": nbytes,
+               "pairs_kernel": int(k[2][0, 0]),
+               "pairs_plain": int(p[2][0, 0]), "max_abs_err": 0.0}
+        del k, p
+        rec.update(
+            ms=median_ms(lambda: panel_mesh.pair_bits_int8(*args), dev=dev),
+            plain_ms=median_ms(lambda: panel_mesh.pair_bits_int8_plain(
+                *args), dev=dev),
+            library_ms=None)  # no one PyTorch call sums, bounds and packs
+        rec["gb_per_s"] = nbytes / rec["ms"] / 1e6
+        rec.update(bound(cells * (n - 1 + PAIR_BITS_OPS), nbytes, PEAK_FP32))
+        log(f"kernel 5: {json.dumps(rec)}")
+        recs.append(rec)
+    return recs
+
+
+def pair_bits_record(recs: list, launches: int) -> dict:
+    """The kernels line's record of kernel 5 from ``compare_pair_bits``'
+    records: the times of the slowest card's slice, the worst error."""
+    worst = max(recs, key=lambda r: r["ms"])
+    return {"name": "pair_bits_int8", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES["pair_bits_int8"], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **{k: worst[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
 
 
 def rect_flops(row_cap: int, tile: int, dim_cap: int) -> int:
@@ -2378,16 +2466,19 @@ def mesh_chunked_stream(devices, csr: CSRMatrix, want: set, qsets9,
         launches, by_card = dict(ts.LAUNCHES), launches_by_card()
         geom = eng._panel_geom()
         pairs = geom[3] * (geom[3] + 1) // 2
+        cards = list(dict.fromkeys(devices))  # one row slice a card
         expect = {k: 0 for k in launches}
         expect["int8_matmul"] = n * pairs
+        expect["pair_bits_int8"] = len(cards) * pairs
         expect_cards = {k: {} for k in launches}
         expect_cards["int8_matmul"] = card_counts(devices, pairs)
+        expect_cards["pair_bits_int8"] = card_counts(cards, pairs)
         if launches != expect or by_card != expect_cards:
             raise AssertionError(f"{label} {what}: launches {launches}, by "
                                  f"card {by_card}, expected {expect}, "
                                  f"{expect_cards}")
         check_parity(res, want_pairs, f"{label} {what}")
-        return res, cand, launches["int8_matmul"], by_card["int8_matmul"]
+        return res, cand, launches, by_card
 
     _, ref["cand"], n_launch, by_card = join(want,
                                              "join of the streamed index")
@@ -2398,19 +2489,25 @@ def mesh_chunked_stream(devices, csr: CSRMatrix, want: set, qsets9,
                            f"shard {s}"), shard=s, card=devices[s].index)
            for s in shards]
     del st, x0, xl
+    pbs = compare_pair_bits(eng, 0, last, f"{label}, pair (0, {last})")
     mm = mms[0]
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
-    k4.update({f"{tag}_join_launches": n_launch,
-               **{f"{tag}_{k}": mm[k] for k in (
-                   "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms")},
-               f"{tag}_max_abs_err": max(r["max_abs_err"] for r in mms)})
-    if tag != "mesh_stream":
-        k4.update({f"{tag}_join_launches_by_card": by_card,
-                   f"{tag}_per_card": [
-                       {k: r[k] for k in ("card", "max_abs_err", "ms",
-                                          "plain_ms", "library_ms",
-                                          "bound_ms")} for r in mms]})
+    k5 = next(k for k in kernels if k["name"] == "pair_bits_int8")
+    for kr, name, recs in ((k4, "int8_matmul", mms),
+                           (k5, "pair_bits_int8", pbs)):
+        kr.update({f"{tag}_join_launches": n_launch[name],
+                   **{f"{tag}_{k}": recs[0][k] for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")},
+                   f"{tag}_max_abs_err": max(r["max_abs_err"]
+                                             for r in recs)})
+        if tag != "mesh_stream":
+            kr.update({f"{tag}_join_launches_by_card": by_card[name],
+                       f"{tag}_per_card": [
+                           {k: r[k] for k in ("card", "max_abs_err", "ms",
+                                              "plain_ms", "library_ms",
+                                              "bound_ms")} for r in recs]})
+    k4.update({f"{tag}_{k}": mm[k] for k in ("m", "n", "d")})
     queries, sq, fq, fs, fpicks = qsets9
     check_topk(eng, queries, sq, label)
     check_frozen(eng, fq, fs, fpicks, label)
@@ -2700,6 +2797,8 @@ def p12_chunked(dev, rank: int, csr: CSRMatrix, want: set, cand: set,
     n_pairs = geom[3] * (geom[3] + 1) // 2
     expect = {k: 0 for k in launches}
     expect["int8_matmul"] = len(mesh.local_shards) * n_pairs
+    # kernel 5 runs on the int32 sum, on the last shard's process only
+    expect["pair_bits_int8"] = n_pairs * mesh.is_local(mesh.size - 1)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
@@ -2943,6 +3042,9 @@ def multihost_phase(dev, work: str, big_csr: CSRMatrix, want32: set,
                                      for rk in ranks),
         **{f"multihost_{k}": ranks[0]["rows"]["kernel3"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+    k5 = next(k for k in kernels if k["name"] == "pair_bits_int8")
+    k5["multihost_join_launches"] = [rk["chunked"]["join_launches"][
+        "pair_bits_int8"] for rk in ranks]
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
     k4.update({
         "multihost_join_launches": [rk["chunked"]["join_launches"][
@@ -3740,16 +3842,20 @@ def cards_chunked(cards, csr: CSRMatrix, want: set, qsets, kernels: list,
 
 
 def cards_scale(cards, csr: CSRMatrix, kernels: list, smi: str) -> dict:
-    """Phase 17c: ``MeshChunkedAllPairs`` over the cards joins the 500,000
-    rows twice; its pair set must equal one-card ``ChunkedAllPairs``' on
-    the same corpus.  Both wall times (host clock, each join) with the
-    stage split, and each card's peak memory."""
+    """Phase 17c: ``MeshChunkedAllPairs`` joins the 500,000 rows twice with
+    every shard on card 0, then twice with one shard a card; the two
+    meshes' results must be equal bit for bit, and their pair set that of
+    one-card ``ChunkedAllPairs`` on the same corpus (joined first).  Each
+    leg's wall times (host clock, each join), the second join's stage
+    split, the launches by card and each card's peak memory."""
     n = len(cards)
     rec = {"card": smi, "rows": csr.n_rows}
     res = {}
     for name, make in (
             ("one_card", lambda: ChunkedAllPairs(AllPairsConfig(),
                                                  cards[0])),
+            ("card0", lambda: MeshChunkedAllPairs(
+                AllPairsConfig(), mesh=make_mesh(n, devices=[cards[0]] * n))),
             ("cards", lambda: MeshChunkedAllPairs(
                 AllPairsConfig(), mesh=make_mesh(n, devices=cards)))):
         torch.cuda.empty_cache()
@@ -3773,9 +3879,12 @@ def cards_scale(cards, csr: CSRMatrix, kernels: list, smi: str) -> dict:
                  launches=dict(ts.LAUNCHES), launches_by_card=(
                      launches_by_card()),
                  max_memory_allocated_per_card=peaks(cards))
+        devs = [cards[0]] * n if name == "card0" else cards
         want_l = ({"panel_score_bits_int8": {cards[0].index: 2 * pairs}}
                   if name == "one_card" else
-                  {"int8_matmul": card_counts(cards, 2 * pairs)})
+                  {"int8_matmul": card_counts(devs, 2 * pairs),
+                   "pair_bits_int8": card_counts(
+                       list(dict.fromkeys(devs)), 2 * pairs)})
         got_l = {k: v for k, v in r["launches_by_card"].items() if v}
         if got_l != want_l:
             raise AssertionError(f"phase 17c {name}: launches by card "
@@ -3789,14 +3898,21 @@ def cards_scale(cards, csr: CSRMatrix, kernels: list, smi: str) -> dict:
             f"phase 17c: the mesh over {n} cards found "
             f"{res['cards'].n_pairs} pairs, one card "
             f"{res['one_card'].n_pairs}; the sets differ")
+    same_as_card0(
+        {"join": tuple(getattr(res["cards"], a) for a in ("i", "j", "sims"))},
+        {"join": tuple(getattr(res["card0"], a) for a in ("i", "j", "sims"))},
+        ("join",), f"phase 17c mesh over {n} cards")
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
-    k4["scale_join_launches_by_card"] = rec["cards"]["launches_by_card"][
-        "int8_matmul"]
-    k4["launches"] += rec["cards"]["launches"]["int8_matmul"]
+    k5 = next(k for k in kernels if k["name"] == "pair_bits_int8")
+    for k in (k4, k5):
+        k["scale_join_launches_by_card"] = rec["cards"][
+            "launches_by_card"][k["name"]]
+        k["launches"] += rec["cards"]["launches"][k["name"]]
     log(f"phase 17c: the {csr.n_rows}-row join over {n} cards equals "
-        f"one-card ChunkedAllPairs ({res['cards'].n_pairs} pairs); join "
-        f"seconds {rec['cards']['join_s']} over the cards, "
-        f"{rec['one_card']['join_s']} on one")
+        f"the same mesh on card 0 bit for bit and one-card "
+        f"ChunkedAllPairs ({res['cards'].n_pairs} pairs); join seconds "
+        f"{rec['cards']['join_s']} over the cards, {rec['card0']['join_s']} "
+        f"with every shard on card 0, {rec['one_card']['join_s']} on one")
     return rec
 
 
@@ -4019,7 +4135,8 @@ def mesh_cards_main(n: int) -> int:
         shutil.rmtree(work, ignore_errors=True)
     k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
-    for k in (k3, k4):  # 17a's rows join and 17b's streamed join
+    k5 = next(k for k in kernels if k["name"] == "pair_bits_int8")
+    for k in (k3, k4, k5):  # 17a's rows join and 17b's streamed join
         k["launches"] += k["mesh_cards_join_launches"]
         k.update({f: k[f"mesh_cards_{f}"] for f in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
@@ -4219,7 +4336,7 @@ def main() -> int:
                                 device=dev, generator=gen) for r in (m, n))
         compare_mm(xi, xj, f"random [{m}, {d}] x [{n}, {d}]^T")
     del xi, xj
-    mm_main = None
+    mm_main = pb_main = None
     for n_shards, reps in ((1, 3), (8, 1)):
         mesh = (make_mesh(1) if n_shards == 1
                 else make_mesh(8, devices=[dev] * 8))
@@ -4238,6 +4355,7 @@ def main() -> int:
         n_pairs = geom["n_panels"] * (geom["n_panels"] + 1) // 2
         expect = {k: 0 for k in got}
         expect["int8_matmul"] = reps * n_shards * n_pairs
+        expect["pair_bits_int8"] = reps * n_pairs  # one slice: one card
         if got != expect:
             raise AssertionError(f"{label}: launches {got}, expected {expect}")
         check_parity(jm["res"], want, label)
@@ -4255,7 +4373,18 @@ def main() -> int:
             rec = compare_mm(x0[0], xj[0], f"{label}, pair {pair}, shard 0")
             if n_shards == 1 and xj is xl:
                 mm_main = dict(rec, launches=got["int8_matmul"])
-        del meng, st, x0, xl, jm
+        del st, x0, xl
+        last = geom["n_panels"] - 1
+        diag = compare_pair_bits(meng, 0, 0, f"{label}, pair (0, 0)")
+        off = compare_pair_bits(meng, 0, last, f"{label}, pair (0, {last})")
+        if n_shards == 1:
+            pb_main = pair_bits_record(diag + off, got["pair_bits_int8"])
+            pb_main["diagonal_ms"] = diag[0]["ms"]
+        else:
+            pb_main.update({f"shards8_{k}": v for k, v in pair_bits_record(
+                diag + off, got["pair_bits_int8"]).items()
+                if k not in ("name", "route", "source", "replaces")})
+        del meng, jm
     kernels.append({
         "name": "int8_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES["int8_matmul"],
@@ -4263,6 +4392,7 @@ def main() -> int:
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
     })
+    kernels.append(pb_main)
 
     mesh4 = make_mesh(4, devices=[dev] * 4)
     reng = MeshEngine(AllPairsConfig(shard_axis="rows"), mesh=mesh4)
@@ -4350,7 +4480,7 @@ def main() -> int:
                              f"expected {expect}")
     check_parity(ji["res"], want, f"int8 stripes, {OOC_ROWS} rows")
     mm_stripe = compare_stripe_mm(ieng, ieng._q_super(), 3)
-    kernels[-1].update({
+    next(k for k in kernels if k["name"] == "int8_matmul").update({
         "stripe_launches": stripe_launches["int8_matmul"],
         **{f"stripe_{k}": mm_stripe[k] for k in (
             "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -11,7 +11,8 @@ cross-panel kernel alike; bf16 hit cells may differ only where the plain
 fp32 score lies within 1e-5 of tau_eff (within (K + 2) * 2^-24, the
 engine's bound on fp32 accumulation over K nonzeros, on the dense stress
 of 32,768 positive elements per row); the int8 matmul (kernel 4) equal
-to its plain version in every int32; the mesh joins over four shards of
+to its plain version in every int32; the mesh pair epilogue (kernel 5)
+bit-identical to its plain version (gb, g64, counts); the mesh joins over four shards of
 the card give the pair sets of the same joins over four CPU shards.  The
 full-rectangle join on the card gives the CPU engine's pair set (both are
 exact by the fp64 rescore), leaves ``allow_tf32`` as it found it, and its
@@ -38,6 +39,7 @@ from apsim_tpu_torch.ops import panel as panel_ops
 from apsim_tpu_torch.ops import panel_mesh
 from apsim_tpu_torch.ops import score as score_ops
 from apsim_tpu_torch.ops import tri_score as ts
+from apsim_tpu_torch.parallel.collectives import gather_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -198,12 +200,60 @@ def test_mesh_chunked_on_cuda_equals_cpu(card, mesh_csr):
             panel_rows=1024)
         eng.build(mesh_csr)
         n_panels = eng._panel_geom()[3]
-        before = ts.LAUNCHES["int8_matmul"]
+        before = dict(ts.LAUNCHES)
         got[dev.type] = eng.all_pairs(0.8).pair_set()
-        launched = ts.LAUNCHES["int8_matmul"] - before
+        launched = {k: ts.LAUNCHES[k] - before[k]
+                    for k in ("int8_matmul", "pair_bits_int8")}
         pairs = n_panels * (n_panels + 1) // 2
-        assert launched == (4 * pairs if dev.type == "cuda" else 0)
+        on_card = dev.type == "cuda"
+        assert launched == {"int8_matmul": 4 * pairs if on_card else 0,
+                            "pair_bits_int8": pairs if on_card else 0}
     assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+@pytest.mark.parametrize("pair", ["diagonal", "off_diagonal"])
+@pytest.mark.parametrize("n_parts", [1, 8])
+def test_pair_bits_int8_matches_plain(card, n_parts, pair):
+    """Kernel 5 against its plain version on the S int32 partial dots of
+    two 1,024-row panels (kernel 4 on S column slices), ``tau_eff`` at a
+    cell's bound value: gb, g64 and the counts bit for bit; one launch.
+    Then the pair's candidate lists from two row slices on the card equal
+    the whole rectangle's, in order."""
+    rb, width = 1024, 128
+    gen = torch.Generator(device=card).manual_seed(n_parts)
+    x = torch.rand((2 * rb, width * n_parts), device=card, generator=gen)
+    x *= torch.rand(x.shape, device=card, generator=gen) < 0.05
+    x[rb::7] = x[:rb:7]  # duplicates across the two panels
+    q, aux = ts.quantize_rows(x)
+    row0, col0 = (0, rb) if pair == "off_diagonal" else (0, 0)
+    qi, qj = q[row0:row0 + rb], q[col0:col0 + rb]
+    ai = aux[:, row0:row0 + rb].contiguous()
+    aj = aux[:, col0:col0 + rb].contiguous()
+    parts = [panel_mesh.int8_matmul(
+        qi[:, s * width:(s + 1) * width].contiguous(),
+        qj[:, s * width:(s + 1) * width].contiguous())
+        for s in range(n_parts)]
+    d = torch.stack(parts).sum(0, dtype=torch.int32)
+    v = ts.int8_bound_value(d, ai[0][:, None], ai[1][:, None],
+                            ai[2][:, None], aj[0][None], aj[1][None],
+                            aj[2][None])
+    tau = float(torch.quantile(v.flatten()[::97].float(), 0.98))
+    before = ts.LAUNCHES["pair_bits_int8"]
+    k = panel_mesh.pair_bits_int8(parts, ai, aj, row0, col0, tau)
+    assert ts.LAUNCHES["pair_bits_int8"] == before + 1
+    torch.cuda.synchronize()
+    p = panel_mesh.pair_bits_int8_plain(parts, ai, aj, row0, col0, tau)
+    for a, b in zip(k, p):
+        assert a.device == card and torch.equal(a, b)
+    assert int(k[2][0, 0]) > 0
+    whole = panel_mesh.pair_candidates([parts], [(0, rb)], [card], ai, aj,
+                                       row0, col0, rb, tau, card)
+    bounds = panel_mesh.row_slices(rb, 2)
+    sliced = panel_mesh.pair_candidates(
+        gather_rows(parts, bounds, [card] * 2), bounds, [card] * 2, ai, aj,
+        row0, col0, rb, tau, card)
+    for a, b in zip(whole, sliced):
+        assert torch.equal(a, b) and a.numel() > 0
 
 
 def test_mesh_rows_on_cuda_equals_cpu(card, mesh_csr):

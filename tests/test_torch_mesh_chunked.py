@@ -455,16 +455,17 @@ def test_unported_paths_raise(corpus, what, tmp_path):
 
 
 # the chunked mesh's rb worked by hand: ``ChunkedAllPairs._pick_panel_rows``
-# from 512 rows over d_cap 32,768 with the mesh's own rate (2.2e14) and pair
+# from 512 rows over d_cap 32,768 with the mesh's own rate (6.2e14) and pair
 # budget (a shard's int32 [rb, rb] partial, 4 * rb^2 bytes, within 1 GiB:
-# rb <= 16,384), cost = padded^2 / 2 * 32,768 / 2.2e14 + pairs * 1.7e-3 s:
-#    20,000: rb 8,192: 24,576 rows, 6 pairs: 0.0450 + 0.0102 = 0.0552 <-
-#            rb 4,096: 20,480 rows, 15 pairs: 0.0312 + 0.0255 = 0.0567
-#   100,000: rb  8,192: 106,496 rows, 91 pairs: 0.8446 + 0.1547 = 0.9993 <-
-#            rb 16,384: 114,688 rows, 28 pairs: 0.9795 + 0.0476 = 1.0271
-#   500,000: rb  8,192: 507,904 rows, 1,953 pairs: 19.212 + 3.320 = 22.532
-#            rb 16,384: 507,904 rows,   496 pairs: 19.212 + 0.843 = 20.055 <-
-MESH_PICKS = {20_000: (8192, 3), 100_000: (8192, 13), 500_000: (16384, 31)}
+# rb <= 16,384), cost = padded^2 / 2 * 32,768 / 6.2e14 + pairs * 1.7e-3 s:
+#    20,000: rb  8,192: 24,576 rows, 6 pairs: 0.0160 + 0.0102 = 0.0262 <-
+#            rb  4,096: 20,480 rows, 15 pairs: 0.0111 + 0.0255 = 0.0366
+#            rb 16,384: 32,768 rows, 3 pairs: 0.0284 + 0.0051 = 0.0335
+#   100,000: rb  8,192: 106,496 rows, 91 pairs: 0.2997 + 0.1547 = 0.4544
+#            rb 16,384: 114,688 rows, 28 pairs: 0.3476 + 0.0476 = 0.3952 <-
+#   500,000: rb  8,192: 507,904 rows, 1,953 pairs: 6.817 + 3.320 = 10.137
+#            rb 16,384: 507,904 rows,   496 pairs: 6.817 + 0.843 = 7.660 <-
+MESH_PICKS = {20_000: (8192, 3), 100_000: (16384, 7), 500_000: (16384, 31)}
 # the single engine's (``tests/test_torch_chunked.py``, ``COST_PICKS``)
 SINGLE_PICKS = {20_000: (8192, 3), 100_000: (16384, 7), 500_000: (16384, 31)}
 
