@@ -1,4 +1,4 @@
-"""Time the kernels (1-4) of ``csrc/score_bits.cu`` at the main paths'
+"""Time the kernels (1-6) of ``csrc/score_bits.cu`` at the main paths'
 shapes, on one CUDA card, for comparing two source trees.
 
 Usage, on a machine with one CUDA card:
@@ -23,7 +23,10 @@ blocks of 1024 x 512, K = 32,768: the shape of the out-of-core join's
 off-diagonal pair); kernel 4 (int8 matmul) at the mesh join's per-shard
 shapes, ``[8192, K] . [8192, K]^T`` on rows [0, 8192) and [8192, 16384)
 of the same index, K = 32,768 (one shard) and its first 4,096 columns (8
-shards), beside ``torch._int_mm`` on the same operands (a yardstick only).
+shards), beside ``torch._int_mm`` on the same operands (a yardstick only);
+kernel 5 (the summed-partial epilogue) on that pair's 8 shards' int32
+partial dots (columns split in 8), the first one and all 8, and kernel 6
+(where the tree has it) on the same partials as fp32 scores.
 Beside kernel 2 it times one ``torch.matmul`` of the 9,216-row bf16 index
 against its transpose (``bf16_matmul_9216_*``): a yardstick of the bf16
 mainloop only.  It computes the whole square, not the upper triangle, and
@@ -151,7 +154,28 @@ def main(argv=None) -> None:
         out[f"int_mm_{label}_ms"] = ms
         out[f"int_mm_{label}_tops"] = 2 * 8192 * 8192 * d / ms / 1e9
         del a, b
-    del eng, q, aux, xi, xj
+    # kernel 5 (and 6, where the tree has it) at the off-diagonal pair's
+    # 8,192 x 8,192 cells: the 8 shards' int32 partial dots (1 or all 8),
+    # and as fp32 scores; GB/s over the partials read and the bits written
+    w = k // 8
+    parts = [panel_mesh.int8_matmul(xi[:, s * w:(s + 1) * w].contiguous(),
+                                    xj[:, s * w:(s + 1) * w].contiguous())
+             for s in range(8)]
+    for n_parts in (1, 8):
+        ps = parts[:n_parts]
+        nbytes = 4 * n_parts * 8192 * 8192 + 8192 * 8192 * 9 // 64
+        ms = median_ms(lambda: panel_mesh.pair_bits_int8(
+            ps, ai, aj, 0, 8192, tau))
+        out[f"pair_bits_int8_{n_parts}part_ms"] = ms
+        out[f"pair_bits_int8_{n_parts}part_gb_per_s"] = nbytes / ms / 1e6
+        if hasattr(panel_mesh, "pair_bits_f32"):
+            fs = [p.float() * 1e-4 for p in ps]
+            ms = median_ms(lambda: panel_mesh.pair_bits_f32(fs, 0, 8192,
+                                                            tau))
+            out[f"pair_bits_f32_{n_parts}part_ms"] = ms
+            out[f"pair_bits_f32_{n_parts}part_gb_per_s"] = nbytes / ms / 1e6
+            del fs
+    del eng, q, aux, xi, xj, parts, ps
     eng = Engine(AllPairsConfig(pallas_int8=False), dev)
     eng.build(synthetic_corpus(8586, seed=0))
     xb = eng.x.to(torch.bfloat16)

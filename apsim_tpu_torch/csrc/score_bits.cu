@@ -6,9 +6,11 @@
 //   score_bits_bf16        <- _kernel            (pallas_score_bits)
 //   panel_score_bits_int8  <- _kernel_int8_cross (panel_score_bits_int8)
 //   int8_matmul            <- _mm_kernel         (_int8_matmul)
-// and, as kernel 5, the epilogue XLA fuses behind _int8_matmul in the
-// mesh panel join (no Pallas kernel; see pair_bits_kernel below):
+// and, as kernels 5 and 6, the epilogues XLA builds behind the products of
+// the mesh panel join and the stripe joins (no Pallas kernel; see
+// pair_bits_kernel below):
 //   pair_bits_int8         <- psum + int8_bound_mask + bitpack_mask
+//   pair_bits_f32          <- psum + (s >= tau_eff) + bitpack_mask
 //
 // The score kernels.  For every block p of a block list (bi[p], bj[p])
 // they score the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T over all of
@@ -770,61 +772,123 @@ int launch_matmul(const void* xi, const void* xj, int m, int n, int d,
   return launch_ring<T>(xi, m, xj, n, d, job, next_tile, stream);
 }
 
-// ----------------------------------- kernel 5: the mesh join's epilogue
+// ------------------------- kernels 5 and 6: the summed-partial epilogues
 //
-// pair_bits_int8 replaces no Pallas kernel: it is the epilogue that XLA
-// fuses behind kernel 4 in apsim_tpu/ops/panel_mesh.py:183-213 (the psum
-// of the shards' int32 partial dots, int8_bound_mask, bitpack_mask and
-// the counts), which the port first ran as eager PyTorch.  For one row
-// slice of a panel pair's rectangle it sums the S int32 partials of each
-// cell (exact in any order: every sum stays below 2^30 under the engines'
-// int8 gate), admits the cell by int8_hit and the strict-upper test on
-// global coordinates, and writes the score kernels' layout for one block:
-// gb [1, rows/8, cols], g64 [1, rows/64, cols] and the counts, here int64
-// (a 65,536-row rectangle has 2^32 cells).
+// pair_bits_int8 (kernel 5) and pair_bits_f32 (kernel 6) replace no Pallas
+// kernel: they are the epilogues XLA builds behind the join's products.
+// Kernel 5 is the one XLA fuses behind _int8_matmul in
+// apsim_tpu/ops/panel_mesh.py:183-213 and behind the int8 stripes'
+// product (apsim_tpu/ops/chunked.py:int8_join_epilogue, the mesh's
+// chunked_mesh.py:174): the psum of the shards' int32 partial dots,
+// int8_bound_mask, bitpack_mask and the counts.  Kernel 6 is the bf16 and
+// fp32 stripes' (chunked.py:join_epilogue_bits, chunked_mesh.py:89): the
+// psum of the shards' fp32 partial scores, s >= tau_eff, the strict upper
+// mask and bitpack_mask.  The port first ran both as eager PyTorch.
 //
-// What bounds it: a few operations per 4 * S bytes read, so the memory
-// (S int32 in per live cell, a bit out).  So every partial is read once,
-// coalesced, and nothing else leaves the chip: a thread block of 128
-// threads covers 64 rows (one super-group) x 128 columns, a thread one
-// column, so a warp's loads of a row are 128 contiguous bytes of each
+// For one row slice of a rectangle (a panel pair, or a stripe's live rows)
+// each sums the S partials of a cell, admits it by its test and the
+// strict-upper test on global coordinates, and writes the score kernels'
+// layout for one block: gb [1, rows/8, cols], g64 [1, rows/64, cols] and
+// the counts, here int64 (a 65,536-row rectangle has 2^32 cells).  The
+// sums: int32, exact in any order (every sum stays below 2^30 under the
+// engines' int8 gate); fp32 left to right, ((p0 + p1) + p2) + ..., with
+// __fadd_rn (and --fmad=false), which is the order of
+// parallel/collectives.psum's one-process chain, so a cell's sum is bit
+// for bit the one the lead card formed before.
+//
+// What bounds them: a few operations per 4 * S bytes read, so the memory
+// (S partial values in per live cell, a bit out).  So every partial is
+// read once, coalesced, and nothing else leaves the chip: a thread block
+// of 128 threads covers 64 rows (one super-group) x 128 columns, a thread
+// one column, so a warp's loads of a row are 128 contiguous bytes of each
 // partial; a thread sums 8 rows of every partial at a time (8 independent
 // loads in flight), assembles their group byte in a register and stores it
-// (a warp writes 32 contiguous bytes); the 64 rows' aux entries sit in
-// shared memory (read as broadcasts), the column's in registers.  A cell
-// with row >= col is neither loaded nor tested, so a diagonal pair reads
-// half its bytes.  Counts: a warp reduction, then one 64-bit atomicAdd per
-// warp that saw a hit.
+// (a warp writes 32 contiguous bytes); kernel 5's 64 rows of aux entries
+// sit in shared memory (read as broadcasts), the column's in registers.  A
+// cell with row >= col is neither loaded nor tested, so a diagonal pair
+// reads half its bytes.  Counts: a warp reduction, then one 64-bit
+// atomicAdd per warp that saw a hit.  The partials' addresses and row
+// strides travel by value in the kernel's parameters (a __grid_constant__
+// struct, read through the constant cache), so a launch copies nothing to
+// the card first; a row stride lets a partial be a column slice of a wider
+// product, and an aux table a column slice of the whole index's.
 constexpr int PB_ROWS = 64;        // rows of a thread block: a super-group
 constexpr int PB_COLS = 128;       // columns of a thread block, one a thread
 constexpr int PB_MAX_PARTS = 64;   // partials summed per cell at most
 
+template <class T>
+struct PairParts {
+  const T* p[PB_MAX_PARTS];   // the partials, row-major
+  long long ld[PB_MAX_PARTS]; // the row stride of each, in elements
+};
+
+// Kernel 5's admit test: the int8 bound of the summed dot.  aux_i / aux_j
+// are f32 [3, n] tables (alpha, alpha * L1(q), nnz) with row strides ld_i
+// / ld_j.
+struct BoundAdmit {
+  using T = int;
+  const float* aux_i;
+  long long ld_i;
+  const float* aux_j;
+  long long ld_j;
+  struct Rows {
+    float a[PB_ROWS], b[PB_ROWS], n[PB_ROWS];
+  };
+  struct Col {
+    float a, b, n;
+  };
+  static __device__ __forceinline__ int add(int s, int x) { return s + x; }
+  __device__ __forceinline__ void load_rows(Rows& s, int r0, int tid) const {
+    if (tid < PB_ROWS) {
+      const float* p = aux_i + r0 + tid;
+      s.a[tid] = __ldg(p);
+      s.b[tid] = __ldg(p + ld_i);
+      s.n[tid] = __ldg(p + 2 * ld_i);
+    }
+  }
+  __device__ __forceinline__ Col col(int c) const {
+    const float* p = aux_j + c;
+    return {__ldg(p), __ldg(p + ld_j), __ldg(p + 2 * ld_j)};
+  }
+  __device__ __forceinline__ bool hit(int acc, const Rows& s, int r,
+                                      const Col& j, float tau) const {
+    return int8_hit(acc, s.a[r], s.b[r], s.n[r], j.a, j.b, j.n, tau);
+  }
+};
+
+// Kernel 6's admit test: the summed fp32 score against tau_eff.
+struct ThresholdAdmit {
+  using T = float;
+  struct Rows {};
+  struct Col {};
+  static __device__ __forceinline__ float add(float s, float x) {
+    return __fadd_rn(s, x);
+  }
+  __device__ __forceinline__ void load_rows(Rows&, int, int) const {}
+  __device__ __forceinline__ Col col(int) const { return {}; }
+  __device__ __forceinline__ bool hit(float acc, const Rows&, int,
+                                      const Col&, float tau) const {
+    return acc >= tau;
+  }
+};
+
+template <class Admit>
 __global__ void __launch_bounds__(PB_COLS)
-pair_bits_kernel(const int* const* __restrict__ parts, int n_parts,
-                 const float* __restrict__ aux_i,
-                 const float* __restrict__ aux_j, int rows, int cols,
+pair_bits_kernel(const __grid_constant__ PairParts<typename Admit::T> parts,
+                 int n_parts, const Admit admit, int rows, int cols,
                  int row0, int col0, float tau, uint8_t* __restrict__ gb,
                  uint8_t* __restrict__ g64,
                  unsigned long long* __restrict__ cnt) {
-  __shared__ float saux[3][PB_ROWS];
-  __shared__ const int* sparts[PB_MAX_PARTS];
+  using T = typename Admit::T;
+  __shared__ typename Admit::Rows srows;
   const int tid = threadIdx.x;
   const int r0 = blockIdx.y * PB_ROWS;       // the block's first row
   const int c = blockIdx.x * PB_COLS + tid;  // this thread's column
-  for (int s = tid; s < n_parts; s += PB_COLS) sparts[s] = parts[s];
-  if (tid < PB_ROWS) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      saux[a][tid] = __ldg(aux_i + (long long)a * rows + r0 + tid);
-  }
+  admit.load_rows(srows, r0, tid);
   __syncthreads();
   const bool in = c < cols;
-  float aj = 0.f, bj = 0.f, nj = 0.f;
-  if (in) {
-    aj = __ldg(aux_j + c);
-    bj = __ldg(aux_j + cols + c);
-    nj = __ldg(aux_j + 2LL * cols + c);
-  }
+  typename Admit::Col cj{};
+  if (in) cj = admit.col(c);
   // the block's rows r < live lie strictly above the diagonal: global
   // row0 + r0 + r < global col0 + c
   const long long upper = (long long)col0 + c - row0 - r0;
@@ -836,23 +900,26 @@ pair_bits_kernel(const int* const* __restrict__ parts, int n_parts,
     uint32_t byte = 0;
     const int lim = live - 8 * g;  // rows 8 g + o, o < lim, are live
     if (lim > 0) {
-      int acc[8];
-#pragma unroll
-      for (int o = 0; o < 8; ++o) acc[o] = 0;
-      const long long at = (long long)(r0 + 8 * g) * cols + c;
-      for (int s = 0; s < n_parts; ++s) {
-        const int* p = sparts[s] + at;
+      const long long row = r0 + 8 * g;
+      T acc[8];
+      {
+        const long long ld = parts.ld[0];
+        const T* p = parts.p[0] + row * ld + c;
 #pragma unroll
         for (int o = 0; o < 8; ++o)
-          if (o < lim) acc[o] += __ldg(p + (long long)o * cols);
+          acc[o] = o < lim ? __ldg(p + o * ld) : T(0);
+      }
+      for (int s = 1; s < n_parts; ++s) {
+        const long long ld = parts.ld[s];
+        const T* p = parts.p[s] + row * ld + c;
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          if (o < lim) acc[o] = Admit::add(acc[o], __ldg(p + o * ld));
       }
 #pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const int r = 8 * g + o;
-        if (o < lim && int8_hit(acc[o], saux[0][r], saux[1][r], saux[2][r],
-                                aj, bj, nj, tau))
+      for (int o = 0; o < 8; ++o)
+        if (o < lim && admit.hit(acc[o], srows, 8 * g + o, cj, tau))
           byte |= 1u << o;
-      }
     }
     if (in) gb[(long long)(r0 / 8 + g) * cols + c] = (uint8_t)byte;
     pairs += __popc(byte);
@@ -872,6 +939,31 @@ pair_bits_kernel(const int* const* __restrict__ parts, int n_parts,
     atomicAdd(cnt + 1, (unsigned long long)groups);
     atomicAdd(cnt + 2, (unsigned long long)supers);
   }
+}
+
+// Kernels 5 and 6 behind their C entries: the partials' addresses and row
+// strides (host arrays of n_parts) copied into the parameter struct.
+template <class Admit>
+int launch_pair_bits(const void* parts, const void* lds, int n_parts,
+                     const Admit& admit, int rows, int cols, int row0,
+                     int col0, float tau, void* gb, void* g64, void* cnt,
+                     void* stream) {
+  using T = typename Admit::T;
+  if (n_parts < 1 || n_parts > PB_MAX_PARTS || rows < 0 || cols < 0 ||
+      rows % PB_ROWS || rows / PB_ROWS > 65535 || !parts || !lds)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || cols == 0) return (int)cudaSuccess;
+  PairParts<T> pp;
+  std::memset(&pp, 0, sizeof pp);
+  for (int s = 0; s < n_parts; ++s) {
+    pp.p[s] = ((const T* const*)parts)[s];
+    pp.ld[s] = ((const long long*)lds)[s];
+  }
+  const dim3 grid((cols + PB_COLS - 1) / PB_COLS, rows / PB_ROWS);
+  pair_bits_kernel<Admit><<<grid, PB_COLS, 0, (cudaStream_t)stream>>>(
+      pp, n_parts, admit, rows, cols, row0, col0, tau, (uint8_t*)gb,
+      (uint8_t*)g64, (unsigned long long*)cnt);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -938,27 +1030,35 @@ int int8_matmul(const void* xi, const void* xj, int m, int n, int d,
   return launch_matmul<Small>(xi, xj, m, n, d, out, next_tile, stream);
 }
 
-// Kernel 5, one row slice of a mesh panel pair.  parts: a device array of
-// n_parts pointers (1 to 64), each to a row-major int32 [rows, cols]
-// partial; aux_i f32 [3, rows], aux_j f32 [3, cols]; (row0, col0) the
-// global row of the slice's row 0 and the global column of its column 0;
-// gb uint8 [rows / 8, cols] and g64 uint8 [rows / 64, cols] (every byte
-// written); cnt int64 [3] (pairs, hit groups, hit supers), zero on entry.
-// rows % 64 must be 0.
-int pair_bits_int8(const void* parts, int n_parts, const void* aux_i,
-                   const void* aux_j, int rows, int cols, int row0, int col0,
+// Kernel 5, one row slice of a rectangle: a panel pair of the mesh join
+// or a stripe of the int8 stripe join.  parts: a HOST array of n_parts
+// device pointers (1 to 64), each to an int32 [rows, cols] partial whose
+// rows are lds[s] elements apart (lds a host array of n_parts int64);
+// aux_i f32 [3, rows] and aux_j f32 [3, cols] with row strides ld_i and
+// ld_j; (row0, col0) the global row of the slice's row 0 and the global
+// column of its column 0; gb uint8 [rows / 8, cols] and g64 uint8
+// [rows / 64, cols] (every byte written); cnt int64 [3] (pairs, hit
+// groups, hit supers), zero on entry.  rows % 64 must be 0.
+int pair_bits_int8(const void* parts, const void* lds, int n_parts,
+                   const void* aux_i, int ld_i, const void* aux_j, int ld_j,
+                   int rows, int cols, int row0, int col0,
                    float tau_eff, void* gb, void* g64, void* cnt,
                    void* stream) {
-  if (n_parts < 1 || n_parts > PB_MAX_PARTS || rows < 0 || cols < 0 ||
-      rows % PB_ROWS || rows / PB_ROWS > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0 || cols == 0) return (int)cudaSuccess;
-  const dim3 grid((cols + PB_COLS - 1) / PB_COLS, rows / PB_ROWS);
-  pair_bits_kernel<<<grid, PB_COLS, 0, (cudaStream_t)stream>>>(
-      (const int* const*)parts, n_parts, (const float*)aux_i,
-      (const float*)aux_j, rows, cols, row0, col0, tau_eff, (uint8_t*)gb,
-      (uint8_t*)g64, (unsigned long long*)cnt);
-  return (int)cudaGetLastError();
+  const BoundAdmit admit{(const float*)aux_i, ld_i, (const float*)aux_j,
+                         ld_j};
+  return launch_pair_bits(parts, lds, n_parts, admit, rows, cols, row0, col0,
+                          tau_eff, gb, g64, cnt, stream);
+}
+
+// Kernel 6, one row slice of a stripe of the bf16 or fp32 stripe join:
+// parts and lds as in pair_bits_int8, each partial fp32, summed left to
+// right; a cell is a hit when its sum >= tau_eff and its global row lies
+// below its global column; the rest as pair_bits_int8.
+int pair_bits_f32(const void* parts, const void* lds, int n_parts, int rows,
+                  int cols, int row0, int col0, float tau_eff, void* gb,
+                  void* g64, void* cnt, void* stream) {
+  return launch_pair_bits(parts, lds, n_parts, ThresholdAdmit{}, rows, cols,
+                          row0, col0, tau_eff, gb, g64, cnt, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Build and bind the CUDA kernels of ``csrc/score_bits.cu``
 (``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``,
-``int8_matmul``, ``pair_bits_int8``).
+``int8_matmul``, ``pair_bits_int8``, ``pair_bits_f32``).
 
 The source has a plain C interface, so it is compiled by ``nvcc`` alone into
 a shared library (seconds, where a build against PyTorch's headers takes
@@ -48,7 +48,9 @@ ARGTYPES = {
     "panel_score_bits_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "int8_matmul": [_P, _P, _I, _I, _I, _P, _P, _P],
-    "pair_bits_int8": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    "pair_bits_int8": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F,
+                       _P, _P, _P, _P],
+    "pair_bits_f32": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }
 
 

@@ -18,7 +18,8 @@ is the fallback of every configuration the panel kernels refuse: one
 ``super_tile``-wide query stripe at a time, each chunk densified into a
 ``[row_cap, chunk_dim]`` slab (``densify_chunk``) and multiplied with its own
 query rows into a ``[row_cap, super_tile]`` accumulator, then one
-threshold + bit-pack epilogue in row chunks and the exact-length compaction
+threshold + bit-pack pass over the stripe's live rows (kernel 6, or kernel 5
+on the int8 stripes, ``ops/panel_mesh.py``) and the exact-length compaction
 of ``tri_score.compact_bits``.
 
 The streaming ops serve ``ChunkedAllPairs.insert``, ``topk`` and frozen
@@ -55,6 +56,8 @@ __all__ = [
     "stripe_query_rows",
     "stripe_scores",
     "stripe_dots_int8",
+    "stripe_live_rows",
+    "stripe_candidates",
     "join_epilogue_bits",
     "int8_join_epilogue",
     "chunked_stripe_extract",
@@ -283,60 +286,59 @@ def stripe_dots_int8(rows2d, cols2d, q2d, counts, q0: int, row_cap: int,
     return acc
 
 
-def _epilogue_bits(mask_of, row_cap: int, tile: int, q0: int, device,
-                   timer=None):
-    """Shared single-block tail of the stripe epilogues: bit-pack the hit
-    mask ``row_cap / 8`` x ``tile`` in row chunks (``mask_of(r0, r1)``
-    makes rows ``[r0, r1)``, so no temporary spans the stripe), then the
-    exact-length ``tri_score.compact_bits`` on one ``(row_cap, tile)``
-    block with ``bi = [0]`` and ``bj = [q0 // tile]`` (rows are global,
-    stripes are tile-aligned).  Counts are int64: a stripe may pass 2^31
-    cells.  Stages "epilogue" and "compact"."""
-    with ts._section(timer, "epilogue"):
-        gb, g64, cnt = ts.bitpack_row_chunks(
-            mask_of, row_cap, tile, ts.epilogue_rows(row_cap, tile), device)
-        _sync(gb)
-    with ts._section(timer, "compact"):
-        bi = torch.zeros(1, dtype=torch.int32, device=device)
-        bj = torch.full((1,), q0 // tile, dtype=torch.int32, device=device)
-        return ts.compact_bits(gb, g64, cnt, bi, bj, row_cap, tile)
+def stripe_live_rows(row_cap: int, q0: int, tile: int) -> int:
+    """Rows of the stripe at ``q0`` that can hold a hit: a hit needs
+    ``row < q0 + col`` with ``col < tile``, so no row from ``q0 + tile - 1``
+    on has one.  Rounded up to the stripe's compaction unit (whole 512-row
+    cells where ``row_cap`` takes the pre-level, else 64-row
+    super-groups) and capped at ``row_cap``: the rows below it are left
+    out of the epilogue, and their bits would all be zero."""
+    unit = ts.SUPER2 if row_cap % ts.SUPER2 == 0 else ts.SUPER
+    return min(row_cap, -(-(q0 + tile) // unit) * unit)
+
+
+def stripe_candidates(placed, bounds, devices, aux, q0: int, tile: int,
+                      row_cap: int, tau_eff, lead, timer=None):
+    """Candidates ``(rows, cols)`` (int64, exact length, on ``lead``) of
+    one stripe from row slices of its live rows (``stripe_live_rows``):
+    ``placed[k]`` the partials of rows ``bounds[k]`` on ``devices[k]``.
+    Each device runs kernel 6 (fp32 scores, ``aux`` None) or kernel 5 (int32
+    dots, with ``aux``'s rows of the slice and its columns ``[q0, q0 +
+    tile)``) and compacts its bits; the lists are those of one ``(row_cap,
+    tile)`` block at ``bj = q0 // tile``, in its order
+    (``panel_mesh.pair_candidates``).  Stages "epilogue" and "compact"."""
+    # ops/panel_mesh.py imports the mesh collectives, and through them the
+    # engines that import this module: bind the kernels at call time
+    from .panel_mesh import pair_candidates
+
+    aux_j = None if aux is None else aux[:, q0:q0 + tile]
+    return pair_candidates(placed, bounds, devices, aux, aux_j, 0, q0,
+                           row_cap, tau_eff, lead, timer, cols=tile)
 
 
 def join_epilogue_bits(s, q0: int, tau_eff, timer=None):
     """Candidates ``(rows, cols)`` (device int64, exact length) of one fp32
     score stripe ``s [row_cap, tile]``: ``s >= tau_eff`` in the strict
-    upper triangle (``row < q0 + col``)."""
+    upper triangle (``row < q0 + col``), thresholded and bit-packed by
+    kernel 6 over the stripe's live rows, then compacted."""
     row_cap, tile = s.shape
-    tau_eff = float(tau_eff)
-    cols = q0 + torch.arange(tile, device=s.device)
-
-    def mask_of(r0: int, r1: int):
-        rows = torch.arange(r0, r1, device=s.device)
-        return (s[r0:r1] >= tau_eff) & (rows[:, None] < cols[None, :])
-
-    return _epilogue_bits(mask_of, row_cap, tile, q0, s.device, timer)
+    live = stripe_live_rows(row_cap, q0, tile)
+    return stripe_candidates([[s[:live]]], [(0, live)], [s.device], None, q0,
+                             tile, row_cap, tau_eff, s.device, timer)
 
 
 def int8_join_epilogue(d, aux, q0: int, tau_eff, timer=None):
     """Candidates of one exact int32 dot stripe ``d [row_cap, tile]``: the
     per-pair quantization bound and the strict-upper mask on global rows
-    and columns, ONE definition (``panel.int8_bound_mask``), with ``aux``
-    the f32 ``[3, row_cap]`` table and its columns ``[q0, q0 + tile)`` for
-    the query side.  Used by the single-device int8 stripes and by the
-    mesh's (where ``d`` is the exact sum of the shards' partial dots)."""
+    and columns (kernel 5, the bound of ``panel.int8_bound_mask``), with
+    ``aux`` the f32 ``[3, row_cap]`` table and its columns ``[q0, q0 +
+    tile)`` for the query side.  Used by the single-device int8 stripes and
+    by the mesh's over several processes (where ``d`` is the exact sum of
+    the shards' partial dots)."""
     row_cap, tile = d.shape
-    tau_eff = float(tau_eff)
-    aux_j = aux[:, q0:q0 + tile]
-    cols = q0 + torch.arange(tile, device=d.device)
-
-    def mask_of(r0: int, r1: int):
-        rows = torch.arange(r0, r1, device=d.device)
-        return panel_ops.int8_bound_mask(
-            d[r0:r1], aux[:, r0:r1], aux_j, rows[:, None], cols[None, :],
-            tau_eff,
-        )
-
-    return _epilogue_bits(mask_of, row_cap, tile, q0, d.device, timer)
+    live = stripe_live_rows(row_cap, q0, tile)
+    return stripe_candidates([[d[:live]]], [(0, live)], [d.device], aux, q0,
+                             tile, row_cap, tau_eff, d.device, timer)
 
 
 def chunked_stripe_extract(rows2d, cols2d, vals2d, counts, q0: int, tau_eff,

@@ -6,15 +6,20 @@ s holds chunks ``[s * n_local, (s + 1) * n_local)`` on its device, and
 every function here takes the buffers as per-shard lists.  A score over
 the whole index is therefore a sum over shards: every shard runs the chunk
 loop of ``ops/chunked.py`` over its own chunks into a partial fp32 (or
-exact int32, kernel 4) block on its device, the partials are summed onto
-the lead device (``psum``), and the one epilogue runs there.  The int32 sum
-is exact in any order; the fp32 sum adds one rounding per shard to a row's
-accumulation, inside the engine's margin like any other order of the same
-additions.  The JAX functions replicate the epilogue on every device; this
-computes it once.  On a mesh over several processes each process holds
-and scores its own shards; the fp32 sum runs in shard order across them
-(bit for bit the one-process sum) and ends on the last shard's process,
-which runs the epilogue and shares its outputs, as does the int32 sum.
+exact int32, kernel 4) block on its device.  The stripe join sums them
+where the rows live: each device receives its row slice of every partial
+and kernel 6 (kernel 5 on int32 dots) sums, thresholds and bit-packs it in
+one pass, so no stripe-sized sum is formed.  The streaming ops sum the
+partials onto the lead device (``psum``), and their one epilogue runs
+there.  The int32 sum is exact in any order; the fp32 sum runs left to
+right in shard order (the kernel's order too) and adds one rounding per
+shard to a row's accumulation, inside the engine's margin like any other
+order of the same additions.  The JAX functions replicate the epilogue on
+every device; this computes it once.  On a mesh over several processes
+each process holds and scores its own shards; the fp32 sum runs in shard
+order across them (bit for bit the one-process sum) and ends on the last
+shard's process, which runs the epilogue and shares its outputs, as does
+the int32 sum.
 
   - the stripe join: ``mesh_stripe_extract`` (bf16 or fp32 slabs) and
     ``mesh_stripe_extract_int8``;
@@ -29,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import psum, share, sum_home, sync
+from ..parallel.collectives import gather_rows, psum, share, sum_home, sync
 from . import chunked as chunked_ops
 from . import tri_score as ts
 
@@ -52,6 +57,43 @@ def _reduced(mesh, parts, epilogue, timer):
     return share([out], [mesh.ranks[home]], mesh.lead, mesh)[0]
 
 
+def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer):
+    """Candidates of one stripe from the shards' partials (fp32 scores,
+    ``aux`` None; or int32 dots) without a stripe-sized sum.
+
+    One process: the stripe's live rows (``chunked.stripe_live_rows``) are
+    cut into one slice per distinct device of the mesh
+    (``panel_mesh.card_slices``), each device receives its slice's rows of
+    every shard's partial (``collectives.gather_rows``, "reduce": views
+    where a partial is already there, so nothing is copied with every
+    shard on one device), runs kernel 6 (or kernel 5) over them and
+    compacts (``chunked.stripe_candidates``, "epilogue" and "compact");
+    the lists meet on the lead device in slice order.  Several processes:
+    the sum runs in shard order to the home shard's process (``_reduced``;
+    bit for bit the one-process sum), which runs the same kernel on it
+    alone."""
+    from .panel_mesh import card_slices  # see chunked.stripe_candidates
+
+    if mesh.n_procs > 1:
+        def epilogue(total):
+            if aux is None:
+                return chunked_ops.join_epilogue_bits(total, q0, tau_eff,
+                                                      timer)
+            return chunked_ops.int8_join_epilogue(total, aux, q0, tau_eff,
+                                                  timer)
+        return _reduced(mesh, parts, epilogue, timer)
+    row_cap, tile = parts[0].shape
+    bounds, devices = card_slices(
+        mesh.devices, chunked_ops.stripe_live_rows(row_cap, q0, tile))
+    with ts._section(timer, "reduce"):
+        placed = gather_rows(parts, bounds, devices)
+        del parts
+        sync(devices)
+    return chunked_ops.stripe_candidates(placed, bounds, devices, aux, q0,
+                                         tile, row_cap, tau_eff, mesh.lead,
+                                         timer)
+
+
 def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
                         tau_eff, row_cap: int, chunk_dim: int,
                         super_tile: int, precision: str = "default",
@@ -59,31 +101,29 @@ def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
     """Candidates ``(rows, cols)`` (int64, exact length, on the lead
     device) of one query stripe; the buffers are per-shard lists (None for
     another process's shard), ``counts`` a per-shard list of host arrays
-    or tensors.  Stages "slabs", "kernel", "reduce", "epilogue",
-    "compact"."""
+    or tensors.  Every shard's fp32 partial scores, then kernel 6 where
+    the rows live (``_stripe_where_rows_live``).  Stages "slabs",
+    "kernel", "reduce", "epilogue", "compact"."""
     parts = [
         None if r is None else chunked_ops.stripe_scores(
             r, c, v, n, q0, row_cap, chunk_dim, super_tile, precision, timer)
         for r, c, v, n in zip(rows2d, cols2d, vals2d, counts)
     ]
-    return _reduced(mesh, parts, lambda s: chunked_ops.join_epilogue_bits(
-        s, q0, tau_eff, timer), timer)
+    return _stripe_where_rows_live(mesh, parts, None, q0, tau_eff, timer)
 
 
 def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
                              tau_eff, row_cap: int, chunk_dim: int,
                              super_tile: int, timer=None):
     """int8 variant: per-shard int8 slabs and exact int32 partial dots
-    (kernel 4, one launch per local chunk), the exact ``psum``, then the
-    shared per-pair quantization-bound epilogue with the global ``aux``
-    (on the lead device)."""
+    (kernel 4, one launch per local chunk), then kernel 5 where the rows
+    live with the global ``aux`` (on the lead device)."""
     parts = [
         None if r is None else chunked_ops.stripe_dots_int8(
             r, c, q, n, q0, row_cap, chunk_dim, super_tile, timer)
         for r, c, q, n in zip(rows2d, cols2d, q2d, counts)
     ]
-    return _reduced(mesh, parts, lambda d: chunked_ops.int8_join_epilogue(
-        d, aux, q0, tau_eff, timer), timer)
+    return _stripe_where_rows_live(mesh, parts, aux, q0, tau_eff, timer)
 
 
 # ------------------------------------------------------------ streaming

@@ -18,18 +18,26 @@ several processes the int32 sum still ends on the last shard's process
 bound proof of the dense kernel (``ops/tri_score.py``) carries over
 unchanged.
 
+Kernel 6 (``pair_bits_f32``) is kernel 5's body with an fp32 sum (left to
+right, the order of ``collectives.psum``'s chain) and a plain threshold:
+the epilogue of the bf16 and fp32 stripe joins (``ops/chunked.py``,
+``ops/chunked_mesh.py``), which cut a stripe's live rows into slices the
+same way and compact them through ``pair_candidates``.
+
 The functions work on per-shard lists (one tensor per shard, on its
 device; None for a shard another process owns, on a mesh over several
 processes); the only data movement between shards is through
-``parallel/collectives.py``.  ``int8_matmul`` and ``pair_bits_int8``
-launch the CUDA kernels of ``csrc/score_bits.cu`` for CUDA tensors
-(counted in ``tri_score.LAUNCHES``) and run their plain PyTorch versions
-for CPU tensors.  The JAX function's ``optimization_barrier`` (a TPU compile
-workaround) and its caps / packed head (exact-length compaction needs none)
-have no counterpart.
+``parallel/collectives.py``.  ``int8_matmul``, ``pair_bits_int8`` and
+``pair_bits_f32`` launch the CUDA kernels of ``csrc/score_bits.cu`` for
+CUDA tensors (counted in ``tri_score.LAUNCHES``) and run their plain
+PyTorch versions for CPU tensors.  The JAX function's
+``optimization_barrier`` (a TPU compile workaround) and its caps / packed
+head (exact-length compaction needs none) have no counterpart.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -47,14 +55,17 @@ __all__ = [
     "mesh_panel_pair",
     "pair_bits_int8",
     "pair_bits_int8_plain",
+    "pair_bits_f32",
+    "pair_bits_f32_plain",
     "pair_candidates",
     "row_slices",
+    "card_slices",
     "slab_width",
 ]
 
 MM_TM, MM_TN = ts.THREAD_BLOCK_TILES[-1]  # kernel 4's smallest thread-block tile
 EPILOGUE_CELLS = ts.EPILOGUE_CELLS  # rectangle cells per plain epilogue chunk
-PAIR_MAX_PARTS = 64  # partials kernel 5 sums per cell at most
+PAIR_MAX_PARTS = 64  # partials kernels 5 and 6 sum per cell at most
 
 
 def _check_mm(xi: torch.Tensor, xj: torch.Tensor) -> None:
@@ -228,72 +239,104 @@ def _epilogue_rows(rows: int, cols: int | None = None) -> int:
                             EPILOGUE_CELLS)
 
 
-def _check_pair(parts, aux_i, aux_j) -> tuple:
-    """``(rows, cols)`` of kernel 5's operands; raise on anything it
-    refuses."""
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """A 2-D tensor whose rows are each one run of memory (a row stride
+    apart, as a column slice of a wider tensor): what kernels 5 and 6
+    read."""
+    return t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
+
+
+def _check_parts(parts, dtype, name: str) -> tuple:
+    """``(rows, cols)`` of the partials of kernel 5 or 6 (``name``); raise
+    on anything it refuses."""
     if not 1 <= len(parts) <= PAIR_MAX_PARTS:
-        raise ValueError(f"pair_bits_int8 sums 1 to {PAIR_MAX_PARTS} "
-                         f"partials, got {len(parts)}")
+        raise ValueError(f"{name} sums 1 to {PAIR_MAX_PARTS} partials, got "
+                         f"{len(parts)}")
     if parts[0].dim() != 2:
-        raise ValueError("pair_bits_int8 partials must be 2-D")
+        raise ValueError(f"{name} partials must be 2-D")
     rows, cols = parts[0].shape
     dev = parts[0].device
     for p in parts:
-        if (p.dtype != torch.int32 or tuple(p.shape) != (rows, cols)
-                or not p.is_contiguous() or p.device != dev):
+        if (p.dtype != dtype or tuple(p.shape) != (rows, cols)
+                or not _rows_contiguous(p) or p.device != dev):
             raise ValueError(
-                f"pair_bits_int8 partials must be contiguous int32 "
-                f"[{rows}, {cols}] tensors on {dev}, got {p.dtype} "
+                f"{name} partials must be {dtype} [{rows}, {cols}] tensors "
+                f"with contiguous rows on {dev}, got {p.dtype} "
                 f"{tuple(p.shape)} on {p.device}")
-    for name, aux, n in (("aux_i", aux_i, rows), ("aux_j", aux_j, cols)):
-        if (aux.dtype != torch.float32 or tuple(aux.shape) != (3, n)
-                or not aux.is_contiguous() or aux.device != dev):
-            raise ValueError(f"{name} must be contiguous f32 [3, {n}] on "
-                             f"{dev}")
     if rows % ts.SUPER:
-        raise ValueError(f"pair_bits_int8 needs rows % {ts.SUPER} == 0, "
-                         f"got {rows}")
+        raise ValueError(f"{name} needs rows % {ts.SUPER} == 0, got {rows}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return rows, cols
 
 
-def pair_bits_int8(parts, aux_i, aux_j, row0: int, col0: int, tau_eff):
-    """``(gb, g64, cnt)`` of one row slice of a mesh panel pair: kernel 5,
-    which replaces the epilogue XLA fuses behind ``_int8_matmul`` in
-    ``apsim_tpu/ops/panel_mesh.py:mesh_panel_pair`` (``psum``,
-    ``int8_bound_mask``, ``bitpack_mask`` and the counts).
-
-    ``parts``: the shards' int32 ``[rows, cols]`` partial dots of the
-    slice, all on one device; ``aux_i`` / ``aux_j`` the f32 ``[3, rows]`` /
-    ``[3, cols]`` (α, α·L1(q), nnz) tables; ``(row0, col0)`` the global row
-    and column of the slice's cell (0, 0).  A cell is a hit when the
-    quantization bound of its summed dot reaches ``tau_eff`` and its
-    global row lies below its global column.  Returns ``gb [1, rows/8,
-    cols]`` and ``g64 [1, rows/64, cols]`` uint8 and ``cnt [1, 3]`` int64,
-    as ``tri_score.bitpack_row_chunks`` lays them out; ``rows % 64 == 0``.
-    A CPU slice runs ``pair_bits_int8_plain``; a CUDA one launches the
-    kernel (counted in ``tri_score.LAUNCHES["pair_bits_int8"]``) or
-    raises."""
-    rows, cols = _check_pair(parts, aux_i, aux_j)
+def _check_offsets(row0: int, col0: int, rows: int, cols: int) -> None:
     if min(row0, col0) < 0 or max(row0 + rows, col0 + cols) >= 2**31:
         raise ValueError(f"global offsets ({row0}, {col0}) out of range")
+
+
+def _check_pair(parts, aux_i, aux_j) -> tuple:
+    """``(rows, cols)`` of kernel 5's operands; raise on anything it
+    refuses."""
+    rows, cols = _check_parts(parts, torch.int32, "pair_bits_int8")
+    dev = parts[0].device
+    for name, aux, n in (("aux_i", aux_i, rows), ("aux_j", aux_j, cols)):
+        if (aux.dtype != torch.float32 or tuple(aux.shape) != (3, n)
+                or not _rows_contiguous(aux) or aux.device != dev):
+            raise ValueError(f"{name} must be f32 [3, {n}] with contiguous "
+                             f"rows on {dev}")
+    return rows, cols
+
+
+def _pair_outputs(rows: int, cols: int, dev) -> tuple:
+    """Kernels 5 and 6's ``gb``, ``g64`` (every byte written) and zeroed
+    int64 counts."""
+    return (torch.empty((1, rows // ts.GROUP, cols), dtype=torch.uint8,
+                        device=dev),
+            torch.empty((1, rows // ts.SUPER, cols), dtype=torch.uint8,
+                        device=dev),
+            torch.zeros((1, 3), dtype=torch.int64, device=dev))
+
+
+def _part_arrays(parts) -> tuple:
+    """The partials' addresses and row strides as host arrays, which the C
+    entry copies into the kernel's parameters (nothing is copied to the
+    card first); keep them alive over the launch."""
+    n = len(parts)
+    return ((ctypes.c_void_p * n)(*(p.data_ptr() for p in parts)),
+            (ctypes.c_longlong * n)(*(p.stride(0) for p in parts)))
+
+
+def pair_bits_int8(parts, aux_i, aux_j, row0: int, col0: int, tau_eff):
+    """``(gb, g64, cnt)`` of one row slice of a rectangle: kernel 5, which
+    replaces the epilogue XLA fuses behind the int8 products: behind
+    ``_int8_matmul`` in ``apsim_tpu/ops/panel_mesh.py:mesh_panel_pair`` and
+    in the int8 stripes (``apsim_tpu/ops/chunked.py:int8_join_epilogue``)
+    (``psum``, ``int8_bound_mask``, ``bitpack_mask`` and the counts).
+
+    ``parts``: the shards' int32 ``[rows, cols]`` partial dots of the
+    slice, all on one device, each with contiguous rows (a column slice of
+    a wider product is read in place); ``aux_i`` / ``aux_j`` the f32 ``[3,
+    rows]`` / ``[3, cols]`` (α, α·L1(q), nnz) tables, also with contiguous
+    rows; ``(row0, col0)`` the global row and column of the slice's cell
+    (0, 0).  A cell is a hit when the quantization bound of its summed dot
+    reaches ``tau_eff`` and its global row lies below its global column.
+    Returns ``gb [1, rows/8, cols]`` and ``g64 [1, rows/64, cols]`` uint8
+    and ``cnt [1, 3]`` int64, as ``tri_score.bitpack_row_chunks`` lays
+    them out; ``rows % 64 == 0``.  A CPU slice runs
+    ``pair_bits_int8_plain``; a CUDA one launches the kernel (counted in
+    ``tri_score.LAUNCHES["pair_bits_int8"]``) or raises."""
+    rows, cols = _check_pair(parts, aux_i, aux_j)
+    _check_offsets(row0, col0, rows, cols)
     dev = parts[0].device
     if dev.type == "cpu":
         return pair_bits_int8_plain(parts, aux_i, aux_j, row0, col0,
                                     tau_eff)
-    gb = torch.empty((1, rows // ts.GROUP, cols), dtype=torch.uint8,
-                     device=dev)
-    g64 = torch.empty((1, rows // ts.SUPER, cols), dtype=torch.uint8,
-                      device=dev)
-    cnt = torch.zeros((1, 3), dtype=torch.int64, device=dev)
-    # the partials' addresses as a device array, copied on the card's
-    # stream from pinned memory (no host wait)
-    ptrs = torch.tensor([p.data_ptr() for p in parts],
-                        dtype=torch.int64).pin_memory().to(
-                            dev, non_blocking=True)
-    ts._launch("pair_bits_int8", aux_i, (
-        ptrs.data_ptr(), len(parts), aux_i.data_ptr(), aux_j.data_ptr(),
+    gb, g64, cnt = _pair_outputs(rows, cols, dev)
+    ptrs, lds = _part_arrays(parts)
+    ts._launch("pair_bits_int8", parts[0], (
+        ctypes.addressof(ptrs), ctypes.addressof(lds), len(parts),
+        aux_i.data_ptr(), aux_i.stride(0), aux_j.data_ptr(), aux_j.stride(0),
         rows, cols, int(row0), int(col0), float(tau_eff), gb.data_ptr(),
         g64.data_ptr(), cnt.data_ptr(),
     ))
@@ -324,6 +367,58 @@ def pair_bits_int8_plain(parts, aux_i, aux_j, row0: int, col0: int,
                                  _epilogue_rows(rows, cols), dev)
 
 
+def pair_bits_f32(parts, row0: int, col0: int, tau_eff):
+    """``(gb, g64, cnt)`` of one row slice of a score stripe: kernel 6,
+    which replaces the epilogue XLA builds behind the bf16 and fp32 stripe
+    products (``apsim_tpu/ops/chunked.py:join_epilogue_bits``, and its
+    ``psum`` in ``apsim_tpu/ops/chunked_mesh.py:mesh_stripe_extract``).
+
+    ``parts``: the shards' fp32 ``[rows, cols]`` partial scores of the
+    slice, all on one device, each with contiguous rows; a cell's sum is
+    taken left to right, ``((p0 + p1) + p2) + ...``, the order of
+    ``collectives.psum``'s one-process chain, so it is bit for bit the sum
+    that chain forms.  A cell is a hit when its sum reaches ``tau_eff``
+    (rounded to fp32) and its global row ``row0 + r`` lies below its global
+    column ``col0 + c``.  Outputs as ``pair_bits_int8``'s; ``rows % 64 ==
+    0``.  A CPU slice runs ``pair_bits_f32_plain``; a CUDA one launches the
+    kernel (counted in ``tri_score.LAUNCHES["pair_bits_f32"]``) or
+    raises."""
+    rows, cols = _check_parts(parts, torch.float32, "pair_bits_f32")
+    _check_offsets(row0, col0, rows, cols)
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return pair_bits_f32_plain(parts, row0, col0, tau_eff)
+    gb, g64, cnt = _pair_outputs(rows, cols, dev)
+    ptrs, lds = _part_arrays(parts)
+    ts._launch("pair_bits_f32", parts[0], (
+        ctypes.addressof(ptrs), ctypes.addressof(lds), len(parts), rows,
+        cols, int(row0), int(col0), float(tau_eff), gb.data_ptr(),
+        g64.data_ptr(), cnt.data_ptr(),
+    ))
+    return gb, g64, cnt
+
+
+def pair_bits_f32_plain(parts, row0: int, col0: int, tau_eff):
+    """Plain PyTorch version of kernel 6 (same outputs): the partials added
+    left to right, ``sum >= tau_eff`` and the strict-upper mask on global
+    coordinates, ``tri_score.bitpack_row_chunks`` in row chunks of whole
+    super-groups (``tri_score.epilogue_rows``)."""
+    rows, cols = _check_parts(parts, torch.float32, "pair_bits_f32")
+    dev = parts[0].device
+    tau = float(tau_eff)
+    col_ids = col0 + torch.arange(cols, dtype=torch.int64, device=dev)
+
+    def mask_of(r0: int, r1: int):
+        s = parts[0][r0:r1]
+        for p in parts[1:]:
+            s = s + p[r0:r1]
+        row_ids = row0 + torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        return (s >= tau) & (row_ids[:, None] < col_ids[None, :])
+
+    return ts.bitpack_row_chunks(mask_of, rows, cols,
+                                 ts.epilogue_rows(rows, cols), dev)
+
+
 def row_slices(rb: int, n: int) -> list:
     """``n`` contiguous row slices ``(a, b)`` of an ``rb``-row rectangle, in
     order, differing by at most one unit (so some are empty when ``rb`` has
@@ -336,34 +431,51 @@ def row_slices(rb: int, n: int) -> list:
     return list(zip(cuts, cuts[1:]))
 
 
+def card_slices(devices, rows: int) -> tuple:
+    """``(bounds, cards)``: the non-empty ``row_slices`` of a ``rows``-row
+    rectangle, one for each distinct device of ``devices`` in order, and
+    those devices."""
+    cards = list(dict.fromkeys(devices))
+    kept = [(ab, dev) for ab, dev in zip(row_slices(rows, len(cards)), cards)
+            if ab[1] > ab[0]]
+    return [ab for ab, _ in kept], [dev for _, dev in kept]
+
+
 def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
-                    col0: int, rb: int, tau_eff, lead, timer=None):
-    """Global (row, col) int64 candidate lists of one panel pair from its
+                    col0: int, rb: int, tau_eff, lead, timer=None,
+                    cols: int | None = None):
+    """Global (row, col) int64 candidate lists of one rectangle from its
     row slices, on ``lead``: slice ``k`` holds rows ``bounds[k] = (a, b)``
-    of the pair's ``rb`` rows, ``placed[k]`` the partial dots of those rows
-    on ``devices[k]`` (``collectives.gather_rows``).  Each device runs
-    kernel 5 on its slice ("epilogue"), then ``tri_score.compact_bits`` on
-    its bits; the lists cross to ``lead`` and are concatenated in slice
-    order ("compact").  Every slice compacts with the whole rectangle's
-    scan (``row_slices``' cuts), so the lists equal the whole rectangle's,
-    in order."""
+    of the rectangle, ``placed[k]`` the partials of those rows on
+    ``devices[k]`` (``collectives.gather_rows``).  The rectangle is a panel
+    pair (``rb`` rows and columns) or a stripe (``rb`` the stripe's row
+    capacity, ``cols`` its width, the slices its live rows).  Each device
+    runs kernel 5 on its slice, with ``aux_i``'s rows ``[a, b)`` and
+    ``aux_j``, or, where ``aux_i`` is None (fp32 scores), kernel 6
+    ("epilogue"); then ``tri_score.compact_bits`` on its bits; the lists
+    cross to ``lead`` and are concatenated in slice order ("compact").
+    Every slice compacts with the whole rectangle's scan (the pre-level of
+    ``rb`` rows; ``row_slices``' cuts), so the lists equal the whole
+    rectangle's, in order."""
+    width = rb if cols is None else cols
     pre = (rb // ts.SUPER) % (ts.SUPER2 // ts.SUPER) == 0
     with ts._section(timer, "epilogue"):
-        bits = [pair_bits_int8(ps, aux_i[:, a:b].contiguous().to(dev),
-                               aux_j.to(dev), row0 + a, col0, tau_eff)
+        bits = [pair_bits_f32(ps, row0 + a, col0, tau_eff) if aux_i is None
+                else pair_bits_int8(ps, aux_i[:, a:b].to(dev),
+                                    aux_j.to(dev), row0 + a, col0, tau_eff)
                 for ps, (a, b), dev in zip(placed, bounds, devices)]
         sync(devices)
     with ts._section(timer, "compact"):
-        rows, cols = [], []
+        found_r, found_c = [], []
         for (gb, g64, cnt), (a, b), dev in zip(bits, bounds, devices):
             zero = torch.zeros(1, dtype=torch.int32, device=dev)
-            r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, rb,
+            r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, width,
                                    pre_level=pre)
-            rows.append((r + (row0 + a)).to(lead))
-            cols.append((c + col0).to(lead))
-        if len(rows) == 1:
-            return rows[0], cols[0]
-        found = torch.cat(rows), torch.cat(cols)
+            found_r.append((r + (row0 + a)).to(lead))
+            found_c.append((c + col0).to(lead))
+        if len(found_r) == 1:
+            return found_r[0], found_c[0]
+        found = torch.cat(found_r), torch.cat(found_c)
         sync(devices)
         return found
 
@@ -406,10 +518,7 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
                                     row0, col0, rb, tau_eff, dev, timer)
             del d
         return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
-    cards = list(dict.fromkeys(mesh.devices))
-    kept = [(ab, dev) for ab, dev in zip(row_slices(rb, len(cards)), cards)
-            if ab[1] > ab[0]]
-    bounds, devices = [ab for ab, _ in kept], [dev for _, dev in kept]
+    bounds, devices = card_slices(mesh.devices, rb)
     with ts._section(timer, "reduce"):
         placed = gather_rows(parts, bounds, devices)
         del parts

@@ -63,11 +63,12 @@ THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of kernels 1-4
 
 # kernel launches per wrapper (only a launch of the CUDA kernel counts);
 # ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
-# ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py`` and
-# ``pair_bits_int8`` the mesh panel pair's epilogue there
+# ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py``, and
+# ``pair_bits_int8`` and ``pair_bits_f32`` the summed-partial epilogues
+# there (the mesh panel pair's; the int8 and the bf16 / fp32 stripes')
 LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
             "panel_score_bits_int8": 0, "int8_matmul": 0,
-            "pair_bits_int8": 0}
+            "pair_bits_int8": 0, "pair_bits_f32": 0}
 # the same launches keyed by wrapper, then by card index
 LAUNCHES_BY_CARD = {name: {} for name in LAUNCHES}
 

@@ -161,26 +161,32 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
 
     # Stripe budget (bytes) over every fp32 accumulator counted by
     # ``_stripe_accs``.  Measured on an NVIDIA H100 80GB HBM3 at a 700 W
-    # power limit (``bench/constants_ab``, PERF.md): the mesh stripe join
-    # peaked 0.7-4.0 GB above its counted accumulators (4 and 8 shards on
-    # the card, 100,000 and 499,712 rows; the epilogue runs on the sum in
-    # row chunks), so 32 GiB keeps it near the single engine's 37.3 GB.
-    # With 4 shards on the card the wider stripes it allows were the
-    # faster: 51.2 s at width 2,048 against 56.0 s at 1,024 (499,712 rows,
-    # peak 24.5 GB), 2.17 s at 8,192 against 2.25 s at 4,096 (100,000).
+    # power limit (``bench/constants_ab`` and ``bench/stripe_ab``,
+    # PERF.md): the wider stripes it allows were the faster, 2.17 s at
+    # 8,192 against 2.25 s at 4,096 (100,000 rows, 4 shards on the card);
+    # at 499,712 rows 51.2 s at 2,048 against 56.0 s at 1,024 while the
+    # lead card formed the sum (peak 24.5 GB), and 37.6 s at 4,096 since
+    # no sum is formed (peak 45.9 GB: the counted partials, the chunk
+    # loop's product being added in, the index).
     _stripe_acc_budget = 1 << 35  # 32 GiB
 
     def _stripe_accs(self) -> int:
-        """Counted on the busiest card: every local shard's fp32 partial,
-        live until the sum (``ops/chunked_mesh._reduced``), the sum, and
-        one more where a partial or the running sum crosses from another
-        card or process.  One shard holds one."""
+        """Counted on the busiest card: every local shard's partial, live
+        until the epilogue; on one process the row slices of the other
+        cards' partials copied in (``ops/chunked_mesh``: each card sums
+        its own rows, so no sum is formed; ceil of their rows over a
+        partial's); over several processes the sum (``_reduced``) and
+        the running sum crossing in.  One shard holds one.  The product
+        the chunk loop adds into a partial is not counted, as in the
+        single engine: it is the budget's headroom."""
         if self.n_shards == 1:
             return 1
         local = [str(self.mesh.devices[s]) for s in self.mesh.local_shards]
         busiest = max(local.count(d) for d in local)
-        spread = len(set(local)) > 1 or self.mesh.n_procs > 1
-        return busiest + 1 + int(spread)
+        if self.mesh.n_procs > 1:
+            return busiest + 2
+        cards = len(set(local))
+        return busiest + -(-(len(local) - busiest) // cards)
 
     def _op_stripe(self, q0: int, tau_eff, super_tile: int):
         q8 = self._int8_slabs()

@@ -108,14 +108,23 @@ result line):
    ``ChunkedAllPairs(pallas_int8=False)`` on phase 5's 100,000 rows: the
    bf16 stripes, three joins, pair set equal to phase 5's panel join
    (``stripe_parity``); stripe width, stripes, densify passes, stage split,
-   peak memory.  Then one join with ``_int8_stripes = True``: kernel 4
-   launched once per (stripe, chunk) between zeroed counters, and one
-   (stripe, chunk) product compared bit for bit with its plain version and
-   timed beside ``torch._int_mm``.  The meshes on the one card:
-   ``MeshEngine(shard_axis="dims")`` over 4 shards and a ``(2, 2)`` mesh on
-   the 32,768 rows, phase 6's rows mesh joined once more after
-   ``_int8_off = True``, and ``MeshChunkedAllPairs(pallas_int8=False)``
-   over 8 shards on the 100,000 rows (one join).
+   peak memory; kernel 6 (``pair_bits_f32``, the stripes' threshold +
+   bit-pack) launched once per stripe between zeroed counters, and held
+   bit for bit against its plain version at the middle stripe's live rows
+   (1 partial), timed against its bytes bound.  The ``highest`` stripes
+   (``pallas_int8=False, matmul_precision="highest"``: true fp32 products)
+   on phase 3's 32,768 rows: one join, kernel 6 once per stripe.  Then one
+   join with ``_int8_stripes = True``: kernel 4 launched once per (stripe,
+   chunk) and kernel 5 once per stripe, one (stripe, chunk) product
+   compared bit for bit with its plain version and timed beside
+   ``torch._int_mm``, kernel 5 held and timed at the middle stripe.  The
+   meshes on the one card: ``MeshEngine(shard_axis="dims")`` over 4
+   shards and a ``(2, 2)`` mesh on the 32,768 rows, phase 6's rows mesh
+   joined once more after ``_int8_off = True``, and
+   ``MeshChunkedAllPairs`` on the 100,000 rows (one join each): the bf16
+   stripes over 8 shards (kernel 6 once per stripe on the 8 partials, no
+   sum formed; held and timed at the middle stripe) and the int8 stripes
+   over 4 (kernel 5 once per stripe).
 
 8. The dense engine's streaming path on phase 3's corpus.  ``Engine``
    builds on rows 0-24,575; every other row is streamed through
@@ -284,7 +293,12 @@ result line):
     cards on phase 5's corpus through ``mesh_chunked_stream`` (kernels 4
     and 5 once a card a panel pair, kernel 4 exactly its plain version on
     each card, kernel 5 bit for bit its plain version on each card's row
-    slice of the partials).  17c: ``MeshChunkedAllPairs`` joins
+    slice of the partials); then its stripe joins (17b stripes: the bf16
+    stripes and the int8 stripes, one join each, on card 0 and over the
+    cards): kernel 6 (or kernel 5) once a card a stripe, the candidate
+    lists and the join bit for bit the same mesh's on card 0 and the pair
+    set the fp64 oracle's, the kernel bit for bit its plain version on
+    each card's row slice of the middle stripe.  17c: ``MeshChunkedAllPairs`` joins
     ``synthetic_corpus(500000)`` (made in a process of its own meanwhile)
     twice with every shard on card 0 and twice over the cards, the two bit
     for bit equal and their pair set that of one-card ``ChunkedAllPairs``;
@@ -349,9 +363,11 @@ REPLACES = {
     "score_bits_bf16": "apsim_tpu/ops/pallas_score.py:117",  # _kernel
     "panel_score_bits_int8": "apsim_tpu/ops/panel.py:151",  # _kernel_int8_cross
     "int8_matmul": "apsim_tpu/ops/panel_mesh.py:42",  # _mm_kernel
-    # not a Pallas kernel: the psum + bound + bit-pack XLA fuses in
-    # mesh_panel_pair's shard_map body
+    # not Pallas kernels: the psum + bound + bit-pack XLA fuses in
+    # mesh_panel_pair's shard_map body, and the psum + threshold + bit-pack
+    # XLA builds behind the bf16 / fp32 stripes (join_epilogue_bits)
     "pair_bits_int8": "apsim_tpu/ops/panel_mesh.py:183",
+    "pair_bits_f32": "apsim_tpu/ops/chunked.py:288",
 }
 OOC_ROWS = 100_000
 # H100 SXM peaks (NVIDIA data sheet, dense; ``bench/mfu.py``): int8 ops/s,
@@ -864,73 +880,137 @@ def compare_mm(xi, xj, label: str) -> dict:
 PAIR_BITS_OPS = 13
 
 
-def compare_pair_bits(eng: MeshChunkedAllPairs, pi: int, pj: int,
-                      label: str) -> list:
-    """Kernel 5 against its plain version at panel pair ``(pi, pj)`` of a
-    mesh join's own operands: every shard's kernel 4 partial, cut into row
-    slices on the mesh's cards as the join cuts them
-    (``panel_mesh.row_slices``, ``gather_rows``).  On each card gb, g64
-    and the counts bit for bit, timed (CUDA events, median of 5) beside
-    the plain version; its bound: the partials of the strict-upper cells
-    read once (the kernel loads no other), the aux tables, the bits and
-    counts written, over the memory rate, against the S - 1 adds and
-    ``PAIR_BITS_OPS`` per such cell over the fp32 rate.  One record a
-    card."""
-    st = eng._panel_state()
-    rb = st["geom"][0]
-    xi, xj = eng._build_slab(st, pi), eng._build_slab(st, pj)
-    parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
-    del xi, xj
-    cards = list(dict.fromkeys(eng.mesh.devices))
-    kept = [(ab, c) for ab, c in zip(panel_mesh.row_slices(rb, len(cards)),
-                                     cards) if ab[1] > ab[0]]
-    bounds, devs = [ab for ab, _ in kept], [c for _, c in kept]
-    placed = gather_rows(parts, bounds, devs)
-    del parts
-    tau_eff = eng._tau_eff(TAU)
+def compare_bits(placed, bounds, devs, row0: int, col0: int, cols: int,
+                 tau_eff, label: str, aux_i=None, aux_j=None) -> list:
+    """Kernel 5 (int32 partial dots; ``aux_i`` / ``aux_j`` the rectangle's
+    row and column tables) or kernel 6 (fp32 partial scores, no tables)
+    against its plain version on each card's row slice of a rectangle
+    whose cell (0, 0) is global ``(row0, col0)``, as the join cuts and
+    places it (``placed[k]`` the partials of rows ``bounds[k]`` on
+    ``devs[k]``): gb, g64 and the counts bit for bit, timed (CUDA events,
+    median of 5) beside the plain version; its bound: the partials of the
+    strict-upper cells read once (the kernel loads no other), the aux
+    tables, the bits and counts written, over the memory rate, against the
+    S - 1 adds and the test of each such cell (``PAIR_BITS_OPS`` for
+    kernel 5's bound, one compare for kernel 6's) over the fp32 rate.  One
+    record a card."""
+    int8 = aux_i is not None
+    kernel, plain = ((panel_mesh.pair_bits_int8,
+                      panel_mesh.pair_bits_int8_plain) if int8 else
+                     (panel_mesh.pair_bits_f32, panel_mesh.pair_bits_f32_plain))
     zero = torch.zeros(1, dtype=torch.int64)
     recs = []
     for ps, (a, b), dev in zip(placed, bounds, devs):
-        args = (ps, st["aux_of"][pi][:, a:b].contiguous().to(dev),
-                st["aux_of"][pj].to(dev), pi * rb + a, pj * rb, tau_eff)
+        args = ((ps, aux_i[:, a:b].to(dev), aux_j.to(dev)) if int8
+                else (ps,)) + (row0 + a, col0, tau_eff)
         with torch.cuda.device(dev):
-            k = panel_mesh.pair_bits_int8(*args)
+            k = kernel(*args)
             torch.cuda.synchronize(dev)
-            p = panel_mesh.pair_bits_int8_plain(*args)
-        for name, x, y in zip(("gb", "g64", "cnt"), k, p):
+            p = plain(*args)
+        for what, x, y in zip(("gb", "g64", "cnt"), k, p):
             if not torch.equal(x, y):
                 raise AssertionError(
-                    f"pair_bits_int8 differs from plain ({label}, card "
-                    f"{dev.index}, rows {a}-{b}): {name}, "
+                    f"{kernel.__name__} differs from plain ({label}, card "
+                    f"{dev.index}, rows {a}-{b}): {what}, "
                     f"{int((x != y).sum())} elements")
-        cells = upper_cells(zero, zero, b - a, rb, (pi * rb + a, pj * rb))
+        cells = upper_cells(zero, zero, b - a, cols, (row0 + a, col0))
         n = len(ps)
-        nbytes = (4 * n * cells + 12 * (b - a + rb) + 8 * n
-                  + (b - a) // 8 * rb + (b - a) // 64 * rb + 24)
-        rec = {"label": label, "card": dev.index, "pair": [pi, pj],
-               "rows": [a, b], "cols": rb, "parts": n,
+        nbytes = (4 * n * cells + (12 * (b - a + cols) if int8 else 0)
+                  + (b - a) // 8 * cols + (b - a) // 64 * cols + 24)
+        rec = {"label": label, "card": dev.index, "origin": [row0, col0],
+               "rows": [a, b], "cols": cols, "parts": n,
                "upper_cells": cells, "bytes": nbytes,
                "pairs_kernel": int(k[2][0, 0]),
                "pairs_plain": int(p[2][0, 0]), "max_abs_err": 0.0}
         del k, p
         rec.update(
-            ms=median_ms(lambda: panel_mesh.pair_bits_int8(*args), dev=dev),
-            plain_ms=median_ms(lambda: panel_mesh.pair_bits_int8_plain(
-                *args), dev=dev),
-            library_ms=None)  # no one PyTorch call sums, bounds and packs
+            ms=median_ms(lambda: kernel(*args), dev=dev),
+            plain_ms=median_ms(lambda: plain(*args), dev=dev),
+            library_ms=None)  # no one PyTorch call sums, tests and packs
         rec["gb_per_s"] = nbytes / rec["ms"] / 1e6
-        rec.update(bound(cells * (n - 1 + PAIR_BITS_OPS), nbytes, PEAK_FP32))
-        log(f"kernel 5: {json.dumps(rec)}")
+        ops = PAIR_BITS_OPS if int8 else 1
+        rec.update(bound(cells * (n - 1 + ops), nbytes, PEAK_FP32))
+        log(f"{'kernel 5' if int8 else 'kernel 6'}: {json.dumps(rec)}")
         recs.append(rec)
     return recs
 
 
-def pair_bits_record(recs: list, launches: int) -> dict:
-    """The kernels line's record of kernel 5 from ``compare_pair_bits``'
-    records: the times of the slowest card's slice, the worst error."""
+def compare_pair_bits(eng: MeshChunkedAllPairs, pi: int, pj: int,
+                      label: str) -> list:
+    """Kernel 5 against its plain version at panel pair ``(pi, pj)`` of a
+    mesh join's own operands (``compare_bits``): every shard's kernel 4
+    partial, cut into row slices on the mesh's cards as the join cuts them
+    (``panel_mesh.card_slices``, ``gather_rows``)."""
+    st = eng._panel_state()
+    rb = st["geom"][0]
+    xi, xj = eng._build_slab(st, pi), eng._build_slab(st, pj)
+    parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
+    del xi, xj
+    bounds, devs = panel_mesh.card_slices(eng.mesh.devices, rb)
+    placed = gather_rows(parts, bounds, devs)
+    del parts
+    return compare_bits(placed, bounds, devs, pi * rb, pj * rb, rb,
+                        eng._tau_eff(TAU), label, st["aux_of"][pi],
+                        st["aux_of"][pj])
+
+
+def stripe_partials(eng, q0: int, int8: bool) -> list:
+    """Every shard's partial of the stripe at ``q0`` as the engine's stripe
+    join forms it (one for ``ChunkedAllPairs``): fp32 scores, or int32
+    dots (kernel 4) on the int8 stripes."""
+    st = eng._q_super()
+    if isinstance(eng, MeshChunkedAllPairs):
+        ents, counts = list(zip(*eng._ent)), eng._local_counts()
+    else:
+        ents, counts = [eng._ent], [eng._counts]
+    if int8:
+        q8 = eng._int8_slabs()[0]
+        q8 = q8 if isinstance(eng, MeshChunkedAllPairs) else [q8]
+        return [chunked_ops.stripe_dots_int8(
+            e[0], e[1], q, n, q0, eng.row_cap, eng._chunk_width, st)
+            for e, q, n in zip(ents, q8, counts)]
+    return [chunked_ops.stripe_scores(
+        *e, n, q0, eng.row_cap, eng._chunk_width, st,
+        eng.cfg.matmul_precision) for e, n in zip(ents, counts)]
+
+
+def compare_stripe(eng, q0: int, label: str, int8: bool = False) -> list:
+    """``compare_bits`` at the stripe at ``q0`` of ``eng``'s own
+    stripe join: its shards' partials, their live rows cut into one slice
+    a card and placed there (``panel_mesh.card_slices``,
+    ``gather_rows``)."""
+    parts = stripe_partials(eng, q0, int8)
+    st = eng._q_super()
+    live = chunked_ops.stripe_live_rows(eng.row_cap, q0, st)
+    devices = (eng.mesh.devices if isinstance(eng, MeshChunkedAllPairs)
+               else [parts[0].device])
+    bounds, devs = panel_mesh.card_slices(devices, live)
+    placed = gather_rows(parts, bounds, devs)
+    del parts
+    aux = eng._int8_slabs()[1] if int8 else None
+    return compare_bits(placed, bounds, devs, 0, q0, st, eng._tau_eff(TAU),
+                        label, aux, None if aux is None else aux[:, q0:q0 + st])
+
+
+def expect_launches(label: str, want: dict) -> dict:
+    """The launches since the counters were zeroed must be ``want`` (every
+    other kernel none)."""
+    got = dict(ts.LAUNCHES)
+    expect = {k: want.get(k, 0) for k in got}
+    log(f"kernel launches on the {label}: {got}")
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    return got
+
+
+def pair_bits_record(recs: list, launches: int,
+                     name: str = "pair_bits_int8") -> dict:
+    """The kernels line's record of kernel 5 (or 6) from
+    ``compare_bits``' records: the times of the slowest card's slice, the
+    worst error."""
     worst = max(recs, key=lambda r: r["ms"])
-    return {"name": "pair_bits_int8", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES["pair_bits_int8"], "launches": launches,
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             **{k: worst[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}}
@@ -1022,6 +1102,114 @@ def compare_stripe_mm(eng: ChunkedAllPairs, q0: int, c: int) -> dict:
     if int((slab != 0).sum()) != int(eng._counts[c]):
         raise AssertionError("the slab does not hold the chunk's entries")
     return compare_mm(slab, xj, f"int8 stripe q0={q0}, chunk {c}")
+
+
+def stripe_phase(dev, ooc_csr: CSRMatrix, want: set, panel_pairs: set,
+                 big_csr: CSRMatrix, want32: set, kernels: list) -> None:
+    """Phase 7's stripe joins (module docstring): the bf16 stripes at
+    100,000 rows, the ``highest`` stripes at 32,768, the int8 stripes,
+    the chunked mesh's bf16 stripes over 8 shards of the card and its int8
+    stripes over 4, each against the fp64 oracle with its launches
+    between zeroed counters; kernel 6 held and timed at the middle stripe
+    (1 partial and 8), kernels 4 and 5 on the int8 stripes.  Appends
+    kernel 6's record to ``kernels``, adds ``stripe_*`` keys to kernel 4's
+    and 5's."""
+    pb_main = next(k for k in kernels if k["name"] == "pair_bits_int8")
+    seng = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), dev)
+    log(f"build stripe engine: {json.dumps(seng.build(ooc_csr))}")
+    zero_launches()
+    js = stripe_join(seng, f"bf16 stripes, {OOC_ROWS} rows", reps=3)
+    n_st = js["rec"]["stripes"]
+    k6_launches = expect_launches(f"bf16 stripes, {OOC_ROWS} rows",
+                                  {"pair_bits_f32": 3 * n_st})["pair_bits_f32"]
+    check_parity(js["res"], want, f"bf16 stripes, {OOC_ROWS} rows")
+    stripe_parity = js["res"].pair_set() == panel_pairs
+    log(f"stripe_parity: {stripe_parity} ({len(panel_pairs)} pairs of the "
+        f"panel join)")
+    if not stripe_parity:
+        raise AssertionError("the stripe join's pair set differs from the "
+                             "panel join's")
+    # kernel 6 at one stripe of that join (the middle one), 1 partial
+    q0_mid = n_st // 2 * seng._q_super()
+    k6_recs = compare_stripe(seng, q0_mid, f"bf16 stripes, {OOC_ROWS} rows")
+    del seng, js
+    torch.cuda.empty_cache()
+
+    heng = ChunkedAllPairs(AllPairsConfig(
+        pallas_int8=False, matmul_precision="highest"), dev)
+    heng.build(big_csr)
+    zero_launches()
+    jh = stripe_join(heng, "highest stripes, 32768 rows", reps=1)
+    k6_launches += expect_launches("highest stripes, 32768 rows", {
+        "pair_bits_f32": jh["rec"]["stripes"]})["pair_bits_f32"]
+    check_parity(jh["res"], want32, "highest stripes, 32768 rows")
+    del heng, jh
+    torch.cuda.empty_cache()
+
+    ieng = ChunkedAllPairs(AllPairsConfig(use_pallas="off"), dev)
+    ieng._int8_stripes = True
+    ieng.build(ooc_csr)
+    zero_launches()
+    ji = stripe_join(ieng, f"int8 stripes, {OOC_ROWS} rows", reps=1)
+    if not ji["rec"]["int8"]:
+        raise AssertionError("the int8 stripes were not taken")
+    stripe_launches = expect_launches(f"int8 stripes, {OOC_ROWS} rows", {
+        "int8_matmul": ji["rec"]["stripes"] * ji["rec"]["n_chunks"],
+        "pair_bits_int8": ji["rec"]["stripes"]})
+    check_parity(ji["res"], want, f"int8 stripes, {OOC_ROWS} rows")
+    mm_stripe = compare_stripe_mm(ieng, ieng._q_super(), 3)
+    next(k for k in kernels if k["name"] == "int8_matmul").update({
+        "stripe_launches": stripe_launches["int8_matmul"],
+        **{f"stripe_{k}": mm_stripe[k] for k in (
+            "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")},
+    })
+    (k5_stripe,) = compare_stripe(ieng, q0_mid, f"int8 stripes, {OOC_ROWS} "
+                                  f"rows", int8=True)
+    pb_main.update({
+        "stripe_launches": stripe_launches["pair_bits_int8"],
+        **{f"stripe_{k}": k5_stripe[k] for k in (
+            "rows", "cols", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+    })
+    del ieng, ji
+    torch.cuda.empty_cache()
+
+    for n_shards, int8 in ((8, False), (4, True)):
+        kind = "int8" if int8 else "bf16"
+        name = "pair_bits_int8" if int8 else "pair_bits_f32"
+        meng = MeshChunkedAllPairs(
+            AllPairsConfig(use_pallas="off") if int8 else AllPairsConfig(
+                pallas_int8=False),
+            mesh=make_mesh(n_shards, devices=[dev] * n_shards))
+        meng._int8_stripes = int8
+        meng.build(ooc_csr)
+        label = (f"mesh {kind} stripes, {n_shards} shards on one card, "
+                 f"{OOC_ROWS} rows")
+        zero_launches()
+        jm = stripe_join(meng, label, reps=1)
+        n_st = jm["rec"]["stripes"]
+        got = expect_launches(label, {
+            "int8_matmul": n_st * jm["rec"]["n_chunks"] if int8 else 0,
+            name: n_st})
+        check_parity(jm["res"], want, label)
+        if jm["res"].pair_set() != panel_pairs:
+            raise AssertionError(f"{label}: pair set differs from the "
+                                 f"single-device panel join's")
+        if int8:
+            pb_main["stripe_launches"] += got[name]
+        else:  # kernel 6 at 8 partials, the middle stripe
+            k6_launches += got[name]
+            k6_8 = compare_stripe(meng, q0_mid, label)
+        del meng, jm
+        torch.cuda.empty_cache()
+    k6 = pair_bits_record(k6_recs, k6_launches, "pair_bits_f32")
+    k6.update({f"shards8_{k}": v for k, v in pair_bits_record(
+        k6_8, k6_launches, "pair_bits_f32").items()
+        if k not in ("name", "route", "source", "replaces", "launches")})
+    k6["stripe"] = {k: k6_recs[0][k] for k in ("origin", "rows", "cols",
+                                                "upper_cells", "bytes")}
+    kernels.append(k6)
 
 
 # ------------------------------------------------ phase 8: the streaming path
@@ -3841,6 +4029,88 @@ def cards_chunked(cards, csr: CSRMatrix, want: set, qsets, kernels: list,
     return {w: refs[w]["timings"] for w in refs}
 
 
+def cards_stripes(cards, csr: CSRMatrix, want: set, kernels: list,
+                  smi: str) -> dict:
+    """Phase 17b stripes: ``MeshChunkedAllPairs``' stripe joins on phase
+    5's corpus, the bf16 stripes (``pallas_int8=False``) and the int8
+    stripes (``use_pallas="off"``, ``_int8_stripes``), each with every
+    shard on card 0, then one shard a card: two joins (the second timed,
+    host clock, with its stage split), the launches by card (kernel 6, or
+    kernels 4 and 5, each card once a stripe), the candidate lists
+    (``_all_pairs_stripes``), the join's pairs and similarities over the
+    cards bit for bit those on card 0, the pair set the fp64 oracle's;
+    over the cards, kernel 6 (or 5) against its plain version on each
+    card's row slice of the middle stripe.  Fills kernel 6's
+    ``mesh_cards_*`` keys."""
+    n = len(cards)
+    out = {}
+    k6_recs, k6_launches = None, 0
+    for kind, cfg in (("bf16", AllPairsConfig(pallas_int8=False)),
+                      ("int8", AllPairsConfig(use_pallas="off"))):
+        int8 = kind == "int8"
+        name = "pair_bits_int8" if int8 else "pair_bits_f32"
+        refs = {}
+        for where_, devs in (("card0", [cards[0]] * n), ("cards", cards)):
+            label = f"phase 17b {kind} stripes, {where(devs)}"
+            torch.cuda.empty_cache()
+            reset_peaks(cards)
+            eng = MeshChunkedAllPairs(cfg, mesh=make_mesh(n, devices=devs))
+            eng._int8_stripes = int8
+            eng.build(csr)
+            eng.all_pairs(TAU)
+            zero_launches()
+            before = dict(eng.timer.totals)
+            t0 = time.perf_counter()
+            res = eng.all_pairs(TAU)
+            secs = time.perf_counter() - t0
+            st = eng._q_super()
+            n_st = -(-eng.n_rows // st)
+            by_card = {k: v for k, v in launches_by_card().items() if v}
+            want_cards = {name: card_counts(list(dict.fromkeys(devs)), n_st)}
+            if int8:
+                want_cards["int8_matmul"] = card_counts(
+                    devs, n_st * eng._n_chunks // n)
+            if by_card != want_cards or (eng._int8_slabs() is None) == int8:
+                raise AssertionError(f"{label}: launches by card {by_card}, "
+                                     f"expected {want_cards}")
+            timings = {
+                "join_s": secs, "super_tile": st, "stripes": n_st,
+                "stages_s": {k: v - before.get(k, 0.0)
+                             for k, v in eng.timer.totals.items()
+                             if k != "all_pairs" and v != before.get(k, 0.0)},
+                "launches_by_card": by_card,
+                "max_memory_allocated_per_card": peaks(cards)}
+            check_parity(res, want, label)
+            refs[where_] = {"join": (res.i, res.j, res.sims),
+                            "cand": eng._all_pairs_stripes(eng._tau_eff(TAU)),
+                            "timings": timings}
+            log(f"{label}: {json.dumps(refs[where_]['timings'])}")
+            if where_ == "cards":
+                recs = compare_stripe(eng, n_st // 2 * st, label, int8)
+                if not int8:
+                    k6_recs, k6_launches = recs, by_card[name]
+            del eng, res
+        if (refs["card0"]["timings"]["super_tile"]
+                != refs["cards"]["timings"]["super_tile"]):
+            raise AssertionError(f"phase 17b {kind} stripes: the layouts "
+                                 f"chose different stripe widths")
+        same_as_card0(refs["cards"], refs["card0"], ("join", "cand"),
+                      f"phase 17b {kind} stripes over {n} cards")
+        out[kind] = {w: refs[w]["timings"] for w in refs}
+    k6 = next(k for k in kernels if k["name"] == "pair_bits_f32")
+    k6.update({"mesh_cards_join_launches": sum(k6_launches.values()),
+               "mesh_cards_join_launches_by_card": k6_launches,
+               **{f"mesh_cards_{k}": v for k, v in pair_bits_record(
+                   k6_recs, 0, "pair_bits_f32").items()
+                   if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")},
+               "mesh_cards_per_card": [
+                   {k: r[k] for k in ("card", "rows", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms")}
+                   for r in k6_recs]})
+    return out
+
+
 def cards_scale(cards, csr: CSRMatrix, kernels: list, smi: str) -> dict:
     """Phase 17c: ``MeshChunkedAllPairs`` joins the 500,000 rows twice with
     every shard on card 0, then twice with one shard a card; the two
@@ -4118,7 +4388,10 @@ def mesh_cards_main(n: int) -> int:
         q9 = query_sets(ooc_csr, dev)
         summary["17b"] = cards_chunked(cards, ooc_csr, want, q9, kernels,
                                        smi)
-        del q9, ooc_csr, want
+        del q9
+        summary["17b_stripes"] = cards_stripes(cards, ooc_csr, want,
+                                               kernels, smi)
+        del ooc_csr, want
         torch.cuda.empty_cache()
         if gen.wait(timeout=600) != 0:
             raise AssertionError("phase 17c: the corpus process failed")
@@ -4136,7 +4409,9 @@ def mesh_cards_main(n: int) -> int:
     k3 = next(k for k in kernels if k["name"] == "panel_score_bits_int8")
     k4 = next(k for k in kernels if k["name"] == "int8_matmul")
     k5 = next(k for k in kernels if k["name"] == "pair_bits_int8")
-    for k in (k3, k4, k5):  # 17a's rows join and 17b's streamed join
+    k6 = next(k for k in kernels if k["name"] == "pair_bits_f32")
+    # 17a's rows join, 17b's streamed join, 17b's bf16 stripes
+    for k in (k3, k4, k5, k6):
         k["launches"] += k["mesh_cards_join_launches"]
         k.update({f: k[f"mesh_cards_{f}"] for f in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
@@ -4450,56 +4725,7 @@ def main() -> int:
         del j
         torch.cuda.empty_cache()
 
-    seng = ChunkedAllPairs(AllPairsConfig(pallas_int8=False), dev)
-    log(f"build stripe engine: {json.dumps(seng.build(ooc_csr))}")
-    zero_launches()
-    js = stripe_join(seng, f"bf16 stripes, {OOC_ROWS} rows", reps=3)
-    if any(ts.LAUNCHES.values()):
-        raise AssertionError("the bf16 stripes launched a kernel")
-    check_parity(js["res"], want, f"bf16 stripes, {OOC_ROWS} rows")
-    stripe_parity = js["res"].pair_set() == panel_pairs
-    log(f"stripe_parity: {stripe_parity} ({len(panel_pairs)} pairs of the "
-        f"panel join)")
-    if not stripe_parity:
-        raise AssertionError("the stripe join's pair set differs from the "
-                             "panel join's")
-    del seng, js
-    torch.cuda.empty_cache()
-
-    ieng = ChunkedAllPairs(AllPairsConfig(use_pallas="off"), dev)
-    ieng._int8_stripes = True
-    ieng.build(ooc_csr)
-    zero_launches()
-    ji = stripe_join(ieng, f"int8 stripes, {OOC_ROWS} rows", reps=1)
-    stripe_launches = dict(ts.LAUNCHES)
-    log(f"kernel launches on the int8 stripes: {stripe_launches}")
-    expect = {k: 0 for k in stripe_launches}
-    expect["int8_matmul"] = ji["rec"]["stripes"] * ji["rec"]["n_chunks"]
-    if stripe_launches != expect or not ji["rec"]["int8"]:
-        raise AssertionError(f"int8 stripes: launches {stripe_launches}, "
-                             f"expected {expect}")
-    check_parity(ji["res"], want, f"int8 stripes, {OOC_ROWS} rows")
-    mm_stripe = compare_stripe_mm(ieng, ieng._q_super(), 3)
-    next(k for k in kernels if k["name"] == "int8_matmul").update({
-        "stripe_launches": stripe_launches["int8_matmul"],
-        **{f"stripe_{k}": mm_stripe[k] for k in (
-            "m", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")},
-    })
-    del ieng, ji
-    torch.cuda.empty_cache()
-
-    meng = MeshChunkedAllPairs(AllPairsConfig(pallas_int8=False),
-                               mesh=make_mesh(8, devices=[dev] * 8))
-    meng.build(ooc_csr)
-    label = f"mesh bf16 stripes, 8 shards on one card, {OOC_ROWS} rows"
-    jm = stripe_join(meng, label, reps=1)
-    check_parity(jm["res"], want, label)
-    if jm["res"].pair_set() != panel_pairs:
-        raise AssertionError(f"{label}: pair set differs from the "
-                             f"single-device panel join's")
-    del meng, jm
-    torch.cuda.empty_cache()
+    stripe_phase(dev, ooc_csr, want, panel_pairs, big_csr, want32, kernels)
 
     # ---- phase 8: the streaming path (insert, join, topk, frozen match)
     work = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -11,8 +11,11 @@ cross-panel kernel alike; bf16 hit cells may differ only where the plain
 fp32 score lies within 1e-5 of tau_eff (within (K + 2) * 2^-24, the
 engine's bound on fp32 accumulation over K nonzeros, on the dense stress
 of 32,768 positive elements per row); the int8 matmul (kernel 4) equal
-to its plain version in every int32; the mesh pair epilogue (kernel 5)
-bit-identical to its plain version (gb, g64, counts); the mesh joins over four shards of
+to its plain version in every int32; the summed-partial epilogues
+(kernels 5 and 6) bit-identical to their plain versions (gb, g64,
+counts), also on strided operands, and the stripe joins' candidate lists
+on the card equal, in order, those of the plain versions on the same
+accumulators; the mesh joins over four shards of
 the card give the pair sets of the same joins over four CPU shards.  The
 full-rectangle join on the card gives the CPU engine's pair set (both are
 exact by the fp64 rescore), leaves ``allow_tf32`` as it found it, and its
@@ -254,6 +257,153 @@ def test_pair_bits_int8_matches_plain(card, n_parts, pair):
         row0, col0, rb, tau, card)
     for a, b in zip(whole, sliced):
         assert torch.equal(a, b) and a.numel() > 0
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("n_parts", [1, 8])
+def test_pair_bits_f32_matches_plain(card, n_parts, strided):
+    """Kernel 6 against its plain version on S fp32 partials of a slice
+    of a stripe's rows (global offsets, cells on and below the diagonal),
+    ``tau_eff`` the value of a strict-upper cell's left-to-right sum, also
+    with every partial a column slice of a wider tensor (a row stride, read
+    in place): gb, g64 and the counts bit for bit; one launch."""
+    rows, cols, row0, col0 = 2048, 1024, 512, 1024
+    gen = torch.Generator(device=card).manual_seed(60 + n_parts)
+    parts = [torch.randn((rows, cols + 128 * strided), device=card,
+                         generator=gen)[:, :cols] for _ in range(n_parts)]
+    if not strided:
+        parts = [p.contiguous() for p in parts]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    up = ((row0 + torch.arange(rows, device=card))[:, None]
+          < (col0 + torch.arange(cols, device=card))[None])
+    vals = total[up].sort().values
+    tau = float(vals[int(0.95 * vals.numel())])
+    before = ts.LAUNCHES["pair_bits_f32"]
+    k = panel_mesh.pair_bits_f32(parts, row0, col0, tau)
+    assert ts.LAUNCHES["pair_bits_f32"] == before + 1
+    torch.cuda.synchronize()
+    p = panel_mesh.pair_bits_f32_plain(parts, row0, col0, tau)
+    for a, b in zip(k, p):
+        assert a.device == card and torch.equal(a, b)
+    assert int(k[2][0, 0]) == int(((total >= tau) & up).sum()) > 0
+
+
+def test_pair_bits_int8_reads_strided_operands(card):
+    """Kernel 5 on a partial that is a column slice of a wider product
+    and aux tables that are column slices of the whole index's (the int8
+    stripes' operands), bit for bit its plain version on contiguous
+    copies."""
+    rows, width = 1024, 256
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.rand((rows, width), device=card, generator=gen)
+    x *= torch.rand(x.shape, device=card, generator=gen) < 0.1
+    x[1::5] = x[:-1:5]
+    q, aux = ts.quantize_rows(x)
+    q0, tile = 512, 64
+    d = panel_mesh.int8_matmul(q, q[q0:q0 + 128].contiguous())[:, :tile]
+    assert not d.is_contiguous()
+    aj = aux[:, q0:q0 + tile]
+    args = ([d], aux, aj, 0, q0)
+    v = ts.int8_bound_value(d, aux[0][:, None], aux[1][:, None],
+                            aux[2][:, None], aj[0][None], aj[1][None],
+                            aj[2][None])
+    tau = float(torch.quantile(v.flatten().float(), 0.99))
+    k = panel_mesh.pair_bits_int8(*args, tau)
+    torch.cuda.synchronize()
+    p = panel_mesh.pair_bits_int8_plain([d.contiguous()], aux,
+                                        aj.contiguous(), 0, q0, tau)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert int(k[2][0, 0]) > 0
+
+
+@pytest.mark.parametrize("case", ["bf16", "highest", "int8"])
+def test_stripe_epilogue_on_cuda_equals_cpu(card, mesh_csr, case):
+    """The single-card stripe epilogue at every stripe of a 3,000-row
+    engine (1,024-wide stripes): one launch of kernel 6 (kernel 5 on the
+    int8 stripes) a stripe, and each stripe's candidate lists equal, in
+    order, those of the plain versions on the same accumulator on the
+    CPU."""
+    cfg = AllPairsConfig(**({"use_pallas": "off"} if case == "int8" else {
+        "pallas_int8": False, "matmul_precision": case.replace(
+            "bf16", "default")}))
+    eng = ChunkedAllPairs(cfg, card, super_tile=1024)
+    eng._int8_stripes = case == "int8"
+    eng.build(mesh_csr)
+    tau_eff = eng._tau_eff(0.8)
+    name = "pair_bits_int8" if case == "int8" else "pair_bits_f32"
+    for q0 in range(0, eng.n_rows, 1024):
+        if case == "int8":
+            q2d, aux = eng._int8_slabs()
+            acc = chunked_ops.stripe_dots_int8(
+                eng._ent[0], eng._ent[1], q2d, eng._counts, q0, eng.row_cap,
+                eng._chunk_width, 1024)
+            before = ts.LAUNCHES[name]
+            got = chunked_ops.int8_join_epilogue(acc, aux, q0, tau_eff)
+            assert ts.LAUNCHES[name] == before + 1
+            want = chunked_ops.int8_join_epilogue(acc.cpu(), aux.cpu(), q0,
+                                                  tau_eff)
+        else:
+            acc = chunked_ops.stripe_scores(
+                *eng._ent, eng._counts, q0, eng.row_cap, eng._chunk_width,
+                1024, eng.cfg.matmul_precision)
+            before = ts.LAUNCHES[name]
+            got = chunked_ops.join_epilogue_bits(acc, q0, tau_eff)
+            assert ts.LAUNCHES[name] == before + 1
+            want = chunked_ops.join_epilogue_bits(acc.cpu(), q0, tau_eff)
+        for a, b in zip(got, want):
+            assert a.device == card and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_mesh_stripes_sum_where_the_rows_live(card, mesh_csr, int8):
+    """The chunked mesh's stripe join over four shards of the card: one
+    kernel 6 (or kernel 5) launch a stripe on the one card, no eager sum;
+    each stripe's lists equal, in order, those of the same partials on a
+    mesh of four CPU shards (the plain versions), and the join's pair set
+    the CPU mesh's."""
+    from apsim_tpu_torch.ops import chunked_mesh as cm_ops
+
+    cfg = AllPairsConfig(**({"use_pallas": "off"} if int8 else
+                            {"pallas_int8": False}))
+    eng = MeshChunkedAllPairs(cfg, mesh=make_mesh(4, devices=[card] * 4),
+                              super_tile=1024)
+    eng._int8_stripes = int8
+    eng.build(mesh_csr)
+    cpu_mesh = make_mesh(4, devices=["cpu"] * 4)
+    tau_eff = eng._tau_eff(0.8)
+    aux = eng._int8_slabs()[1] if int8 else None
+    for q0 in range(0, eng.n_rows, 1024):
+        if int8:
+            q2d = eng._int8_slabs()[0]
+            parts = [chunked_ops.stripe_dots_int8(
+                r, c, q, n, q0, eng.row_cap, eng._chunk_width, 1024)
+                for r, c, q, n in zip(eng._ent[0], eng._ent[1], q2d,
+                                      eng._local_counts())]
+        else:
+            parts = [chunked_ops.stripe_scores(
+                r, c, v, n, q0, eng.row_cap, eng._chunk_width, 1024)
+                for r, c, v, n in zip(*eng._ent, eng._local_counts())]
+        got = cm_ops._stripe_where_rows_live(eng.mesh, parts, aux, q0,
+                                             tau_eff, None)
+        want = cm_ops._stripe_where_rows_live(
+            cpu_mesh, [p.cpu() for p in parts],
+            None if aux is None else aux.cpu(), q0, tau_eff, None)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    name = "pair_bits_int8" if int8 else "pair_bits_f32"
+    before = dict(ts.LAUNCHES)
+    got = eng.all_pairs(0.8)
+    n_stripes = -(-eng.n_rows // 1024)
+    assert ts.LAUNCHES[name] - before[name] == n_stripes
+    assert ts.LAUNCHES["int8_matmul"] - before["int8_matmul"] == (
+        n_stripes * eng._n_chunks if int8 else 0)
+    cpu = MeshChunkedAllPairs(cfg, mesh=cpu_mesh, super_tile=1024)
+    cpu._int8_stripes = int8
+    cpu.build(mesh_csr)
+    assert got.pair_set() == cpu.all_pairs(0.8).pair_set()
 
 
 def test_mesh_rows_on_cuda_equals_cpu(card, mesh_csr):

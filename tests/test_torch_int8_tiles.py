@@ -263,7 +263,7 @@ def c_entries() -> dict:
 
 @pytest.mark.parametrize("name", ["score_bits_int8", "score_bits_bf16",
                                   "panel_score_bits_int8", "int8_matmul",
-                                  "pair_bits_int8"])
+                                  "pair_bits_int8", "pair_bits_f32"])
 def test_binding_matches_wrapper_and_source(name):
     """A ctypes call with a missing or mistyped argument corrupts the launch
     instead of failing: the binding's list must be the wrapper's arguments

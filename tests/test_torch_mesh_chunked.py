@@ -513,19 +513,23 @@ def test_panel_rows_from_one_helper(n, monkeypatch):
 
 # the mesh's automatic stripe width worked by hand: its 32 GiB budget over
 # every fp32 [padded, stripe] accumulator live on the busiest card at once
-# (``_stripe_accs``): n shards on one card hold n partials and their sum
-# (n + 1); one shard a card, the lead card holds its partial, the sum and a
-# partial crossing in (3); two processes with two shards each on one card,
-# 2 + the sum + the running sum crossing in (4).  32 GiB / (4 * padded *
-# accs) floored to a power of two in [1,024, 8,192]:
-#   100,000 rows (padded 106,496): 1: 80,659; 4 on one card: 16,131; 8 on
-#     one: 8,962; 4 cards: 26,886; 2 processes: 20,164: all 8,192
+# (``_stripe_accs``).  On one process no sum is formed (each card sums its
+# own row slice of the partials): n shards on one card hold their n
+# partials (n); one shard a card, a card holds its partial and its slices
+# of the 3 others, 3/4 of a partial (1 + 1 = 2).  Over processes the sum
+# still forms: two processes with two shards each on one card, 2 + the
+# sum + the running sum crossing in (4).  32 GiB / (4 * padded * accs)
+# floored to a power of two in [1,024, 8,192]:
+#   100,000 rows (padded 106,496): 1: 80,659; 4 on one card: 20,164; 8 on
+#     one: 10,082; 4 cards: 40,329; 2 processes: 20,164: all 8,192
 #   499,712 rows (padded 499,712): 1: 17,189 -> 8,192; 4 on one card:
-#     3,437 -> 2,048; 8 on one: 1,909 -> 1,024; 4 cards: 5,729 -> 4,096;
+#     4,297 -> 4,096; 8 on one: 2,148 -> 2,048; 4 cards: 8,594 -> 8,192;
 #     2 processes: 4,297 -> 4,096
-# (the single engine's 16 GiB over its one accumulator: 8,192 at both)
-MESH_STRIPES = {"1": (1, 8192, 8192), "4 on one card": (5, 8192, 2048),
-                "8 on one card": (9, 8192, 1024), "4 cards": (3, 8192, 4096),
+# (the single engine's 16 GiB over its one accumulator: 8,192 at both).
+# When the lead card formed the sum, n on one card counted n + 1 and one a
+# card 3: 2,048, 1,024 and 4,096 at 499,712 rows.
+MESH_STRIPES = {"1": (1, 8192, 8192), "4 on one card": (4, 8192, 4096),
+                "8 on one card": (8, 8192, 2048), "4 cards": (2, 8192, 8192),
                 "2 processes": (4, 8192, 4096)}
 
 
