@@ -43,7 +43,6 @@ stderr as it finishes, all of them to stdout at the end.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import sys
 import time
@@ -55,7 +54,7 @@ import torch
 from ..config import AllPairsConfig
 from ..engine.chunked import ChunkedAllPairs
 from ..ops import panel as panel_ops
-from ..utils.logging import Timer
+from ..utils.logging import SPAN_PREFIX, span_of
 from ..vector.batch import CSRMatrix
 from .scale import synthetic_corpus
 
@@ -76,27 +75,12 @@ def join_ops(geom) -> int:
 
 
 _CALL = "profiled call"  # the annotation around the whole profiled call
-_SECTION = "section "  # the prefix of an annotated Timer section
-
-
-class _AnnotatedTimer(Timer):
-    """A ``Timer`` that also marks each section as a ``torch.profiler``
-    range, sharing the totals and counts of the timer it stands in for."""
-
-    def __init__(self, timer: Timer):
-        self.totals, self.counts = timer.totals, timer.counts
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        with torch.profiler.record_function(_SECTION + name), \
-                super().section(name):
-            yield
 
 
 def profile_call(eng, fn, top: int = 5) -> Dict:
     """``fn()`` (calls on the engine ``eng``, dense or chunked) once under
-    ``torch.profiler``, with the engine's ``Timer`` sections marked as
-    ranges: device busy time (the union of the device activity intervals),
+    ``torch.profiler``, where the engine's ``Timer`` sections are ranges of
+    their own: device busy time (the union of the device activity intervals),
     its idle share of the call's time (profiler overhead included), the
     ``top`` kernels with the most device time, the ``top`` longest idle
     gaps with the innermost section the host was in at each gap's middle
@@ -105,27 +89,23 @@ def profile_call(eng, fn, top: int = 5) -> Dict:
 
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if eng.device.type == "cuda" else [])
-    timer, eng.timer = eng.timer, _AnnotatedTimer(eng.timer)
-    try:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            with record_function(_CALL):
-                fn()
-            wall = time.perf_counter() - t0
-    finally:
-        eng.timer = timer
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with record_function(_CALL):
+            fn()
+        wall = time.perf_counter() - t0
     events = prof.events()
     (w0, w1), = [(e.time_range.start, e.time_range.end) for e in events
                  if e.name == _CALL
                  and e.device_type == torch.autograd.DeviceType.CPU]
-    sections = [(e.time_range.start, e.time_range.end,
-                 e.name[len(_SECTION):]) for e in events
-                if e.name.startswith(_SECTION)
-                and e.device_type == torch.autograd.DeviceType.CPU]
+    sections = [(e.time_range.start, e.time_range.end, span[0])
+                for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and (span := span_of(e.name)) is not None]
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
-           and not e.name.startswith((_SECTION, _CALL))]
+           and not e.name.startswith((SPAN_PREFIX, _CALL))]
     busy_us, end, gaps = 0.0, w0, []
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
         s, e = max(s, w0), min(e, w1)

@@ -193,8 +193,11 @@ class AllPairsConfig:
                                        # 114,688-row capacity).
     profile_dir: str = ""              # when set, write a torch.profiler
                                        # trace of every all_pairs/insert
-                                       # (Chrome trace JSON: Perfetto);
-                                       # per-stage wall timings are always
+                                       # (a server: of every flush with
+                                       # work), every thread, the stages
+                                       # as apsim::<stage> ranges (Chrome
+                                       # trace JSON: Perfetto); per-stage
+                                       # wall timings are always
                                        # collected in stats["timings"]
     tls_cert: str = ""                 # PEM cert path: serve TLS when both
     tls_key: str = ""                  # cert+key are set (non-loopback

@@ -113,6 +113,7 @@ class ChunkedAllPairs:
         self._ent_gen = 0  # bumped whenever _ent is replaced (_ent_key)
         self._ent_host = None  # host mirror of _ent (checkpoint layout)
         self._mslab = None  # resident match slabs [n_chunks, row_cap, width]
+        self._mslab_geom = None  # (row_cap, width) of the last stack built
         self._sort_state: dict | None = None  # the paneled match's COO
         # the route of the last match: "resident_slabs", "host_spgemm",
         # "device_paneled" or "device_rebuild"
@@ -785,16 +786,18 @@ class ChunkedAllPairs:
 
     def _grow_entries(self, new_cap: int) -> None:
         """Double the per-chunk capacity on the device and in the host
-        mirror (new slots carry the pad row)."""
-        self._ent = self._op_grow(new_cap)
-        self._ent_gen += 1
-        r, c, v = self._ent_host
-        grow = new_cap - r.shape[1]
-        self._ent_host = (
-            np.pad(r, ((0, 0), (0, grow)), constant_values=panel_ops.PAD_ROW),
-            np.pad(c, ((0, 0), (0, grow))),
-            np.pad(v, ((0, 0), (0, grow))),
-        )
+        mirror (new slots carry the pad row); timed as "grow"."""
+        with self.timer.section("grow"):
+            self._ent = self._op_grow(new_cap)
+            self._ent_gen += 1
+            r, c, v = self._ent_host
+            grow = new_cap - r.shape[1]
+            self._ent_host = (
+                np.pad(r, ((0, 0), (0, grow)),
+                       constant_values=panel_ops.PAD_ROW),
+                np.pad(c, ((0, 0), (0, grow))),
+                np.pad(v, ((0, 0), (0, grow))),
+            )
 
     def _op_grow(self, new_cap: int):
         """The entry buffers padded to ``new_cap`` slots per chunk."""
@@ -806,34 +809,38 @@ class ChunkedAllPairs:
         """Insert-time activation: archived df==1 entries whose dim just got
         a compact column go into the entry buffers (``tail=False``), so
         new x old pairs through those dims score on the device.  The marks
-        are cleared only after the append went through."""
+        are cleared only after the append went through.  Timed as
+        "activate"."""
         if self._dormant_of_ext is None:
             return
-        uniq = np.unique(np.asarray(ext_dims))
-        idxs = self._dormant_of_ext[uniq]
-        sel = idxs >= 0
-        if not sel.any():
-            return
-        dims, idxs = uniq[sel], idxs[sel]
-        cols = self._compact.cols_of(dims).astype(np.int64)
-        # this batch's fresh singletons are archived but still unmapped:
-        # only dims that just received a compact column activate
-        ok = cols >= 0
-        if not ok.any():
-            return
-        dims, idxs, cols = dims[ok], idxs[ok], cols[ok]
-        self._append_ccoo(
-            self._dorm_rows[idxs], cols, self._dorm_vals[idxs], tail=False
-        )
-        self._dormant_of_ext[dims] = -1
-        self.stats["dormant_dims"] -= int(dims.size)
+        with self.timer.section("activate"):
+            uniq = np.unique(np.asarray(ext_dims))
+            idxs = self._dormant_of_ext[uniq]
+            sel = idxs >= 0
+            if not sel.any():
+                return
+            dims, idxs = uniq[sel], idxs[sel]
+            cols = self._compact.cols_of(dims).astype(np.int64)
+            # this batch's fresh singletons are archived but still unmapped:
+            # only dims that just received a compact column activate
+            ok = cols >= 0
+            if not ok.any():
+                return
+            dims, idxs, cols = dims[ok], idxs[ok], cols[ok]
+            self._append_ccoo(
+                self._dorm_rows[idxs], cols, self._dorm_vals[idxs],
+                tail=False
+            )
+            self._dormant_of_ext[dims] = -1
+            self.stats["dormant_dims"] -= int(dims.size)
 
     # --------------------------------------------------- resident match stack
     def _match_slabs(self):
         """The resident stack for the current geometry, built lazily; None
         when ``n_chunks * row_cap * width * itemsize`` exceeds
         ``match_slab_budget_mb``.  A geometry change drops the old stack
-        before the new one is built."""
+        before the new one is built; the new one's build (a row-capacity
+        or width step) is timed as "grow" too."""
         if self._ent is None:
             return None
         dt = chunked_ops.slab_dtype(self.cfg.matmul_precision)
@@ -847,10 +854,13 @@ class ChunkedAllPairs:
         if m is not None and (m.shape[1], m.shape[2]) != (rows, width):
             self._mslab = m = None
         if m is None:
-            with self._stage("match_slabs"):
+            step = self._mslab_geom not in (None, (rows, width))
+            with (self.timer.section("grow") if step
+                  else contextlib.nullcontext()), self._stage("match_slabs"):
                 self._mslab = chunked_ops.build_match_slabs(
                     *self._ent, self._counts, rows, width, dt
                 )
+            self._mslab_geom = (rows, width)
         return self._mslab
 
     # ------------------------------------------------------ paneled match

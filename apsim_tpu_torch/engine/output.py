@@ -92,6 +92,8 @@ class OutputBatcher:
     reference's ``outputWritingDuration <= 0`` branch).  Otherwise results
     coalesce into a write buffer that a timer thread flushes every
     ``duration_ms`` (the ``IOTicket`` loop, IndexingWorkerActor.scala:135-141).
+    An ``emit``'s ``done`` callback runs once its result has gone to the
+    sink (at once, or after the flush that carries it).
     """
 
     def __init__(
@@ -102,6 +104,7 @@ class OutputBatcher:
         self._sink = sink
         self._duration_ms = duration_ms
         self._buf: Dict[str, Dict[str, float]] = {}
+        self._done: List[Callable[[], None]] = []  # callbacks of _buf
         self._lock = threading.Lock()
         self._timer: threading.Thread | None = None
         self._stop = threading.Event()
@@ -109,19 +112,27 @@ class OutputBatcher:
             self._timer = threading.Thread(target=self._loop, daemon=True)
             self._timer.start()
 
-    def emit(self, out: SimilarityOutput) -> None:
+    def emit(self, out: SimilarityOutput,
+             done: Callable[[], None] | None = None) -> None:
         if self._duration_ms <= 0:
             if out.output:
                 self._sink(out)
+            if done is not None:
+                done()
             return
         with self._lock:
             out.merge_into(self._buf)
+            if done is not None:
+                self._done.append(done)
 
     def flush(self) -> None:
         with self._lock:
             buf, self._buf = self._buf, {}
+            done, self._done = self._done, []
         if buf:
             self._sink(SimilarityOutput(buf, time.time()))
+        for d in done:
+            d()
 
     def close(self) -> None:
         self._stop.set()

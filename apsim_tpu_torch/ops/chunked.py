@@ -462,20 +462,22 @@ def chunk_scores(slab_of, q, n_chunks: int, width: int, q_rows: int,
     return acc
 
 
-def match_extract(s, q_base: int, tau_eff):
+def match_extract(s, q_base: int, tau_eff, timer=None):
     """Candidates of a match score block ``s [rows, q]``: device int64
     ``(index rows, query locals)`` of every cell with ``s >= tau_eff``
     except the batch's own cells (row ``q_base + j`` against column ``j``),
     exact length (``torch.nonzero``).  ``q_base`` is relative to the
     block's first row and may be negative (a panel below the batch).  The
     one epilogue of every match route, in place of ``match_epilogue_bits``
-    and ``match_epilogue``."""
+    and ``match_epilogue``.  With a ``Timer`` the ``nonzero``, which
+    returns once the device has caught up, is timed as "compact_sync"."""
     m = s >= float(tau_eff)
     j0, j1 = max(0, -q_base), min(s.shape[1], s.shape[0] - q_base)
     if j0 < j1:
         j = torch.arange(j0, j1, device=s.device)
         m[q_base + j, j] = False
-    hit = torch.nonzero(m)
+    with ts._section(timer, "compact_sync"):
+        hit = torch.nonzero(m)
     return hit[:, 0], hit[:, 1]
 
 
@@ -485,7 +487,7 @@ def _scored_extract(score, q_base: int, tau_eff, timer):
         s = score()
         _sync(s)
     with ts._section(timer, "compact"):
-        return match_extract(s, q_base, tau_eff)
+        return match_extract(s, q_base, tau_eff, timer)
 
 
 def chunked_match_extract(rows2d, cols2d, vals2d, counts, q, q_base: int,
@@ -635,7 +637,7 @@ def paneled_match_extract(state: dict, qslab, q_base: int, n_rows: int,
             del slab
             _sync(s)
         with ts._section(timer, "compact"):
-            rows, cols = match_extract(s, q_base - row0, tau_eff)
+            rows, cols = match_extract(s, q_base - row0, tau_eff, timer)
             found.append((rows + row0, cols))
             del s
     if not found:

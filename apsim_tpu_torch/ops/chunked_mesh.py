@@ -183,7 +183,7 @@ def mesh_match_extract(mesh, rows2d, cols2d, vals2d, counts, q, q_base: int,
 
     def extract(s):
         with ts._section(timer, "compact"):
-            return chunked_ops.match_extract(s, q_base, tau_eff)
+            return chunked_ops.match_extract(s, q_base, tau_eff, timer)
 
     return _reduced(mesh, parts, extract, timer)
 

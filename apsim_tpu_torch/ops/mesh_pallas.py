@@ -91,6 +91,7 @@ def mesh_rows_extract_int8(mesh, x_blocks, bi, bj, valid, tau_eff, tm: int,
             )
         sync(mesh)
     with ts._section(timer, "compact"):
-        found = [ts.compact_bits(*bits.pop(s), bi[s], bj[s], tm, tn)
+        found = [ts.compact_bits(*bits.pop(s), bi[s], bj[s], tm, tn,
+                                 timer=timer)
                  if s in bits else None for s in range(mesh.size)]
         return share(found, mesh.ranks, mesh.lead, mesh)

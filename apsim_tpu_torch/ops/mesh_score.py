@@ -251,7 +251,8 @@ def mesh_match_rows_extract(blocks, grid, devices, n0: int, n1: int,
     with ts._section(timer, "compact"):
         found = {}
         for r, s in sums.items():
-            rows, cols = chunked_ops.match_extract(s, n0 - r * hb, tau_eff)
+            rows, cols = chunked_ops.match_extract(s, n0 - r * hb, tau_eff,
+                                                   timer)
             found[(r,)] = (rows + r * hb, cols + n0)
         del sums
         keys = [(r,) for r in _live(grid, hb, n_rows)]

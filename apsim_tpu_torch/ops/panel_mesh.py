@@ -470,7 +470,7 @@ def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
         for (gb, g64, cnt), (a, b), dev in zip(bits, bounds, devices):
             zero = torch.zeros(1, dtype=torch.int32, device=dev)
             r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, width,
-                                   pre_level=pre)
+                                   pre_level=pre, timer=timer)
             found_r.append((r + (row0 + a)).to(lead))
             found_c.append((c + col0).to(lead))
         if len(found_r) == 1:

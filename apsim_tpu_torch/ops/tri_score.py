@@ -482,7 +482,7 @@ def check_pair_count(total: int) -> None:
 
 
 def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
-                 pre_level: bool | None = None):
+                 pre_level: bool | None = None, timer=None):
     """Exact (row, col) int64 lists of every hit in the bit-packed structure.
 
     Three levels, as the JAX package's ``_compact_bits``: hit supers (64
@@ -496,9 +496,14 @@ def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
     lists, concatenated in slice order, are the block's.  Eager PyTorch
     sizes ``nonzero`` by its result, so no capacity or retry is needed:
     each level's length must equal the kernel's count total, and a
-    mismatch raises."""
+    mismatch raises.  With a ``Timer``, each call that returns only once
+    the device has caught up (the counts' ``tolist`` and every
+    ``nonzero``) is timed as "compact_sync": the rest of the caller's
+    "compact" is host time."""
     n_blocks = bi.shape[0]
-    total, groups, supers = cnt.sum(dim=0, dtype=torch.int64).tolist()
+    sums = cnt.sum(dim=0, dtype=torch.int64)
+    with _section(timer, "compact_sync"):
+        total, groups, supers = sums.tolist()
     check_pair_count(total)
     if pre_level is None:
         pre_level = (tm // SUPER) % (SUPER2 // SUPER) == 0
@@ -511,28 +516,36 @@ def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
         r8 = SUPER2 // SUPER
         per00 = (tm // SUPER2) * tn
         g4 = g64.view(n_blocks, tm // SUPER2, r8, tn)
-        b00 = torch.nonzero(g4.amax(dim=2).reshape(-1)).squeeze(1)
+        any00 = g4.amax(dim=2).reshape(-1)
+        with _section(timer, "compact_sync"):
+            b00 = torch.nonzero(any00).squeeze(1)
         p00, rem00 = b00 // per00, b00 % per00
         s00, c00 = rem00 // tn, rem00 % tn
-        f0 = torch.nonzero(g4[p00, s00, :, c00].reshape(-1)).squeeze(1)
+        bytes00 = g4[p00, s00, :, c00].reshape(-1)
+        with _section(timer, "compact_sync"):
+            f0 = torch.nonzero(bytes00).squeeze(1)
         slot00, o00 = f0 // r8, f0 % r8
         p0 = p00[slot00]
         s0 = s00[slot00] * r8 + o00  # super index within block
         c0 = c00[slot00]  # column within block
     else:
         per0 = (tm // SUPER) * tn
-        b0 = torch.nonzero(g64.reshape(-1)).squeeze(1)
+        with _section(timer, "compact_sync"):
+            b0 = torch.nonzero(g64.reshape(-1)).squeeze(1)
         p0, rem0 = b0 // per0, b0 % per0
         s0, c0 = rem0 // tn, rem0 % tn
     # level 1: hit group bytes within each hit super (8 bytes each)
     gb4 = gb.view(n_blocks, tm // SUPER, SUPER // GROUP, tn)
     bytes0 = gb4[p0, s0, :, c0].reshape(-1)
-    f1 = torch.nonzero(bytes0).squeeze(1)
+    with _section(timer, "compact_sync"):
+        f1 = torch.nonzero(bytes0).squeeze(1)
     slot1, o1 = f1 // (SUPER // GROUP), f1 % (SUPER // GROUP)
     byte1 = bytes0[f1].to(torch.int32)
     # level 2: hit bits (rows) within each hit group byte
     sh = torch.arange(GROUP, dtype=torch.int32, device=gb.device)
-    f2 = torch.nonzero(((byte1[:, None] >> sh) & 1).reshape(-1)).squeeze(1)
+    bits2 = ((byte1[:, None] >> sh) & 1).reshape(-1)
+    with _section(timer, "compact_sync"):
+        f2 = torch.nonzero(bits2).squeeze(1)
     slot2, o2 = f2 // GROUP, f2 % GROUP
     found = (s0.numel(), f1.numel(), f2.numel())
     if found != (supers, groups, total):
@@ -558,7 +571,7 @@ def _extract(score, compact_args, x, timer):
         if x.is_cuda:  # the stage split must not bill the kernel to compaction
             torch.cuda.synchronize(x.device)
     with _section(timer, "compact"):
-        return compact_bits(gb, g64, cnt, *compact_args)
+        return compact_bits(gb, g64, cnt, *compact_args, timer=timer)
 
 
 def allpairs_extract_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024,

@@ -583,9 +583,15 @@ def test_port_server_equals_jax_server(tmp_path, corpus):
     # port's device-candidate count and kernel launch counts beside them;
     # pairs_emitted and the batch counts depend on how the flusher cut the
     # concurrent stream into micro-batches (intra-batch pairs come out both
-    # ways)
-    assert set(ps) - set(js) == {"candidate_pairs", "launches"}
+    # ways); the port's per-vector completion beside them: every vector
+    # streamed or loaded completed once, none left in flight after flush
+    assert set(ps) - set(js) == {"candidate_pairs", "launches",
+                                 "completion_ms", "vectors_completed",
+                                 "vectors_in_flight"}
     assert set(js) <= set(ps)
+    assert ps["vectors_completed"] == ps["n_rows"] == corpus.n_rows
+    assert ps["completion_ms"]["count"] == ps["vectors_completed"]
+    assert ps["vectors_in_flight"] == 0
     assert ps["timings"]["insert"]["count"] >= 1
     assert js["timings"]["insert"]["count"] >= 1
     for k in ("n_rows", "vectors_indexed", "vectors_dropped_admission",
