@@ -10,7 +10,7 @@ and times its stages:
     clock), the per-call tax every stage below also pays once;
   - kernel:   ``tri_score.score_bits_int8`` alone (kernel 1);
   - extract:  ``tri_score.allpairs_extract_int8`` (the kernel and the
-    three-level compaction to exact-length lists) plus the D2H of those
+    compaction to exact-length lists, kernel 7) plus the D2H of those
     lists, so "extract - kernel" = compaction + D2H;
   - rescore:  host fp64 rescore + emission (``all_pairs`` total minus
     extract), cross-checked against the engine Timer's sections.

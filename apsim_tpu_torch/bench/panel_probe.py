@@ -74,7 +74,7 @@ def device_ms(fn, dev, reps: int = 5) -> float:
 
 def pair_split(eng, state, xi, xj, tau_eff, dev) -> dict:
     """Panel pairs (0, 1) and (0, 0) of the join state, each end to end
-    (kernel 3 + its compaction chain, ``_op_panel_pair``) and the kernel
+    (kernel 3 + its compaction, ``_op_panel_pair``) and the kernel
     alone, median ms of 5; the overhead a pair adds beyond its kernel
     (``_panel_pp_resident``) and the kernel's rate in multiply-adds per
     second (``_panel_int8_rate``), each pair's multiply-adds counted over
@@ -86,7 +86,7 @@ def pair_split(eng, state, xi, xj, tau_eff, dev) -> dict:
                                         ("diag", (0, 0), xi, diag)):
         aux = state["aux_of"]
         pair = device_ms(lambda: eng._op_panel_pair(
-            state, xi, x2, pi, pj, tau_eff), dev)
+            state, xi, x2, pi, pj, tau_eff).result(), dev)
         kern = device_ms(lambda: panel_ops.panel_score_bits_int8(
             xi, x2, aux[pi], aux[pj], bi, bj, (pi * rb, pj * rb), tau_eff,
             tm, tn), dev)
@@ -178,7 +178,7 @@ def main(argv=None) -> dict:
             for rep in range(3):
                 sync()
                 t0 = time.perf_counter()
-                eng._op_panel_pair(state, xi, xj, 0, 1, tau_eff)
+                eng._op_panel_pair(state, xi, xj, 0, 1, tau_eff).result()
                 sync()
                 dt = time.perf_counter() - t0
                 report["pair_ms"].append(dt * 1e3)

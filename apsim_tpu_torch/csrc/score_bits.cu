@@ -11,6 +11,8 @@
 // pair_bits_kernel below):
 //   pair_bits_int8         <- psum + int8_bound_mask + bitpack_mask
 //   pair_bits_f32          <- psum + (s >= tau_eff) + bitpack_mask
+// and, as kernel 7, the compaction of their hits (see compact_bits below):
+//   compact_bits           <- _compact_bits (pallas_score.py:320, XLA ops)
 //
 // The score kernels.  For every block p of a block list (bi[p], bj[p])
 // they score the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T over all of
@@ -966,6 +968,250 @@ int launch_pair_bits(const void* parts, const void* lds, int n_parts,
   return (int)cudaGetLastError();
 }
 
+// -------------------------------- kernel 7: compaction of the hit structure
+//
+// compact_bits replaces the XLA chain of apsim_tpu/ops/pallas_score.py
+// (_compact_bits: nonzero over g64, then over the group bytes under its
+// hits, then over their bits), which the port first ran as three eager
+// torch.nonzero levels with a host wait at each.  It turns one hit
+// structure (gb, g64 of a block list, as the score kernels and kernels 5
+// and 6 write it) into the exact (row, col) int64 lists of its hits, in the
+// order of that chain: by block, then column cell, then row, where a column
+// cell is one column of one 512-row cell of a block with the pre-level (tm
+// a multiple of 512, or the caller's override) and of one 64-row super
+// without.  Within a cell the chain's super, group and bit order is row
+// order.
+//
+// Order comes from a prefix over the cells' hit counts, never from
+// atomics: pass 1 counts each thread block's tile of CB_TILE consecutive
+// cells, pass 2 (one thread block) turns the tiles' counts into their
+// offsets, pass 3 counts again, scans its tile in order and writes each
+// cell's hits from its offset.  The output's length is the kernel's count,
+// which the host already holds; a write past it is dropped, and pass 1
+// adds the (pairs, hit groups, hit supers) it decodes into a device
+// total, which the host checks against the counts (a mismatch raises).
+//
+// What bounds it: bytes.  It reads every g64 byte (1 MiB at an 8,192-row
+// panel pair of 1024 x 512 blocks) and, under a hit super only, its 8 gb
+// bytes, and writes 16 bytes a hit: a few microseconds at 3.35 TB/s.  So a
+// thread reads one cell's g64 bytes a round, all before it tests any (a
+// warp's loads are 32 consecutive columns), and every pass is one plain
+// memory sweep; pass 3 reads again, from L2, only the tiles that hold a
+// hit.  A thread that meets a dense cell writes its hits serially, which
+// only an all-hit block makes long.
+constexpr int CB_THREADS = 256;  // threads of a pass-1 / pass-3 block
+constexpr int CB_ROUNDS = 4;     // cells a thread decodes, 256 apart
+constexpr int CB_TILE = CB_THREADS * CB_ROUNDS;  // cells a block covers
+constexpr int CB_SCAN = 1024;    // threads of the pass-2 block
+
+struct CompactCells {
+  const uint8_t* gb;   // [n_blocks, tm / 8, tn]
+  const uint8_t* g64;  // [n_blocks, tm / 64, tn]
+  const int* bi;       // the blocks' row and column tile ids
+  const int* bj;
+  long long n_cells;   // n_blocks * (tm / cell rows) * tn
+  int tm, tn;
+  int block_cells;     // cells of a block column: tm / cell rows
+};
+
+// Cell u of CS 64-row supers (8 with the pre-level, else 1): its block p,
+// the block's super s of its first row (counted over every block) and its
+// column c; h bit j says whether super s + j has a hit (its g64 byte, all
+// CS loaded before any is tested).
+template <int CS>
+struct Cell {
+  long long p, s;
+  int c;
+  uint32_t h;
+  __device__ __forceinline__ Cell(const CompactCells& g, long long u) {
+    const long long per = (long long)g.block_cells * g.tn;
+    p = u / per;
+    const long long rem = u - p * per;
+    c = (int)(rem % g.tn);
+    s = p * (g.tm / 64) + rem / g.tn * CS;
+    const uint8_t* q = g.g64 + s * g.tn + c;
+    uint8_t b[CS];
+#pragma unroll
+    for (int j = 0; j < CS; ++j) b[j] = __ldg(q + (long long)j * g.tn);
+    h = 0;
+#pragma unroll
+    for (int j = 0; j < CS; ++j) h |= (uint32_t)(b[j] != 0) << j;
+  }
+  // the group byte o of super s + j
+  __device__ __forceinline__ uint32_t group(const CompactCells& g, int j,
+                                            int o) const {
+    return __ldg(g.gb + ((s + j) * 8 + o) * g.tn + c);
+  }
+};
+
+// Cell u's hits; with a non-null `out`, (pairs, hit groups, hit supers)
+// are added to out[0..2].
+template <int CS>
+__device__ __forceinline__ int cell_count(const CompactCells& g, long long u,
+                                          int* out) {
+  const Cell<CS> cell(g, u);
+  int pairs = 0;
+  for (uint32_t h = cell.h; h; h &= h - 1) {
+    const int j = __ffs(h) - 1;
+    uint32_t v[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) v[o] = cell.group(g, j, o);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      pairs += __popc(v[o]);
+      if (out) out[1] += v[o] != 0;
+    }
+  }
+  if (out) {
+    out[0] += pairs;
+    out[2] += __popc(cell.h);
+  }
+  return pairs;
+}
+
+// Write cell u's hits from rows[pos] / cols[pos] on, in row order; a
+// position at or past n_out is dropped.
+template <int CS>
+__device__ __forceinline__ void cell_write(const CompactCells& g, long long u,
+                                          long long pos, long long n_out,
+                                          long long* __restrict__ rows,
+                                          long long* __restrict__ cols) {
+  const Cell<CS> cell(g, u);
+  const long long row0 = (long long)__ldg(g.bi + cell.p) * g.tm
+      + (cell.s - cell.p * (g.tm / 64)) * 64;
+  const long long col = (long long)__ldg(g.bj + cell.p) * g.tn + cell.c;
+  for (uint32_t h = cell.h; h; h &= h - 1) {
+    const int j = __ffs(h) - 1;
+    for (int o = 0; o < 8; ++o) {
+      for (uint32_t v = cell.group(g, j, o); v; v &= v - 1) {
+        if (pos < n_out) {
+          rows[pos] = row0 + j * 64 + o * 8 + __ffs(v) - 1;
+          cols[pos] = col;
+        }
+        ++pos;
+      }
+    }
+  }
+}
+
+// Inclusive prefix of v over a block of NT threads; `total` gets the
+// block's sum.  warp_tot: shared [NT / 32], free again on return.
+template <int NT>
+__device__ __forceinline__ long long block_scan(long long v,
+                                                long long* warp_tot,
+                                                long long& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long x = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += x;
+  }
+  if (lane == 31) warp_tot[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    long long t = lane < NT / 32 ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long x = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t += x;
+    }
+    if (lane < NT / 32) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  if (w > 0) v += warp_tot[w - 1];
+  total = warp_tot[NT / 32 - 1];
+  __syncthreads();
+  return v;
+}
+
+// Pass 1: tile_sum[block] = the tile's hits; its decoded (pairs, groups,
+// supers) added to decoded[0..2].
+template <int CS>
+__global__ void __launch_bounds__(CB_THREADS)
+compact_count_kernel(const CompactCells g, long long* __restrict__ tile_sum,
+                     unsigned long long* __restrict__ decoded) {
+  __shared__ int part[CB_THREADS / 32][3];
+  int n[3] = {0, 0, 0};
+  const long long base = (long long)blockIdx.x * CB_TILE + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < CB_ROUNDS; ++r) {
+    const long long u = base + r * CB_THREADS;
+    if (u < g.n_cells) cell_count<CS>(g, u, n);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      n[k] += __shfl_xor_sync(0xffffffffu, n[k], off);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (lane == 0)
+    for (int k = 0; k < 3; ++k) part[w][k] = n[k];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long t[3] = {0, 0, 0};
+    for (int i = 0; i < CB_THREADS / 32; ++i)
+      for (int k = 0; k < 3; ++k) t[k] += part[i][k];
+    tile_sum[blockIdx.x] = t[0];
+    if (t[2])
+      for (int k = 0; k < 3; ++k)
+        atomicAdd(decoded + k, (unsigned long long)t[k]);
+  }
+}
+
+// Pass 2, one block: tile_off = the exclusive prefix of tile_sum.
+__global__ void __launch_bounds__(CB_SCAN)
+compact_scan_kernel(const long long* __restrict__ tile_sum,
+                    long long* __restrict__ tile_off, long long n_tiles) {
+  __shared__ long long warp_tot[CB_SCAN / 32];
+  long long carry = 0;
+  for (long long b0 = 0; b0 < n_tiles; b0 += CB_SCAN) {
+    const long long i = b0 + threadIdx.x;
+    const long long v = i < n_tiles ? tile_sum[i] : 0;
+    long long total;
+    const long long incl = block_scan<CB_SCAN>(v, warp_tot, total);
+    if (i < n_tiles) tile_off[i] = carry + incl - v;
+    carry += total;
+  }
+}
+
+// Pass 3: a tile with hits scans its CB_THREADS cells a round in order
+// from the tile's offset and writes their hits; a tile without returns.
+template <int CS>
+__global__ void __launch_bounds__(CB_THREADS)
+compact_write_kernel(const CompactCells g,
+                     const long long* __restrict__ tile_sum,
+                     const long long* __restrict__ tile_off, long long n_out,
+                     long long* __restrict__ rows,
+                     long long* __restrict__ cols) {
+  __shared__ long long warp_tot[CB_THREADS / 32];
+  if (tile_sum[blockIdx.x] == 0) return;
+  long long pos = tile_off[blockIdx.x];
+  const long long base = (long long)blockIdx.x * CB_TILE + threadIdx.x;
+  for (int r = 0; r < CB_ROUNDS; ++r) {
+    const long long u = base + r * CB_THREADS;
+    const int mine = u < g.n_cells ? cell_count<CS>(g, u, nullptr) : 0;
+    long long total;
+    const long long incl = block_scan<CB_THREADS>(mine, warp_tot, total);
+    if (mine) cell_write<CS>(g, u, pos + incl - mine, n_out, rows, cols);
+    pos += total;
+  }
+}
+
+// The three passes over the cells of g (see above).  tile: scratch of
+// 2 * n_tiles (the sums, then the offsets).
+template <int CS>
+void launch_compact(const CompactCells& g, long long* tile, long long n_tiles,
+                    long long n_out, long long* rows, long long* cols,
+                    unsigned long long* decoded, cudaStream_t s) {
+  compact_count_kernel<CS><<<(unsigned)n_tiles, CB_THREADS, 0, s>>>(
+      g, tile, decoded);
+  if (n_out > 0) {
+    compact_scan_kernel<<<1, CB_SCAN, 0, s>>>(tile, tile + n_tiles, n_tiles);
+    compact_write_kernel<CS><<<(unsigned)n_tiles, CB_THREADS, 0, s>>>(
+        g, tile, tile + n_tiles, n_out, rows, cols);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1059,6 +1305,41 @@ int pair_bits_f32(const void* parts, const void* lds, int n_parts, int rows,
                   void* g64, void* cnt, void* stream) {
   return launch_pair_bits(parts, lds, n_parts, ThresholdAdmit{}, rows, cols,
                           row0, col0, tau_eff, gb, g64, cnt, stream);
+}
+
+// Kernel 7, one hit structure: gb uint8 [n_blocks, tm / 8, tn] and g64
+// uint8 [n_blocks, tm / 64, tn] as the score kernels write them, bi / bj
+// int32 [n_blocks] the blocks' row and column tile ids (a hit at local
+// (r, c) of block p is (bi[p] * tm + r, bj[p] * tn + c)); pre_level 1
+// scans 512-row cells (tm % 512 must be 0), 0 64-row supers; n_tiles =
+// ceil(cells / 1024), cells = n_blocks * tm / 512 * tn (or tm / 64), and
+// tile int64 [2 * n_tiles] scratch; rows / cols int64 [n_out], n_out the
+// kernel's count of hits; decoded int64 [3] (pairs, hit groups, hit
+// supers), added to.  tm % 64 must be 0.  Launches pass 1, then passes 2
+// and 3 when n_out > 0.
+int compact_bits(const void* gb, const void* g64, const void* bi,
+                 const void* bj, int n_blocks, int tm, int tn, int pre_level,
+                 void* tile, long long n_tiles, long long n_out, void* rows,
+                 void* cols, void* decoded, void* stream) {
+  const int cell_rows = pre_level ? 512 : 64;
+  if (n_blocks < 0 || tm <= 0 || tn <= 0 || tm % cell_rows || n_out < 0)
+    return (int)cudaErrorInvalidValue;
+  const CompactCells g{(const uint8_t*)gb, (const uint8_t*)g64,
+                       (const int*)bi, (const int*)bj,
+                       (long long)n_blocks * (tm / cell_rows) * tn, tm, tn,
+                       tm / cell_rows};
+  if (n_tiles != (g.n_cells + CB_TILE - 1) / CB_TILE || n_tiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return (int)cudaSuccess;
+  if (pre_level)
+    launch_compact<8>(g, (long long*)tile, n_tiles, n_out, (long long*)rows,
+                      (long long*)cols, (unsigned long long*)decoded,
+                      (cudaStream_t)stream);
+  else
+    launch_compact<1>(g, (long long*)tile, n_tiles, n_out, (long long*)rows,
+                      (long long*)cols, (unsigned long long*)decoded,
+                      (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

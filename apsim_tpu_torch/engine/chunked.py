@@ -433,7 +433,9 @@ class ChunkedAllPairs:
     # compaction chain with its host syncs, the slab and the host loop):
     # (join - kernel - rescore) / pairs at 16,384-row panels, 1.57-1.92 ms
     # (1.00-1.46 ms at 8,192 rows; panel_probe's pair alone, CUDA events:
-    # 0.70 ms beyond its kernel at 8,192 rows, 0.76 ms at 32,768).
+    # 0.70 ms beyond its kernel at 8,192 rows, 0.76 ms at 32,768).  Measured
+    # while each pair compacted through a chain of host waits, before
+    # kernel 7 and the sweep's lookahead; not measured again since.
     _panel_pp_resident = 1.7e-3
     # The same when the slabs roll: plus at most one slab build a pair (the
     # B = 1 worst case; 0.48 ms a 256 MiB slab, 0.85 ms a 1 GiB slab).
@@ -583,15 +585,18 @@ class ChunkedAllPairs:
             )
         return state["schedules"]
 
-    def _op_panel_pair(self, state, xi, xj, pi: int, pj: int, tau_eff):
-        """One panel pair through the cross-panel kernel: global (row, col)
-        candidate lists on the device."""
+    def _op_panel_pair(self, state, xi, xj, pi: int, pj: int, tau_eff,
+                       tally=None):
+        """One panel pair launched through the cross-panel kernel: a
+        pending pair whose ``result()`` gives the global (row, col)
+        candidate lists on the device (``panel.panel_pair_launch_int8``),
+        the check of their counts left to ``tally``."""
         rb, tm, tn, _, _ = state["geom"]
         diag, off = self._panel_schedules(state)
         bi, bj = diag if pi == pj else off
-        return panel_ops.panel_pair_extract_int8(
+        return panel_ops.panel_pair_launch_int8(
             xi, xj, state["aux_of"][pi], state["aux_of"][pj], bi, bj,
-            pi * rb, pj * rb, tau_eff, tm, tn, timer=self.timer,
+            pi * rb, pj * rb, tau_eff, tm, tn, timer=self.timer, tally=tally,
         )
 
     def _single_slab_ok(self, state) -> bool:
@@ -621,19 +626,25 @@ class ChunkedAllPairs:
 
     def _all_pairs_panel(self, tau_eff):
         """Panel-pair sweep; returns host (rows, cols) candidate arrays, or
-        None when the int32 gate refuses the int8 path."""
+        None when the int32 gate refuses the int8 path.  Every pair's
+        decoded counts are checked against its kernel's once, after the
+        lists reach the host."""
         state = self._panel_state()
         if state is None:
             return None
+        tally = ts.CountTally(self.device)
         if self._single_slab_ok(state):
             found = self._all_pairs_single_slab(state, tau_eff)
         else:
-            found = self._sweep(state, tau_eff)
+            found = self._sweep(state, tau_eff, tally)
         with self._stage("d2h"):
             if not found:
-                return np.empty(0, np.int64), np.empty(0, np.int64)
-            return (torch.cat([f[0] for f in found]).cpu().numpy(),
-                    torch.cat([f[1] for f in found]).cpu().numpy())
+                rows = cols = np.empty(0, np.int64)
+            else:
+                rows = torch.cat([f[0] for f in found]).cpu().numpy()
+                cols = torch.cat([f[1] for f in found]).cpu().numpy()
+            tally.check()
+            return rows, cols
 
     def _slab_bytes(self, rb: int, d_cap: int) -> int:
         """Per-device bytes of one int8 panel slab, which the sweep budgets
@@ -645,42 +656,50 @@ class ChunkedAllPairs:
         ``_panel_slab_budget`` bounds: here a slab (kernel 3 writes bits)."""
         return self._slab_bytes(rb, d_cap)
 
-    def _sweep(self, state, tau_eff) -> list:
-        """Every panel pair (I <= J) through ``_op_panel_pair``.  A slab is
-        whatever ``_build_slab`` returns (one tensor here, a per-shard list
-        in the mesh subclass); the sweep only hands it on."""
+    def _sweep(self, state, tau_eff, tally=None) -> list:
+        """Every panel pair (I <= J) through ``_op_panel_pair``, one pair
+        ahead: pair k's lists are taken (``result()``) only after pair k+1
+        is launched, so the card runs the kernels back to back while the
+        host waits for pair k's counts and launches its compaction.  A
+        slab is whatever ``_build_slab`` returns (one tensor here, a
+        per-shard list in the mesh subclass); the sweep only hands it on."""
         rb, _, _, n_panels, d_cap = state["geom"]
         slab_bytes = self._slab_bytes(rb, d_cap)
         found: list = []
+        pending: list = []
+
+        def launch(xi, xj, pi: int, pj: int) -> None:
+            pending.append(self._op_panel_pair(state, xi, xj, pi, pj,
+                                               tau_eff, tally))
+            if len(pending) > 1:
+                found.append(pending.pop(0).result())
+
         if self._keeps_all(n_panels, rb, d_cap):
             # all slabs resident for the whole sweep
             slabs = [self._build_slab(state, p) for p in range(n_panels)]
             for pi in range(n_panels):
                 for pj in range(pi, n_panels):
-                    found.append(self._op_panel_pair(
-                        state, slabs[pi], slabs[pj], pi, pj, tau_eff
-                    ))
-            return found
-        # Blocked-I rolling sweep: B row panels stay resident for one scan
-        # over the column panels, so each column slab serves B panel pairs
-        # (slab builds fall from ~n_pairs to ~n_pairs / B).  At most B + 1
-        # slabs are referenced at a time.
-        S = max(3, int(self._panel_sweep_bytes // max(slab_bytes, 1)))
-        B = min(max(1, S // 2), self._panel_B_cap, n_panels)
-        for i0 in range(0, n_panels, B):
-            iblk = range(i0, min(i0 + B, n_panels))
-            xis = {p: self._build_slab(state, p) for p in iblk}
-            for pj in range(i0, n_panels):
-                xj = xis.get(pj)
-                if xj is None:
-                    xj = self._build_slab(state, pj)
-                for pi in iblk:
-                    if pi <= pj:
-                        found.append(self._op_panel_pair(
-                            state, xis[pi], xj, pi, pj, tau_eff
-                        ))
-                del xj
-            xis.clear()
+                    launch(slabs[pi], slabs[pj], pi, pj)
+        else:
+            # Blocked-I rolling sweep: B row panels stay resident for one
+            # scan over the column panels, so each column slab serves B
+            # panel pairs (slab builds fall from ~n_pairs to ~n_pairs / B).
+            # At most B + 1 slabs are referenced at a time.
+            S = max(3, int(self._panel_sweep_bytes // max(slab_bytes, 1)))
+            B = min(max(1, S // 2), self._panel_B_cap, n_panels)
+            for i0 in range(0, n_panels, B):
+                iblk = range(i0, min(i0 + B, n_panels))
+                xis = {p: self._build_slab(state, p) for p in iblk}
+                for pj in range(i0, n_panels):
+                    xj = xis.get(pj)
+                    if xj is None:
+                        xj = self._build_slab(state, pj)
+                    for pi in iblk:
+                        if pi <= pj:
+                            launch(xis[pi], xj, pi, pj)
+                    del xj
+                xis.clear()
+        found.extend(p.result() for p in pending)
         return found
 
     # -------------------------------------------------------------- all_pairs

@@ -1,6 +1,6 @@
 """Build and bind the CUDA kernels of ``csrc/score_bits.cu``
 (``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``,
-``int8_matmul``, ``pair_bits_int8``, ``pair_bits_f32``).
+``int8_matmul``, ``pair_bits_int8``, ``pair_bits_f32``, ``compact_bits``).
 
 The source has a plain C interface, so it is compiled by ``nvcc`` alone into
 a shared library (seconds, where a build against PyTorch's headers takes
@@ -37,6 +37,7 @@ _info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # argument types of the C entries (all return int): the arguments each
 # wrapper passes, then the stream
@@ -51,6 +52,8 @@ ARGTYPES = {
     "pair_bits_int8": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F,
                        _P, _P, _P, _P],
     "pair_bits_f32": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    "compact_bits": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P,
+                     _P],
 }
 
 

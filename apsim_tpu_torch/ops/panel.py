@@ -12,8 +12,9 @@ The chunked engine has no resident dense index.  Its join:
      the cross-panel kernel (``panel_score_bits_int8``: the dense int8
      kernel with the panels' global row origins added to rows and columns,
      so the strict-upper mask and the counts are global), then compacts the
-     bit-packed hits to exact-length global (row, col) lists
-     (``panel_pair_extract_int8``).
+     bit-packed hits to exact-length global (row, col) lists on the card
+     (``panel_pair_launch_int8``: kernel 7, behind one count readback that
+     the sweep overlaps with the next pair's kernel).
 
 The candidate set is a proven superset at ``tau_eff`` (the dense int8
 kernel's quantization bound) and the host fp64 rescore decides the pair
@@ -39,6 +40,7 @@ __all__ = [
     "build_panel_slab",
     "panel_score_bits_int8",
     "panel_score_bits_int8_plain",
+    "panel_pair_launch_int8",
     "panel_pair_extract_int8",
 ]
 
@@ -174,17 +176,28 @@ def panel_score_bits_int8_plain(xi, xj, auxi, auxj, bi, bj, off, tau_eff,
     )
 
 
-def panel_pair_extract_int8(xi, xj, auxi, auxj, bi, bj, row0: int,
-                            col0: int, tau_eff, tm: int, tn: int,
-                            timer=None):
-    """One panel pair end to end: the cross kernel, then the exact-length
-    three-level compaction on globalized block ids (``bi + row0 // tm``,
-    ``bj + col0 // tn``), so the (row, col) int64 lists it returns are
-    global.  With a ``Timer``, the stages are timed as "kernel" and
-    "compact"."""
-    return ts._extract(
+def panel_pair_launch_int8(xi, xj, auxi, auxj, bi, bj, row0: int, col0: int,
+                           tau_eff, tm: int, tn: int, timer=None,
+                           tally=None) -> ts.PendingPair:
+    """One panel pair launched: the cross kernel, its counts on their way to
+    the host, and the exact-length compaction (kernel 7) left to the
+    pending pair's ``result()``, on globalized block ids (``bi + row0 //
+    tm``, ``bj + col0 // tn``), so the (row, col) int64 lists it returns
+    are global.  With a ``Timer``, the stages are timed as "kernel" and
+    "compact"; with a ``tally``, the check of the decoded counts is left to
+    it."""
+    return ts._launched(
         lambda: panel_score_bits_int8(
             xi, xj, auxi, auxj, bi, bj, (row0, col0), tau_eff, tm, tn
         ),
-        (bi + row0 // tm, bj + col0 // tn, tm, tn), xi, timer,
+        (bi + row0 // tm, bj + col0 // tn, tm, tn), timer, tally,
     )
+
+
+def panel_pair_extract_int8(xi, xj, auxi, auxj, bi, bj, row0: int,
+                            col0: int, tau_eff, tm: int, tn: int,
+                            timer=None):
+    """One panel pair end to end: ``panel_pair_launch_int8``, then its
+    lists."""
+    return panel_pair_launch_int8(xi, xj, auxi, auxj, bi, bj, row0, col0,
+                                  tau_eff, tm, tn, timer).result()

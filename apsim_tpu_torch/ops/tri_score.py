@@ -12,7 +12,10 @@ Per block p the kernels write
 
 (the TPU's ``[8, 128]`` count tile was TPU tiling; the compaction only reads
 these three lanes).  ``compact_bits`` turns that structure into the exact
-list of hit (row, col) pairs.
+list of hit (row, col) pairs: kernel 7 for a CUDA tensor, the plain
+three-level chain for a CPU one.  ``PendingPair`` holds a launched
+scorer's structure until its caller wants the lists, so a sweep can launch
+the next scorer before it waits for this one's counts.
 
 Two scorers, each a wrapper that launches a CUDA kernel
 (``csrc/score_bits.cu``) for a CUDA tensor and runs the plain PyTorch version
@@ -50,7 +53,8 @@ __all__ = [
     "int8_scores",
     "bf16_scores", "bitpack_mask", "epilogue_rows", "bitpack_row_chunks",
     "unpack_bits",
-    "check_pair_count", "compact_bits",
+    "check_pair_count", "CountTally", "compact_bits", "compact_bits_cuda",
+    "compact_bits_plain", "PendingPair", "Ready",
     "allpairs_extract_int8", "allpairs_extract_bf16",
 ]
 
@@ -65,10 +69,11 @@ THREAD_BLOCK_TILES = ((128, 256), (64, 128))  # of kernels 1-4
 # ``panel_score_bits_int8`` is the cross-panel wrapper of ``ops/panel.py``,
 # ``int8_matmul`` the per-shard partial dot of ``ops/panel_mesh.py``, and
 # ``pair_bits_int8`` and ``pair_bits_f32`` the summed-partial epilogues
-# there (the mesh panel pair's; the int8 and the bf16 / fp32 stripes')
+# there (the mesh panel pair's; the int8 and the bf16 / fp32 stripes'),
+# ``compact_bits`` kernel 7, the compaction of every one of them
 LAUNCHES = {"score_bits_int8": 0, "score_bits_bf16": 0,
             "panel_score_bits_int8": 0, "int8_matmul": 0,
-            "pair_bits_int8": 0, "pair_bits_f32": 0}
+            "pair_bits_int8": 0, "pair_bits_f32": 0, "compact_bits": 0}
 # the same launches keyed by wrapper, then by card index
 LAUNCHES_BY_CARD = {name: {} for name in LAUNCHES}
 
@@ -481,35 +486,138 @@ def check_pair_count(total: int) -> None:
         )
 
 
+class CountTally:
+    """What compactions decoded against what the kernels counted, for many
+    compactions at once: the kernels' totals are host ints (they sized the
+    outputs), the decoded ones a device int64 ``got [3]`` (pairs, hit
+    groups, hit supers) that kernel 7 adds to on the card.  ``check()``
+    reads ``got`` once and raises on any difference, so a join checks
+    every pair with one readback at its end."""
+
+    def __init__(self, device):
+        self.want = [0, 0, 0]
+        self.got = torch.zeros(3, dtype=torch.int64, device=device)
+
+    def add(self, want, found=None) -> None:
+        """Add one compaction's kernel counts ``want`` (pairs, groups,
+        supers) and, for a plain compaction, what it ``found``."""
+        self.want = [a + b for a, b in zip(self.want, want)]
+        if found is not None:
+            self.got += torch.tensor(found, dtype=torch.int64,
+                                     device=self.got.device)
+
+    def check(self) -> None:
+        got = self.got.tolist()
+        if got != self.want:
+            raise RuntimeError(
+                f"compaction found (supers, groups, pairs) = "
+                f"{tuple(got[::-1])}, the kernel counted "
+                f"{tuple(self.want[::-1])}"
+            )
+
+
 def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
-                 pre_level: bool | None = None, timer=None):
+                 pre_level: bool | None = None, timer=None, counts=None,
+                 tally: CountTally | None = None):
     """Exact (row, col) int64 lists of every hit in the bit-packed structure.
 
-    Three levels, as the JAX package's ``_compact_bits``: hit supers (64
-    rows) → hit group bytes within them → hit bits within those, each a
-    ``torch.nonzero`` over the previous level's hits; with ``tm`` a multiple
-    of 512 a pre-level first reduces ``g64`` to 512-row cells and scans
-    those.  The lists come in the order of the scan: by 512-row cell (with
-    the pre-level) or 64-row super, then column, then row.  ``pre_level``
-    overrides the choice: the row slices of a taller block pass the block's
-    own (their heights whole 512-row cells when it is True), so that their
-    lists, concatenated in slice order, are the block's.  Eager PyTorch
-    sizes ``nonzero`` by its result, so no capacity or retry is needed:
-    each level's length must equal the kernel's count total, and a
-    mismatch raises.  With a ``Timer``, each call that returns only once
-    the device has caught up (the counts' ``tolist`` and every
-    ``nonzero``) is timed as "compact_sync": the rest of the caller's
-    "compact" is host time."""
-    n_blocks = bi.shape[0]
-    sums = cnt.sum(dim=0, dtype=torch.int64)
-    with _section(timer, "compact_sync"):
-        total, groups, supers = sums.tolist()
+    The lists come in the order of the JAX package's ``_compact_bits``
+    chain: by block, then 512-row cell (with the pre-level: ``tm`` a
+    multiple of 512) or 64-row super, then column, then row.
+    ``pre_level`` overrides the choice: the row slices of a taller block
+    pass the block's own (their heights whole 512-row cells when it is
+    True), so that their lists, concatenated in slice order, are the
+    block's.  Their length is the kernel's count of hits (``cnt`` summed
+    in int64: no capacity, no retry), read from the device here or given
+    as ``counts`` = (pairs, groups, supers) by a caller that already
+    holds it.  A CUDA structure is compacted by kernel 7 (one launch), a
+    CPU one by the plain chain (``compact_bits_plain``).  What the
+    compaction decoded must equal the counts: with a ``tally`` the check
+    is left to its ``check()``, else it runs here and raises.  With a
+    ``Timer``, each wait for the device (reading the counts, the check) is
+    timed as "compact_sync"."""
+    if counts is None:
+        sums = cnt.sum(dim=0, dtype=torch.int64)
+        with _section(timer, "compact_sync"):
+            counts = sums.tolist()
+    total = int(counts[0])
     check_pair_count(total)
     if pre_level is None:
-        pre_level = (tm // SUPER) % (SUPER2 // SUPER) == 0
+        pre_level = tm % SUPER2 == 0
     elif pre_level and tm % SUPER2:
         raise ValueError(f"a pre-level needs whole {SUPER2}-row cells, got "
                          f"tm = {tm}")
+    own = tally is None
+    if own:
+        tally = CountTally(gb.device)
+    if gb.is_cuda:
+        row, col = compact_bits_cuda(gb, g64, bi, bj, tm, tn, pre_level,
+                                     total, tally.got)
+        tally.add(counts)
+    else:
+        row, col, found = compact_bits_plain(gb, g64, bi, bj, tm, tn,
+                                             pre_level, timer)
+        tally.add(counts, found[::-1])
+    if own:
+        with _section(timer, "compact_sync"):
+            tally.check()
+    return row, col
+
+
+COMPACT_TILE = 1024  # column cells a kernel 7 thread block covers (CB_TILE)
+
+
+def compact_bits_cuda(gb, g64, bi, bj, tm: int, tn: int, pre_level: bool,
+                      total: int, got):
+    """Kernel 7: the ``(row, col)`` lists of ``total`` hits of a CUDA hit
+    structure, in ``compact_bits``' order, launched on the current stream
+    without a wait; what it decodes (pairs, groups, supers) is added to
+    the int64 ``got [3]``."""
+    n_blocks = bi.numel()
+    shapes = ((gb, (n_blocks, tm // GROUP, tn)),
+              (g64, (n_blocks, tm // SUPER, tn)))
+    for t, shape in shapes:
+        if (t.dtype != torch.uint8 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"hit bytes must be contiguous uint8 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    for t in (g64, bi, bj, got):
+        if t.device != gb.device:
+            raise ValueError(f"compaction operands on {t.device}, the bits "
+                             f"on {gb.device}")
+    for name, b in (("bi", bi), ("bj", bj)):
+        if b.dtype != torch.int32 or b.shape != (n_blocks,) or (
+                not b.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 [{n_blocks}]")
+    if got.dtype != torch.int64 or got.shape != (3,):
+        raise ValueError("the decoded total must be int64 [3]")
+    if tm % SUPER or tn <= 0:
+        raise ValueError(f"tm must be a multiple of {SUPER}, got ({tm}, {tn})")
+    cells = n_blocks * (tm // (SUPER2 if pre_level else SUPER)) * tn
+    n_tiles = -(-cells // COMPACT_TILE)
+    # one allocation: the rows, the columns, then the kernel's scratch
+    buf = torch.empty(2 * (total + n_tiles), dtype=torch.int64,
+                      device=gb.device)
+    at = buf.data_ptr()
+    _launch("compact_bits", gb, (
+        gb.data_ptr(), g64.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+        n_blocks, tm, tn, int(pre_level), at + 16 * total, n_tiles, total,
+        at, at + 8 * total, got.data_ptr(),
+    ))
+    row, col, _ = buf.split([total, total, 2 * n_tiles])
+    return row, col
+
+
+def compact_bits_plain(gb, g64, bi, bj, tm: int, tn: int, pre_level: bool,
+                       timer=None):
+    """Plain PyTorch version of kernel 7, the JAX package's three levels:
+    hit supers (64 rows) -> hit group bytes within them -> hit bits within
+    those, each a ``torch.nonzero`` over the previous level's hits; with
+    the pre-level, ``g64`` is first reduced to 512-row cells and those are
+    scanned.  Returns ``(row, col, found)``, ``found`` = (supers, groups,
+    pairs) decoded.  Each ``nonzero`` that waits for the device is timed
+    as "compact_sync"."""
+    n_blocks = bi.shape[0]
     if pre_level:
         # pre-level: scan the 8x smaller 512-row any-hit domain, then
         # gather the g64 bytes under its hits
@@ -547,31 +655,72 @@ def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
     with _section(timer, "compact_sync"):
         f2 = torch.nonzero(bits2).squeeze(1)
     slot2, o2 = f2 // GROUP, f2 % GROUP
-    found = (s0.numel(), f1.numel(), f2.numel())
-    if found != (supers, groups, total):
-        raise RuntimeError(
-            f"compaction found (supers, groups, pairs) = {found}, the "
-            f"kernel counted {(supers, groups, total)}"
-        )
     sl = slot1[slot2]
     g = s0[sl] * (SUPER // GROUP) + o1[slot2]  # group index within block
     blk = p0[sl]
     row = bi[blk].long() * tm + g * GROUP + o2
     col = bj[blk].long() * tn + c0[sl]
-    return row, col
+    return row, col, (s0.numel(), f1.numel(), f2.numel())
 
 
 def _section(timer, name: str):
     return timer.section(name) if timer is not None else contextlib.nullcontext()
 
 
-def _extract(score, compact_args, x, timer):
+class PendingPair:
+    """One scorer launch whose hits are not compacted yet.  Made right
+    after the launch: it sums the counts on the device and, on a card,
+    starts their copy to pinned host memory behind an event, so nothing
+    waits.  ``result()`` waits for that event alone (the scorer's end;
+    timed as "kernel"), then compacts through ``compact_bits`` with the
+    counts it read ("compact": on a card the outputs' allocation and
+    kernel 7's launch).  A caller that launches the next scorer before it
+    calls ``result()`` keeps the card busy while the host waits; the
+    check of what was decoded goes to ``tally`` when one is given."""
+
+    def __init__(self, bits, compact_args, timer=None, tally=None):
+        self.bits, self.args = bits, compact_args
+        self.timer, self.tally = timer, tally
+        cnt = bits[2]
+        sums = cnt.sum(dim=0, dtype=torch.int64)
+        self.ready = None
+        if cnt.is_cuda:
+            with torch.cuda.device(cnt.device):
+                self.sums = torch.empty(3, dtype=torch.int64,
+                                        pin_memory=True)
+                self.sums.copy_(sums, non_blocking=True)
+                self.ready = torch.cuda.Event()
+                self.ready.record()
+        else:
+            self.sums = sums
+
+    def result(self):
+        with _section(self.timer, "kernel"):
+            if self.ready is not None:
+                self.ready.synchronize()
+            counts = self.sums.tolist()
+        with _section(self.timer, "compact"):
+            return compact_bits(*self.bits, *self.args, timer=self.timer,
+                                counts=counts, tally=self.tally)
+
+
+class Ready:
+    """A pair whose lists are already made, in ``PendingPair``'s form."""
+
+    def __init__(self, lists):
+        self.lists = lists
+
+    def result(self):
+        return self.lists
+
+
+def _launched(score, compact_args, timer, tally=None) -> PendingPair:
     with _section(timer, "kernel"):
-        gb, g64, cnt = score()
-        if x.is_cuda:  # the stage split must not bill the kernel to compaction
-            torch.cuda.synchronize(x.device)
-    with _section(timer, "compact"):
-        return compact_bits(gb, g64, cnt, *compact_args, timer=timer)
+        return PendingPair(score(), compact_args, timer, tally)
+
+
+def _extract(score, compact_args, timer):
+    return _launched(score, compact_args, timer).result()
 
 
 def allpairs_extract_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024,
@@ -581,7 +730,7 @@ def allpairs_extract_int8(xq, aux, bi, bj, tau_eff, tm: int = 1024,
     the score and compaction stages are timed as "kernel" and "compact"."""
     return _extract(
         lambda: score_bits_int8(xq, aux, bi, bj, tau_eff, tm, tn),
-        (bi, bj, tm, tn), xq, timer,
+        (bi, bj, tm, tn), timer,
     )
 
 
@@ -591,5 +740,5 @@ def allpairs_extract_bf16(x, bi, bj, tau_eff, tm: int = 1024, tn: int = 512,
     (``allpairs_extract_pallas``'s counterpart)."""
     return _extract(
         lambda: score_bits_bf16(x, bi, bj, tau_eff, tm, tn),
-        (bi, bj, tm, tn), x, timer,
+        (bi, bj, tm, tn), timer,
     )

@@ -40,6 +40,7 @@ from ..engine.chunked import INT8_NNZ_GATE, ChunkedAllPairs
 from ..ops import chunked_mesh as cm_ops
 from ..ops import panel as panel_ops
 from ..ops import panel_mesh
+from ..ops import tri_score as ts
 from ..vector.batch import round_up
 from .collectives import sync
 from .mesh import Mesh, make_mesh
@@ -312,12 +313,15 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                 p, state["geom"][0], state["d_local"],
             )
 
-    def _op_panel_pair(self, state, xi, xj, pi: int, pj: int, tau_eff):
+    def _op_panel_pair(self, state, xi, xj, pi: int, pj: int, tau_eff,
+                       tally=None):
+        """The pair end to end (``panel_mesh.mesh_panel_pair``, its counts
+        checked there), as an already finished pending pair."""
         rb = state["geom"][0]
-        return panel_mesh.mesh_panel_pair(
+        return ts.Ready(panel_mesh.mesh_panel_pair(
             self.mesh, xi, xj, state["aux_of"][pi], state["aux_of"][pj],
             pi * rb, pj * rb, tau_eff, timer=self.timer,
-        )
+        ))
 
     # ---------------------------------------------------------- introspection
     def shard_layout(self) -> dict:

@@ -368,7 +368,13 @@ REPLACES = {
     # XLA builds behind the bf16 / fp32 stripes (join_epilogue_bits)
     "pair_bits_int8": "apsim_tpu/ops/panel_mesh.py:183",
     "pair_bits_f32": "apsim_tpu/ops/chunked.py:288",
+    # the XLA ops of _compact_bits (three nonzero levels), not Pallas
+    "compact_bits": "apsim_tpu/ops/pallas_score.py:320",
 }
+# the kernels that write bit-packed hits: kernel 7 compacts each of their
+# launches once, on the same card
+BITS_KERNELS = ("score_bits_int8", "score_bits_bf16", "panel_score_bits_int8",
+                "pair_bits_int8", "pair_bits_f32")
 OOC_ROWS = 100_000
 # H100 SXM peaks (NVIDIA data sheet, dense; ``bench/mfu.py``): int8 ops/s,
 # bf16 flop/s, fp32 flop/s outside the tensor cores, HBM bytes/s
@@ -816,6 +822,7 @@ def off2048_leg(dev, kernels: list) -> None:
                              f"{ts.thread_block_tile(tm, tn)}")
     expect = {k: 0 for k in got}
     expect["panel_score_bits_int8"] = 3 * n_panels * (n_panels + 1) // 2
+    expect = with_compactions(expect)
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
     rec = compare_panel(eng, 0, n_panels - 1, tm, tn, timed=True)
@@ -832,6 +839,84 @@ def off2048_leg(dev, kernels: list) -> None:
 
 def zero_launches() -> None:
     ts.zero_launches()
+
+
+def kernel_device_ms(fn, part: str, reps: int = 20) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose names hold
+    ``part``, from ``torch.profiler`` over ``reps`` calls (a launch that
+    takes microseconds on the card takes longer to launch from the host, so
+    events around one call time the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and part in e.name)
+    if us <= 0:
+        raise AssertionError(f"no kernel named *{part}* in the trace")
+    return us / reps / 1e3
+
+
+def compare_compact(bits, bi, bj, tm: int, tn: int, label: str) -> dict:
+    """Kernel 7 against the plain chain (``compact_bits_plain`` on the
+    card) on one hit structure: the same lists, value and order, and the
+    decoded counts equal to the kernel's; then each timed beside its bytes
+    bound (every g64 byte, 8 gb bytes a hit super, 16 bytes written a
+    hit): kernel 7's three passes by their device time
+    (``kernel_device_ms``), one call end to end on the stream (CUDA
+    events, its host launch included: ``launch_ms``), the chain end to
+    end, its waits included (median of 5)."""
+    gb, g64, cnt = bits
+    pre = tm % ts.SUPER2 == 0
+    total, groups, supers = cnt.sum(dim=0, dtype=torch.int64).tolist()
+    got = torch.zeros(3, dtype=torch.int64, device=gb.device)
+    r, c = ts.compact_bits_cuda(gb, g64, bi, bj, tm, tn, pre, total, got)
+    pr, pc, found = ts.compact_bits_plain(gb, g64, bi, bj, tm, tn, pre)
+    if not (torch.equal(r, pr) and torch.equal(c, pc)):
+        raise AssertionError(f"{label}: kernel 7's lists differ from the "
+                             f"plain chain's")
+    if got.tolist() != [total, groups, supers] or found[::-1] != (
+            total, groups, supers):
+        raise AssertionError(f"{label}: decoded {got.tolist()}, plain "
+                             f"{found[::-1]}, counted "
+                             f"{[total, groups, supers]}")
+    def kernel():
+        return ts.compact_bits_cuda(gb, g64, bi, bj, tm, tn, pre, total, got)
+
+    ms = kernel_device_ms(kernel, "compact_")
+    launch_ms = median_ms(kernel, reps=20)
+    plain_ms = median_ms(lambda: ts.compact_bits_plain(
+        gb, g64, bi, bj, tm, tn, pre))
+    rec = {"label": label, "blocks": bi.numel(), "tm": tm, "tn": tn,
+           "pre_level": pre, "hits": total, "hit_supers": supers,
+           "g64_bytes": g64.numel(), "ms": ms, "launch_ms": launch_ms,
+           "plain_ms": plain_ms,
+           **bound(0, g64.numel() + 8 * supers + 16 * total, PEAK_INT8)}
+    log(f"kernel 7, {label}: {json.dumps(rec)}")
+    return rec
+
+
+def sweep_pair_bits(eng: ChunkedAllPairs, rb: int = 8192):
+    """Kernel 3's hit structure of the off-diagonal pair of rows ``[0,
+    rb)`` and ``[rb, 2 rb)`` of ``eng``'s index at ``rb``-row panels (the
+    8,192 rows of the benchmark's join), with the pair's global block ids:
+    ``(bits, bi, bj, tm, tn)``."""
+    st = eng._panel_state()
+    rb0, tm, tn, n_panels, d_cap = st["geom"]
+    end = int(st["starts"][min(-(-2 * rb // rb0), n_panels)])
+    xi, xj = (panel_ops.build_panel_slab(st["r_s"], st["gc_s"], st["q_s"],
+                                         0, end, r0, rb, d_cap)
+              for r0 in (0, rb))
+    ai, aj = (st["aux_p"][:, r0:r0 + rb].contiguous() for r0 in (0, rb))
+    bi, bj = (torch.from_numpy(a).to(xi.device)
+              for a in panel_ops.full_grid(rb, rb, tm, tn))
+    bits = panel_ops.panel_score_bits_int8(xi, xj, ai, aj, bi, bj, (0, rb),
+                                           eng._tau_eff(TAU), tm, tn)
+    return bits, bi, bj + rb // tn, tm, tn
 
 
 def launches_by_card() -> dict:
@@ -992,11 +1077,25 @@ def compare_stripe(eng, q0: int, label: str, int8: bool = False) -> list:
                         label, aux, None if aux is None else aux[:, q0:q0 + st])
 
 
+def with_compactions(expect: dict) -> dict:
+    """``expect``, launches by kernel (or by kernel, then card: a dict per
+    kernel), with kernel 7's: one for each launch of ``BITS_KERNELS``, on
+    its card."""
+    if not isinstance(expect.get("compact_bits", 0), dict):
+        return dict(expect, compact_bits=sum(
+            expect.get(k, 0) for k in BITS_KERNELS))
+    cards: dict = {}
+    for k in BITS_KERNELS:
+        for card, n in expect.get(k, {}).items():
+            cards[card] = cards.get(card, 0) + n
+    return dict(expect, compact_bits=cards)
+
+
 def expect_launches(label: str, want: dict) -> dict:
     """The launches since the counters were zeroed must be ``want`` (every
-    other kernel none)."""
+    other kernel none, kernel 7 once for each launch of ``BITS_KERNELS``)."""
     got = dict(ts.LAUNCHES)
-    expect = {k: want.get(k, 0) for k in got}
+    expect = with_compactions({k: want.get(k, 0) for k in got})
     log(f"kernel launches on the {label}: {got}")
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
@@ -1671,6 +1770,7 @@ def chunked_stream_resident(dev, csr: CSRMatrix, want: set, kernels: list,
     n_pairs = geom[3] * (geom[3] + 1) // 2
     expect = {k: 0 for k in launches}
     expect["panel_score_bits_int8"] = n_pairs
+    expect = with_compactions(expect)
     if launches != expect or eng._mslab is not None:
         raise AssertionError(f"join of the streamed chunked index: launches "
                              f"{launches}, expected {expect}")
@@ -2532,6 +2632,8 @@ def mesh_dense_stream(devices, csr: CSRMatrix, want32: set, x8, qsets8,
     if axis == "rows":
         expect["panel_score_bits_int8"] = 4
         expect_cards["panel_score_bits_int8"] = card_counts(devices)
+    expect = with_compactions(expect)
+    expect_cards = with_compactions(expect_cards)
     if launches != expect or by_card != expect_cards:
         raise AssertionError(f"{label}: launches {launches}, by card "
                              f"{by_card}, expected {expect}, {expect_cards}")
@@ -2661,6 +2763,8 @@ def mesh_chunked_stream(devices, csr: CSRMatrix, want: set, qsets9,
         expect_cards = {k: {} for k in launches}
         expect_cards["int8_matmul"] = card_counts(devices, pairs)
         expect_cards["pair_bits_int8"] = card_counts(cards, pairs)
+        expect = with_compactions(expect)
+        expect_cards = with_compactions(expect_cards)
         if launches != expect or by_card != expect_cards:
             raise AssertionError(f"{label} {what}: launches {launches}, by "
                                  f"card {by_card}, expected {expect}, "
@@ -2925,6 +3029,7 @@ def p12_dense(dev, rank: int, csr: CSRMatrix, want32: set, ref: dict,
     expect = {k: 0 for k in launches}
     if layout == "rows":
         expect["panel_score_bits_int8"] = len(mesh.local_shards)
+    expect = with_compactions(expect)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
@@ -2987,6 +3092,7 @@ def p12_chunked(dev, rank: int, csr: CSRMatrix, want: set, cand: set,
     expect["int8_matmul"] = len(mesh.local_shards) * n_pairs
     # kernel 5 runs on the int32 sum, on the last shard's process only
     expect["pair_bits_int8"] = n_pairs * mesh.is_local(mesh.size - 1)
+    expect = with_compactions(expect)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
@@ -3567,7 +3673,9 @@ def deploy_phase(dev, kernels: list) -> None:
             f"{launches}; its kernel section "
             f"{json.dumps(after['timings'].get('kernel'))}")
         if (launches["score_bits_int8"] < 1
-                or sum(launches.values()) != launches["score_bits_int8"]
+                or launches != with_compactions(
+                    {k: 0 for k in launches}
+                    | {"score_bits_int8": launches["score_bits_int8"]})
                 or "kernel" not in after["timings"]):
             raise AssertionError(f"phase 15 join: launches {launches}, "
                                  f"timings {after['timings']}")
@@ -4296,8 +4404,10 @@ def cards_serve(cards, work: str, csr: CSRMatrix, want32: set,
         zero_launches()
         res = eng.all_pairs(TAU)
         by_card = launches_by_card()
-        expect = ({"panel_score_bits_int8": card_counts(cards)}
-                  if name == "cards" else {"score_bits_int8": {dev.index: 1}})
+        expect = ({"panel_score_bits_int8": card_counts(cards),
+                   "compact_bits": card_counts(cards)}
+                  if name == "cards" else {"score_bits_int8": {dev.index: 1},
+                                           "compact_bits": {dev.index: 1}})
         if {k: v for k, v in by_card.items() if v} != expect:
             raise AssertionError(f"phase 17d restore {name}: launches by "
                                  f"card {by_card}, expected {expect}")
@@ -4524,6 +4634,12 @@ def main() -> int:
             # no one PyTorch call computes the bound epilogue + bit-pack
             "library_ms": None,
         })
+    tm, tn = eng16._tiles()
+    bi, bj = blocks(eng16.row_cap, tm, tn, dev)
+    k7_dense = compare_compact(
+        ts.score_bits_bf16(eng16._operands(False), bi, bj,
+                           eng16._tau_eff(TAU), tm, tn),
+        bi, bj, tm, tn, f"the bf16 join's, {eng16.n_rows} rows")
     want32 = oracle_pairs(big_csr, TAU, dev)
     check_parity(j8["res"], want32, "int8 join, 32768 rows")
     want8586 = oracle_pairs(enron_csr, TAU, dev)
@@ -4563,6 +4679,9 @@ def main() -> int:
     if ooc_launches["panel_score_bits_int8"] != 3 * n_pairs:
         raise AssertionError("the out-of-core join did not launch the panel "
                              "kernel once per panel pair")
+    if ooc_launches["compact_bits"] != 3 * n_pairs:
+        raise AssertionError("the out-of-core join did not launch kernel 7 "
+                             "once per panel pair")
     launches["panel_score_bits_int8"] = ooc_launches["panel_score_bits_int8"]
 
     last = jr["rec"]["geom"]["n_panels"] - 1
@@ -4579,6 +4698,18 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": off["ms"], "plain_ms": off["plain_ms"],
         "bound_ms": off["bound_ms"], "bound_by": off["bound_by"],
+        "library_ms": None,
+    })
+    k7 = compare_compact(*sweep_pair_bits(eng), "an 8,192-row panel pair")
+    kernels.append({
+        "name": "compact_bits", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["compact_bits"],
+        "launches": ooc_launches["compact_bits"], "max_abs_err": 0,
+        **{k: k7[k] for k in ("ms", "launch_ms", "plain_ms", "bound_ms",
+                              "bound_by", "hits")},
+        **{f"dense_{k}": k7_dense[k] for k in ("ms", "launch_ms", "plain_ms",
+                                               "bound_ms", "hits")},
+        # no one PyTorch call compacts a bit-packed structure
         "library_ms": None,
     })
 
@@ -4631,6 +4762,7 @@ def main() -> int:
         expect = {k: 0 for k in got}
         expect["int8_matmul"] = reps * n_shards * n_pairs
         expect["pair_bits_int8"] = reps * n_pairs  # one slice: one card
+        expect = with_compactions(expect)
         if got != expect:
             raise AssertionError(f"{label}: launches {got}, expected {expect}")
         check_parity(jm["res"], want, label)
@@ -4681,6 +4813,7 @@ def main() -> int:
     log(f"kernel launches on the {label}: {got}")
     expect = {k: 0 for k in got}
     expect["panel_score_bits_int8"] = 3 * 4
+    expect = with_compactions(expect)
     if got != expect:
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
     check_parity(jrows["res"], want32, label)

@@ -13,7 +13,8 @@ engine's bound on fp32 accumulation over K nonzeros, on the dense stress
 of 32,768 positive elements per row); the int8 matmul (kernel 4) equal
 to its plain version in every int32; the summed-partial epilogues
 (kernels 5 and 6) bit-identical to their plain versions (gb, g64,
-counts), also on strided operands, and the stripe joins' candidate lists
+counts), also on strided operands; the compaction (kernel 7) gives the
+plain chain's lists, value and order; and the stripe joins' candidate lists
 on the card equal, in order, those of the plain versions on the same
 accumulators; the mesh joins over four shards of
 the card give the pair sets of the same joins over four CPU shards.  The
@@ -155,6 +156,22 @@ def test_panel_kernel_matches_plain(chunked, tiles, pair, valid):
         assert not k[0][1::3].any() and not k[2][1::3].any()
 
 
+def test_chunked_join_compacts_on_the_card(chunked):
+    """The panel join on the card launches kernel 7 once a panel pair, and
+    its candidate lists equal, in order, those the plain chain gives on the
+    CPU engine."""
+    lists = {}
+    for dev, eng in chunked.items():
+        n_panels = eng._panel_geom()[3]
+        before = ts.LAUNCHES["compact_bits"]
+        lists[dev] = eng._all_pairs_panel(eng._tau_eff(0.8))
+        launched = ts.LAUNCHES["compact_bits"] - before
+        assert launched == (n_panels * (n_panels + 1) // 2
+                            if dev == "cuda" else 0)
+    for a, b in zip(lists["cuda"], lists["cpu"]):
+        assert np.array_equal(a, b) and a.size
+
+
 def test_chunked_all_pairs_on_cuda_equals_cpu(chunked):
     got = {}
     for dev, eng in chunked.items():
@@ -170,6 +187,79 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def compact_case(card, case: str):
+    """A hit structure on the card, its block ids and the scan: ``(gb, g64,
+    cnt, bi, bj, tm, tn, pre_level)``."""
+    nb, tm, tn, density, pre = {
+        "pre_level": (3, 1024, 512, 1e-3, None),  # tm % 512 == 0
+        "super": (5, 64, 128, 2e-2, None),
+        "supers_of_tall_blocks": (2, 1024, 256, 5e-3, False),
+        "zero_hits": (4, 1024, 512, 0.0, None),
+        "all_hit_block": (2, 512, 128, 1.0, None),
+    }[case]
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    mask = torch.rand((nb, tm, tn), device=card, generator=gen) < density
+    if case == "all_hit_block":
+        mask[1] = torch.rand((tm, tn), device=card, generator=gen) < 0.01
+    gb, g64, cnt = ts.bitpack_mask(mask)
+    bi = torch.randint(0, 40, (nb,), dtype=torch.int32, device=card,
+                       generator=gen)
+    bj = torch.randint(0, 40, (nb,), dtype=torch.int32, device=card,
+                       generator=gen)
+    return gb, g64, cnt, bi, bj, tm, tn, pre
+
+
+@pytest.mark.parametrize("case", ["pre_level", "super",
+                                  "supers_of_tall_blocks", "zero_hits",
+                                  "all_hit_block"])
+def test_compact_kernel_matches_plain(card, case):
+    """Kernel 7 against the plain chain on the same hit structure: the
+    same (row, col) lists, value and order; one launch; a count planted
+    wrong raises, and so does a count at the int32 limit, before any
+    launch."""
+    gb, g64, cnt, bi, bj, tm, tn, pre = compact_case(card, case)
+    scan = tm % ts.SUPER2 == 0 if pre is None else pre
+    before = ts.LAUNCHES["compact_bits"]
+    r, c = ts.compact_bits(gb, g64, cnt, bi, bj, tm, tn, pre_level=pre)
+    assert ts.LAUNCHES["compact_bits"] == before + 1
+    pr, pc, found = ts.compact_bits_plain(gb, g64, bi, bj, tm, tn, scan)
+    assert r.device == card and torch.equal(r, pr) and torch.equal(c, pc)
+    assert found[2] == r.numel() == int(cnt[:, 0].sum())
+    assert (r.numel() == 0) is (case == "zero_hits")
+    bad = cnt.clone()
+    bad[0, 0] += 1
+    with pytest.raises(RuntimeError, match="kernel counted"):
+        ts.compact_bits(gb, g64, bad, bi, bj, tm, tn, pre_level=pre)
+    bad[0, 0] = 2**31 - 1
+    before = ts.LAUNCHES["compact_bits"]
+    with pytest.raises(ValueError, match="2\\^31"):
+        ts.compact_bits(gb, g64, bad, bi, bj, tm, tn, pre_level=pre)
+    assert ts.LAUNCHES["compact_bits"] == before
+
+
+def test_compact_kernel_on_row_slices(card):
+    """The pre-level override: a 2,048-row block's two 1,024-row slices,
+    each compacted with the block's own scan (``pre_level``) and their
+    rows offset, give the block's lists in order (``pair_candidates``'
+    rule); kernel 7 equals the plain chain on each slice."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    mask = torch.rand((1, 2048, 256), device=card, generator=gen) < 2e-3
+    zero = torch.zeros(1, dtype=torch.int32, device=card)
+    whole = ts.compact_bits(*ts.bitpack_mask(mask), zero, zero, 2048, 256)
+    rows, cols = [], []
+    for a in (0, 1024):
+        gb, g64, cnt = ts.bitpack_mask(mask[:, a:a + 1024].contiguous())
+        r, c = ts.compact_bits(gb, g64, cnt, zero, zero, 1024, 256,
+                               pre_level=True)
+        pr, pc, _ = ts.compact_bits_plain(gb, g64, zero, zero, 1024, 256,
+                                          True)
+        assert torch.equal(r, pr) and torch.equal(c, pc)
+        rows.append(r + a)
+        cols.append(c)
+    assert torch.equal(torch.cat(rows), whole[0]) and whole[0].numel()
+    assert torch.equal(torch.cat(cols), whole[1])
 
 
 @pytest.mark.parametrize("shape", [(64, 128, 128), (1024, 1024, 128),
