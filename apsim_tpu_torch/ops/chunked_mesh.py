@@ -57,7 +57,8 @@ def _reduced(mesh, parts, epilogue, timer):
     return share([out], [mesh.ranks[home]], mesh.lead, mesh)[0]
 
 
-def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer):
+def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer,
+                            stats=None):
     """Candidates of one stripe from the shards' partials (fp32 scores,
     ``aux`` None; or int32 dots) without a stripe-sized sum.
 
@@ -71,7 +72,7 @@ def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer):
     the lists meet on the lead device in slice order.  Several processes:
     the sum runs in shard order to the home shard's process (``_reduced``;
     bit for bit the one-process sum), which runs the same kernel on it
-    alone."""
+    alone.  ``stats`` counts the peer copies' bytes (``gather_rows``)."""
     from .panel_mesh import card_slices  # see chunked.stripe_candidates
 
     if mesh.n_procs > 1:
@@ -86,7 +87,7 @@ def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer):
     bounds, devices = card_slices(
         mesh.devices, chunked_ops.stripe_live_rows(row_cap, q0, tile))
     with ts._section(timer, "reduce"):
-        placed = gather_rows(parts, bounds, devices)
+        placed = gather_rows(parts, bounds, devices, stats)
         del parts
         sync(devices)
     return chunked_ops.stripe_candidates(placed, bounds, devices, aux, q0,
@@ -97,7 +98,7 @@ def _stripe_where_rows_live(mesh, parts, aux, q0: int, tau_eff, timer):
 def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
                         tau_eff, row_cap: int, chunk_dim: int,
                         super_tile: int, precision: str = "default",
-                        timer=None):
+                        timer=None, stats=None):
     """Candidates ``(rows, cols)`` (int64, exact length, on the lead
     device) of one query stripe; the buffers are per-shard lists (None for
     another process's shard), ``counts`` a per-shard list of host arrays
@@ -109,12 +110,13 @@ def mesh_stripe_extract(mesh, rows2d, cols2d, vals2d, counts, q0: int,
             r, c, v, n, q0, row_cap, chunk_dim, super_tile, precision, timer)
         for r, c, v, n in zip(rows2d, cols2d, vals2d, counts)
     ]
-    return _stripe_where_rows_live(mesh, parts, None, q0, tau_eff, timer)
+    return _stripe_where_rows_live(mesh, parts, None, q0, tau_eff, timer,
+                                   stats)
 
 
 def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
                              tau_eff, row_cap: int, chunk_dim: int,
-                             super_tile: int, timer=None):
+                             super_tile: int, timer=None, stats=None):
     """int8 variant: per-shard int8 slabs and exact int32 partial dots
     (kernel 4, one launch per local chunk), then kernel 5 where the rows
     live with the global ``aux`` (on the lead device)."""
@@ -123,7 +125,8 @@ def mesh_stripe_extract_int8(mesh, rows2d, cols2d, q2d, counts, aux, q0: int,
             r, c, q, n, q0, row_cap, chunk_dim, super_tile, timer)
         for r, c, q, n in zip(rows2d, cols2d, q2d, counts)
     ]
-    return _stripe_where_rows_live(mesh, parts, aux, q0, tau_eff, timer)
+    return _stripe_where_rows_live(mesh, parts, aux, q0, tau_eff, timer,
+                                   stats)
 
 
 # ------------------------------------------------------------ streaming

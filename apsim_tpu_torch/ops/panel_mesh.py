@@ -481,7 +481,7 @@ def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
 
 
 def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
-                    tau_eff, timer=None):
+                    tau_eff, timer=None, stats=None):
     """One panel pair end to end: global (row, col) int64 candidate lists
     on the lead device.
 
@@ -499,7 +499,8 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
     launches kernel 4 for its own shards (None in ``xis`` / ``xjs`` for
     the others'), the exact int32 ``psum`` ends on the last shard's
     process ("reduce"), which runs kernel 5 on the sum as one slice, and
-    the candidate lists cross to the others."""
+    the candidate lists cross to the others.  ``stats`` counts the peer
+    copies' bytes (``gather_rows``)."""
     rb = next(x for x in xis if x is not None).shape[0]
     with ts._section(timer, "kernel"):
         parts = [None if a is None else int8_matmul(a, b)
@@ -520,7 +521,7 @@ def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
         return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
     bounds, devices = card_slices(mesh.devices, rb)
     with ts._section(timer, "reduce"):
-        placed = gather_rows(parts, bounds, devices)
+        placed = gather_rows(parts, bounds, devices, stats)
         del parts
         sync(devices)
     return pair_candidates(placed, bounds, devices, aux_i, aux_j, row0, col0,

@@ -55,7 +55,11 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     over the visible cards (``config.mesh_shape`` may pin a smaller one).
     ``_ent`` holds per-shard lists: ``(rows, cols, vals)``, each a list of
     ``[n_chunks / n_shards, chunk_cap]`` tensors on the shards' devices;
-    ``_counts_dev`` is a per-shard list too.
+    ``_counts_dev`` is a per-shard list too.  ``stats`` adds
+    ``shard_entries`` (each shard's entry count, in shard order: the skew
+    of the contiguous chunk blocks) and ``peer_copy_bytes`` (the bytes the
+    joins copied from one card to another, ``collectives.gather_rows``; 0
+    with one card).
 
     One shard still takes the mesh path (kernel 4, then kernel 5), which
     costs more than ``ChunkedAllPairs``' fused kernel 3: 0.376 s against
@@ -78,6 +82,8 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         self.n_shards = mesh.size
         super().__init__(config, mesh.lead, chunk_dim, super_tile,
                          panel_rows)
+        self.stats.update(shard_entries=[0] * self.n_shards,
+                          peer_copy_bytes=0)
 
     def _sync(self) -> None:
         sync(self.mesh)
@@ -104,6 +110,10 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                 for s, dev in enumerate(self.mesh.devices)]
 
     def _place_counts(self, counts: np.ndarray) -> list:
+        n_local = counts.shape[0] // self.n_shards
+        self.stats["shard_entries"] = [
+            int(counts[s * n_local:(s + 1) * n_local].sum())
+            for s in range(self.n_shards)]
         return self._split(counts.astype(np.int32))
 
     # -------------------------------------------------------------- streaming
@@ -197,11 +207,12 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                 self.mesh, self._ent[0], self._ent[1], q2d,
                 self._local_counts(), aux, q0, tau_eff, self.row_cap,
                 self._chunk_width, super_tile, timer=self.timer,
+                stats=self.stats,
             )
         return cm_ops.mesh_stripe_extract(
             self.mesh, *self._ent, self._local_counts(), q0, tau_eff,
             self.row_cap, self._chunk_width, super_tile,
-            self.cfg.matmul_precision, timer=self.timer,
+            self.cfg.matmul_precision, timer=self.timer, stats=self.stats,
         )
 
     # ------------------------------------------------------ mesh panel join
@@ -320,7 +331,7 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         rb = state["geom"][0]
         return ts.Ready(panel_mesh.mesh_panel_pair(
             self.mesh, xi, xj, state["aux_of"][pi], state["aux_of"][pj],
-            pi * rb, pj * rb, tau_eff, timer=self.timer,
+            pi * rb, pj * rb, tau_eff, timer=self.timer, stats=self.stats,
         ))
 
     # ---------------------------------------------------------- introspection
@@ -334,8 +345,7 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         return {
             (i, str(d)): {
                 "chunk_block": (i * n_local, (i + 1) * n_local),
-                "n_entries": int(
-                    self._counts[i * n_local:(i + 1) * n_local].sum()),
+                "n_entries": self.stats["shard_entries"][i],
             }
             for i, d in enumerate(self.mesh.devices)
         }

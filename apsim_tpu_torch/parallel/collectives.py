@@ -343,13 +343,16 @@ def _peer_streams(src: torch.device, dst: torch.device):
     return _PEER_STREAMS[key]
 
 
-def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence) -> list:
+def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence,
+                stats: dict | None = None) -> list:
     """The shards' tensors cut into row slices, each slice on its own
     device (one process): for slice ``k``, rows ``bounds[k] = (a, b)`` of
     every part, in shard order, on ``devices[k]``.  A part already there
     gives a view; any other crosses as a copy of its rows.  A
     reduce-scatter by rows that leaves the adds to the reader: each row of
-    each part travels once, to the one device that sums it.
+    each part travels once, to the one device that sums it.  With a
+    ``stats`` dict, the bytes of every copy from one card to another are
+    added to ``stats["peer_copy_bytes"]`` (a view adds nothing).
 
     Copies between cards run at once, each (source, destination) pair on
     side streams of its own (``_peer_streams``) that first wait for both
@@ -374,6 +377,8 @@ def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence) -> list:
                 got.copy_(part, non_blocking=True)
             part.record_stream(src_s)  # the source's memory stays until then
             pending.append((dev, dst_s))
+            if stats is not None:
+                stats["peer_copy_bytes"] += got.numel() * got.element_size()
             row.append(got)
         out.append(row)
     for dev, dst_s in pending:
