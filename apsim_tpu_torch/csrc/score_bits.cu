@@ -13,6 +13,9 @@
 //   pair_bits_f32          <- psum + (s >= tau_eff) + bitpack_mask
 // and, as kernel 7, the compaction of their hits (see compact_bits below):
 //   compact_bits           <- _compact_bits (pallas_score.py:320, XLA ops)
+// and peer_copy, one copy between cards for collectives.gather_rows (no
+// kernel: the runtime's asynchronous peer copy, queued without the events
+// and stream switches of torch's copy_ between cards).
 //
 // The score kernels.  For every block p of a block list (bi[p], bj[p])
 // they score the tm x tn tile Xi[bi*tm:, :] . Xj[bj*tn:, :]^T over all of
@@ -106,6 +109,7 @@
 #include <cstring>
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace {
 
@@ -1212,6 +1216,32 @@ void launch_compact(const CompactCells& g, long long* tile, long long n_tiles,
   }
 }
 
+// Peer access of card dev to card peer's memory, turned on once (a copy
+// between cards without it is staged through host memory).  0 when on,
+// or when the cards cannot reach each other (the copy is then staged).
+int enable_peer(int dev, int peer) {
+  static std::mutex mu;
+  static bool done[64][64];
+  if (dev < 0 || peer < 0 || dev >= 64 || peer >= 64)
+    return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[dev][peer]) return (int)cudaSuccess;
+  int can = 0, prev = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e == cudaSuccess && can) {
+    if ((e = cudaGetDevice(&prev)) != cudaSuccess) return (int)e;
+    if ((e = cudaSetDevice(dev)) != cudaSuccess) return (int)e;
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      e = cudaSuccess;
+    }
+    cudaSetDevice(prev);
+  }
+  if (e == cudaSuccess) done[dev][peer] = true;
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1340,6 +1370,21 @@ int compact_bits(const void* gb, const void* g64, const void* bi,
                       (long long*)cols, (unsigned long long*)decoded,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// One copy between cards: bytes bytes from src on card src_dev to dst on
+// card dst_dev, queued on stream (a stream of src_dev) without a host wait,
+// with each card's peer access to the other on (enable_peer); the copy
+// engines move it as torch's copy_ between cards does.  Returns the
+// runtime's error code (0 = queued).
+int peer_copy(void* dst, int dst_dev, const void* src, int src_dev,
+              long long bytes, void* stream) {
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  int e = enable_peer(src_dev, dst_dev);
+  if (e == 0) e = enable_peer(dst_dev, src_dev);
+  if (e != 0) return e;
+  return (int)cudaMemcpyPeerAsync(dst, dst_dev, src, src_dev, (size_t)bytes,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

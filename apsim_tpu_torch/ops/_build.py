@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels of ``csrc/score_bits.cu``
 (``score_bits_int8``, ``score_bits_bf16``, ``panel_score_bits_int8``,
-``int8_matmul``, ``pair_bits_int8``, ``pair_bits_f32``, ``compact_bits``).
+``int8_matmul``, ``pair_bits_int8``, ``pair_bits_f32``, ``compact_bits``)
+and ``peer_copy``, a copy between cards.
 
 The source has a plain C interface, so it is compiled by ``nvcc`` alone into
 a shared library (seconds, where a build against PyTorch's headers takes
@@ -54,6 +55,7 @@ ARGTYPES = {
     "pair_bits_f32": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     "compact_bits": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P,
                      _P],
+    "peer_copy": [_P, _I, _P, _I, _L, _P],
 }
 
 

@@ -53,6 +53,7 @@ __all__ = [
     "mesh_panel_state",
     "mesh_build_panel_slab",
     "mesh_panel_pair",
+    "MeshPendingPair",
     "pair_bits_int8",
     "pair_bits_int8_plain",
     "pair_bits_f32",
@@ -480,52 +481,120 @@ def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
         return found
 
 
-def mesh_panel_pair(mesh, xis, xjs, aux_i, aux_j, row0: int, col0: int,
-                    tau_eff, timer=None, stats=None):
-    """One panel pair end to end: global (row, col) int64 candidate lists
-    on the lead device.
+def mesh_panel_pair(mesh, xis, xjs, aux, row0: int, col0: int, tau_eff,
+                    timer=None, stats=None, tally=None):
+    """One panel pair launched: a pending pair whose ``result()`` gives the
+    global (row, col) int64 candidate lists on the lead device.
 
-    In order: kernel 4 on every shard's slab pair (stage "kernel"); each
-    distinct device's row slice of every shard's int32 partial placed on
-    it by ``collectives.gather_rows`` ("reduce": peer copies, none with
-    every shard on one device); on every device kernel 5 over its slice
-    ("epilogue") and the exact-length ``tri_score.compact_bits`` with
-    global offsets, the lists gathered on the lead device in slice order
-    ("compact"; ``pair_candidates``).  The JAX function replicates its
-    epilogue over the whole ``[rb, rb]`` rectangle on every device; here
-    each device computes only its own rows.  The counts are summed in
-    int64, so a rectangle with 2^31 hits cannot wrap (``compact_bits``
-    then refuses it).  On a mesh over several processes each process
-    launches kernel 4 for its own shards (None in ``xis`` / ``xjs`` for
-    the others'), the exact int32 ``psum`` ends on the last shard's
-    process ("reduce"), which runs kernel 5 on the sum as one slice, and
-    the candidate lists cross to the others.  ``stats`` counts the peer
-    copies' bytes (``gather_rows``)."""
+    ``aux`` maps each of this process's devices to the global f32 ``[3,
+    n_panels * rb]`` (α, α·L1(q), nnz) table on it; the pair reads rows
+    ``[row0, row0 + rb)`` and ``[col0, col0 + rb)`` of it.  Here kernel 4
+    runs on every shard's slab pair (stage "kernel": the launches alone)
+    and each distinct device's row slice of every shard's int32 partial
+    is sent to it by ``collectives.gather_rows`` without a wait ("reduce":
+    the peer copies' launch, none with every shard on one device), so the
+    copies run while the next pair's kernel 4 does; ``result()`` is
+    ``MeshPendingPair``'s.  The JAX function replicates its epilogue over
+    the whole ``[rb, rb]`` rectangle on every device; here each device
+    computes only its own rows.  The counts are summed in int64, so a
+    rectangle with 2^31 hits cannot wrap (``compact_bits`` then refuses
+    it).  On a mesh over several processes each process launches kernel 4
+    for its own shards (None in ``xis`` / ``xjs`` for the others') and
+    the pair finishes here (``ts.Ready``): the exact int32 ``psum`` ends
+    on the last shard's process ("reduce"), which runs kernel 5 on the
+    sum as one slice (``pair_candidates``), and the candidate lists cross
+    to the others.  ``stats`` counts the peer copies' bytes
+    (``gather_rows``); with a ``tally`` the check of the decoded counts is
+    left to it."""
     rb = next(x for x in xis if x is not None).shape[0]
     with ts._section(timer, "kernel"):
         parts = [None if a is None else int8_matmul(a, b)
                  for a, b in zip(xis, xjs)]
-        sync(mesh)
+        if mesh.n_procs > 1:
+            sync(mesh)
     if mesh.n_procs > 1:
-        home = sum_home(mesh)
-        dev = mesh.devices[home] if mesh.is_local(home) else mesh.lead
-        with ts._section(timer, "reduce"):
-            d = psum(parts, dev, mesh, exact=True, to=home)
-            del parts
-            sync([dev])
-        found = None
-        if d is not None:
-            found = pair_candidates([[d]], [(0, rb)], [dev], aux_i, aux_j,
-                                    row0, col0, rb, tau_eff, dev, timer)
-            del d
-        return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
+        return ts.Ready(_summed_pair(mesh, parts, aux, row0, col0, rb,
+                                     tau_eff, timer))
     bounds, devices = card_slices(mesh.devices, rb)
     with ts._section(timer, "reduce"):
-        placed = gather_rows(parts, bounds, devices, stats)
+        placed, copied = gather_rows(parts, bounds, devices, stats,
+                                     wait=False)
+    return MeshPendingPair(placed, copied, bounds, devices, aux, row0, col0,
+                           rb, tau_eff, mesh.lead, timer, tally)
+
+
+def _summed_pair(mesh, parts, aux, row0: int, col0: int, rb: int, tau_eff,
+                 timer):
+    """The pair over several processes, from its shards' partials: the
+    int32 sum on the home process, kernel 5 and the compaction there, the
+    lists on every process's lead device."""
+    home = sum_home(mesh)
+    dev = mesh.devices[home] if mesh.is_local(home) else mesh.lead
+    with ts._section(timer, "reduce"):
+        d = psum(parts, dev, mesh, exact=True, to=home)
         del parts
-        sync(devices)
-    return pair_candidates(placed, bounds, devices, aux_i, aux_j, row0, col0,
-                           rb, tau_eff, mesh.lead, timer)
+        sync([dev])
+    found = None
+    if d is not None:
+        found = pair_candidates([[d]], [(0, rb)], [dev],
+                                aux[dev][:, row0:row0 + rb],
+                                aux[dev][:, col0:col0 + rb], row0, col0, rb,
+                                tau_eff, dev, timer)
+        del d
+    return share([found], [mesh.ranks[home]], mesh.lead, mesh)[0]
+
+
+class MeshPendingPair:
+    """A one-process mesh panel pair whose kernel 4 and peer copies are
+    queued (``mesh_panel_pair``) and whose epilogue is not.  ``result()``,
+    called once the next pair's kernel 4 is queued, orders the rest on the
+    cards: each device's stream waits for the copies into it (events, no
+    host wait), runs kernel 5 over its row slice and starts its counts'
+    copy to pinned host memory (``tri_score.PendingPair``), every device
+    before any wait; then one wait for the counts ("epilogue"), kernel 7
+    on each device with the whole rectangle's scan and the lists moved to
+    the lead device in slice order ("compact").  A card's stream thus runs
+    kernel 4 of the next pair while the copies of this one land.  The
+    lists equal ``pair_candidates``' over the same slices, in order."""
+
+    def __init__(self, placed, copied, bounds, devices, aux, row0: int,
+                 col0: int, rb: int, tau_eff, lead, timer=None, tally=None):
+        self.placed, self.copied, self.aux = placed, copied, aux
+        self.bounds, self.devices = bounds, devices
+        self.row0, self.col0, self.rb, self.tau_eff = row0, col0, rb, tau_eff
+        self.lead, self.timer, self.tally = lead, timer, tally
+        self.done = False
+
+    def _epilogue(self, k: int) -> ts.PendingPair:
+        """Kernel 5 over slice ``k`` behind its copies, its counts on their
+        way to the host."""
+        (a, b), dev = self.bounds[k], self.devices[k]
+        for done in self.copied[k]:
+            torch.cuda.current_stream(dev).wait_event(done)
+        aux = self.aux[dev]
+        r0, c0 = self.row0 + a, self.col0
+        bits = pair_bits_int8(self.placed[k], aux[:, r0:self.row0 + b],
+                              aux[:, c0:c0 + self.rb], r0, c0, self.tau_eff)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        pre = (self.rb // ts.SUPER) % (ts.SUPER2 // ts.SUPER) == 0
+        return ts.PendingPair(bits, (zero, zero, b - a, self.rb, pre),
+                              self.timer, self.tally)
+
+    def result(self):
+        with ts._section(self.timer, "epilogue"):
+            slices = [self._epilogue(k) for k in range(len(self.bounds))]
+            self.placed = self.copied = None
+            counts = [s.counts() for s in slices]
+        with ts._section(self.timer, "compact"):
+            found_r, found_c = [], []
+            for s, n, (a, _) in zip(slices, counts, self.bounds):
+                r, c = s.compact(n)
+                found_r.append((r + (self.row0 + a)).to(self.lead))
+                found_c.append((c + self.col0).to(self.lead))
+            self.done = True
+            if len(found_r) == 1:
+                return found_r[0], found_c[0]
+            return torch.cat(found_r), torch.cat(found_c)
 
 
 def slab_width(d_cap: int, n_shards: int) -> int:

@@ -490,13 +490,24 @@ class CountTally:
     """What compactions decoded against what the kernels counted, for many
     compactions at once: the kernels' totals are host ints (they sized the
     outputs), the decoded ones a device int64 ``got [3]`` (pairs, hit
-    groups, hit supers) that kernel 7 adds to on the card.  ``check()``
-    reads ``got`` once and raises on any difference, so a join checks
-    every pair with one readback at its end."""
+    groups, hit supers) that kernel 7 adds to on the card, one on each
+    card it runs on (``got_on``).  ``check()`` reads each ``got`` once and
+    raises on any difference, so a join checks every pair with one
+    readback a card at its end."""
 
     def __init__(self, device):
         self.want = [0, 0, 0]
         self.got = torch.zeros(3, dtype=torch.int64, device=device)
+        self._got_by_device = {self.got.device: self.got}
+
+    def got_on(self, device) -> torch.Tensor:
+        """The decoded counts' accumulator on ``device``, made at first
+        use."""
+        got = self._got_by_device.get(device)
+        if got is None:
+            got = torch.zeros(3, dtype=torch.int64, device=device)
+            self._got_by_device[device] = got
+        return got
 
     def add(self, want, found=None) -> None:
         """Add one compaction's kernel counts ``want`` (pairs, groups,
@@ -507,7 +518,8 @@ class CountTally:
                                      device=self.got.device)
 
     def check(self) -> None:
-        got = self.got.tolist()
+        got = [sum(n) for n in zip(*(g.tolist()
+                                     for g in self._got_by_device.values()))]
         if got != self.want:
             raise RuntimeError(
                 f"compaction found (supers, groups, pairs) = "
@@ -552,7 +564,7 @@ def compact_bits(gb, g64, cnt, bi, bj, tm: int, tn: int,
         tally = CountTally(gb.device)
     if gb.is_cuda:
         row, col = compact_bits_cuda(gb, g64, bi, bj, tm, tn, pre_level,
-                                     total, tally.got)
+                                     total, tally.got_on(gb.device))
         tally.add(counts)
     else:
         row, col, found = compact_bits_plain(gb, g64, bi, bj, tm, tn,
@@ -694,18 +706,27 @@ class PendingPair:
         else:
             self.sums = sums
 
+    def counts(self) -> list:
+        """Wait for the counts' copy (the scorer's end) and read them."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.sums.tolist()
+
+    def compact(self, counts):
+        return compact_bits(*self.bits, *self.args, timer=self.timer,
+                            counts=counts, tally=self.tally)
+
     def result(self):
         with _section(self.timer, "kernel"):
-            if self.ready is not None:
-                self.ready.synchronize()
-            counts = self.sums.tolist()
+            counts = self.counts()
         with _section(self.timer, "compact"):
-            return compact_bits(*self.bits, *self.args, timer=self.timer,
-                                counts=counts, tally=self.tally)
+            return self.compact(counts)
 
 
 class Ready:
     """A pair whose lists are already made, in ``PendingPair``'s form."""
+
+    done = True
 
     def __init__(self, lists):
         self.lists = lists

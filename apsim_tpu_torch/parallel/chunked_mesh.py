@@ -40,7 +40,6 @@ from ..engine.chunked import INT8_NNZ_GATE, ChunkedAllPairs
 from ..ops import chunked_mesh as cm_ops
 from ..ops import panel as panel_ops
 from ..ops import panel_mesh
-from ..ops import tri_score as ts
 from ..vector.batch import round_up
 from .collectives import sync
 from .mesh import Mesh, make_mesh
@@ -57,9 +56,11 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     ``[n_chunks / n_shards, chunk_cap]`` tensors on the shards' devices;
     ``_counts_dev`` is a per-shard list too.  ``stats`` adds
     ``shard_entries`` (each shard's entry count, in shard order: the skew
-    of the contiguous chunk blocks) and ``peer_copy_bytes`` (the bytes the
+    of the contiguous chunk blocks), ``peer_copy_bytes`` (the bytes the
     joins copied from one card to another, ``collectives.gather_rows``; 0
-    with one card).
+    with one card) and ``mesh_pairs_overlapped`` (the panel pairs whose
+    epilogue was still pending when the next pair's kernel 4 was queued:
+    all but the last of a join's on one process, none over several).
 
     One shard still takes the mesh path (kernel 4, then kernel 5), which
     costs more than ``ChunkedAllPairs``' fused kernel 3: 0.376 s against
@@ -83,7 +84,8 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         super().__init__(config, mesh.lead, chunk_dim, super_tile,
                          panel_rows)
         self.stats.update(shard_entries=[0] * self.n_shards,
-                          peer_copy_bytes=0)
+                          peer_copy_bytes=0, mesh_pairs_overlapped=0)
+        self._last_pair = None  # the panel pair launched last
 
     def _sync(self) -> None:
         sync(self.mesh)
@@ -277,8 +279,8 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
     def _panel_state(self):
         """Per-shard join state (``panel_mesh.mesh_panel_state``): sorted
         entries with slab-local columns and panel start offsets per shard,
-        the global aux tables per panel on the lead device.  None when the
-        int32 gate trips."""
+        the global aux table on each of this process's devices
+        (``aux_on``).  None when the int32 gate trips."""
         geom = self._panel_geom()
         if geom is None:
             return None
@@ -309,10 +311,8 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                 state = {
                     "geom": geom, "r_s": r_s, "c_s": c_s, "q_s": q_s,
                     "starts": starts, "d_local": d_cap // self.n_shards,
-                    "aux_of": [
-                        aux[:, p * rb:(p + 1) * rb].contiguous()
-                        for p in range(n_panels)
-                    ],
+                    "aux_on": {dev: aux.to(dev)
+                               for dev in self.mesh.local_devices},
                 }
         self._panel_state_cache = (key, state)
         return state
@@ -326,13 +326,18 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
 
     def _op_panel_pair(self, state, xi, xj, pi: int, pj: int, tau_eff,
                        tally=None):
-        """The pair end to end (``panel_mesh.mesh_panel_pair``, its counts
-        checked there), as an already finished pending pair."""
+        """The pair launched (``panel_mesh.mesh_panel_pair``): on one
+        process a pending pair whose peer copies run beside the next
+        pair's kernel 4, the check of its counts left to ``tally``; over
+        several processes a finished one."""
+        if self._last_pair is not None and not self._last_pair.done:
+            self.stats["mesh_pairs_overlapped"] += 1
         rb = state["geom"][0]
-        return ts.Ready(panel_mesh.mesh_panel_pair(
-            self.mesh, xi, xj, state["aux_of"][pi], state["aux_of"][pj],
-            pi * rb, pj * rb, tau_eff, timer=self.timer, stats=self.stats,
-        ))
+        self._last_pair = panel_mesh.mesh_panel_pair(
+            self.mesh, xi, xj, state["aux_on"], pi * rb, pj * rb, tau_eff,
+            timer=self.timer, stats=self.stats, tally=tally,
+        )
+        return self._last_pair
 
     # ---------------------------------------------------------- introspection
     def shard_layout(self) -> dict:

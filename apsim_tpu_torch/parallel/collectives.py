@@ -329,60 +329,94 @@ def all_gather(parts: Sequence, dim: int, device, mesh=None, shards=None,
     return None if got is None else torch.cat(got, dim=dim)
 
 
-_PEER_STREAMS: dict = {}  # (source card, destination card) -> streams
+_PEER_STREAMS: dict = {}  # (source card, destination card) -> stream
 
 
-def _peer_streams(src: torch.device, dst: torch.device):
-    """A side stream on each end of one (source, destination) card pair,
-    made once: PyTorch orders a copy between cards against both cards'
-    current streams, so copies that share those streams run one at a
-    time."""
+def _peer_stream(src: torch.device, dst: torch.device):
+    """A side stream on the source card of one (source, destination) card
+    pair, made once, so that no copy waits for work queued on either
+    card's current stream after it."""
     key = (src.index, dst.index)
     if key not in _PEER_STREAMS:
-        _PEER_STREAMS[key] = (torch.cuda.Stream(src), torch.cuda.Stream(dst))
+        _PEER_STREAMS[key] = torch.cuda.Stream(src)
     return _PEER_STREAMS[key]
 
 
+def _peer_copy(dst: torch.Tensor, src: torch.Tensor, stream) -> None:
+    """Queue the copy of contiguous ``src`` into ``dst`` (another card) on
+    ``stream``: one asynchronous peer copy of the runtime
+    (``peer_copy`` of ``csrc/score_bits.cu``), the copy engines' work that
+    torch's ``copy_`` between cards queues, without its events and stream
+    switches."""
+    from ..ops._build import kernels
+
+    if not src.is_contiguous():
+        raise ValueError("gather_rows copies row slices of contiguous parts")
+    rc = kernels().peer_copy(dst.data_ptr(), dst.device.index,
+                             src.data_ptr(), src.device.index,
+                             src.numel() * src.element_size(),
+                             stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"peer copy failed: CUDA error {rc}")
+
+
 def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence,
-                stats: dict | None = None) -> list:
+                stats: dict | None = None, wait: bool = True):
     """The shards' tensors cut into row slices, each slice on its own
     device (one process): for slice ``k``, rows ``bounds[k] = (a, b)`` of
     every part, in shard order, on ``devices[k]``.  A part already there
-    gives a view; any other crosses as a copy of its rows.  A
-    reduce-scatter by rows that leaves the adds to the reader: each row of
-    each part travels once, to the one device that sums it.  With a
-    ``stats`` dict, the bytes of every copy from one card to another are
-    added to ``stats["peer_copy_bytes"]`` (a view adds nothing).
+    gives a view; any other crosses as a copy of its rows (a part that
+    crosses between cards must be contiguous).  A reduce-scatter by rows
+    that leaves the adds to the reader: each row of each part travels
+    once, to the one device that sums it.  With a ``stats`` dict, the
+    bytes of every copy from one card to another are added to
+    ``stats["peer_copy_bytes"]`` (a view adds nothing).
 
     Copies between cards run at once, each (source, destination) pair on
-    side streams of its own (``_peer_streams``) that first wait for both
+    a side stream of its own (``_peer_stream``) that first waits for both
     cards' current streams; each destination's current stream then waits
-    for its copies, so work queued there afterwards reads them."""
-    out, pending = [], []
+    for its copies, so work queued there afterwards reads them.  With
+    ``wait=False`` no stream waits: the result is ``(slices, events)``,
+    ``events[k]`` the copies' completion events on slice ``k``'s
+    destination (empty where nothing crossed), and the caller makes that
+    device's stream wait for them before it reads the slice
+    (``torch.cuda.current_stream(dev).wait_event``), so work queued there
+    meanwhile runs beside the copies."""
+    out, events, marks = [], [], {}
+
+    def mark(dev):
+        """An event at the end of ``dev``'s current stream, made once."""
+        if dev not in marks:
+            marks[dev] = torch.cuda.current_stream(dev).record_event()
+        return marks[dev]
+
     for (a, b), dev in zip(bounds, devices):
         dev = torch.device(dev)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        row = []
+        row, copied = [], []
         for p in parts:
             part = p[a:b]
             if part.device == dev or "cpu" in (dev.type, part.device.type):
                 row.append(part.to(dev))
                 continue
-            src_s, dst_s = _peer_streams(part.device, dev)
-            src_s.wait_stream(torch.cuda.current_stream(part.device))
-            dst_s.wait_stream(torch.cuda.current_stream(dev))
+            stream = _peer_stream(part.device, dev)
+            stream.wait_event(mark(part.device))
+            stream.wait_event(mark(dev))  # ``got``'s memory is free there
             got = torch.empty(part.shape, dtype=part.dtype, device=dev)
-            with torch.cuda.stream(src_s), torch.cuda.stream(dst_s):
-                got.copy_(part, non_blocking=True)
-            part.record_stream(src_s)  # the source's memory stays until then
-            pending.append((dev, dst_s))
+            _peer_copy(got, part, stream)
+            part.record_stream(stream)  # the source's memory stays until then
+            copied.append(stream.record_event())
             if stats is not None:
                 stats["peer_copy_bytes"] += got.numel() * got.element_size()
             row.append(got)
         out.append(row)
-    for dev, dst_s in pending:
-        torch.cuda.current_stream(dev).wait_stream(dst_s)
+        events.append((dev, copied))
+    if not wait:
+        return out, [copied for _, copied in events]
+    for dev, copied in events:
+        for done in copied:
+            torch.cuda.current_stream(dev).wait_event(done)
     return out
 
 

@@ -1034,9 +1034,11 @@ def compare_pair_bits(eng: MeshChunkedAllPairs, pi: int, pj: int,
     bounds, devs = panel_mesh.card_slices(eng.mesh.devices, rb)
     placed = gather_rows(parts, bounds, devs)
     del parts
+    aux = st["aux_on"][eng.mesh.lead]
     return compare_bits(placed, bounds, devs, pi * rb, pj * rb, rb,
-                        eng._tau_eff(TAU), label, st["aux_of"][pi],
-                        st["aux_of"][pj])
+                        eng._tau_eff(TAU), label,
+                        aux[:, pi * rb:(pi + 1) * rb],
+                        aux[:, pj * rb:(pj + 1) * rb])
 
 
 def stripe_partials(eng, q0: int, int8: bool) -> list:

@@ -272,4 +272,15 @@ def test_binding_matches_wrapper_and_source(name):
     assert len(argtypes) == launch_arguments()[name] + 1
     ctype = {"void*": _build._P, "int": _build._I, "float": _build._F}
     assert [ctype[t] for t in c_entries()[name]] == argtypes
-    assert set(_build.ARGTYPES) == set(ts.LAUNCHES) == set(c_entries())
+    # every C entry is a counted kernel launch but the copy between cards
+    assert set(_build.ARGTYPES) == set(c_entries()) == (
+        set(ts.LAUNCHES) | {"peer_copy"})
+
+
+def test_peer_copy_binding_matches_source():
+    """``collectives._peer_copy`` passes the destination, its card, the
+    source, its card, the bytes and the stream, type for type the C
+    entry's parameters."""
+    ctype = {"void*": _build._P, "int": _build._I, "long long": _build._L}
+    assert [ctype[t] for t in c_entries()["peer_copy"]] == (
+        _build.ARGTYPES["peer_copy"])

@@ -31,6 +31,7 @@ from apsim_tpu_torch.engine import chunked as pt_chunked
 from apsim_tpu_torch.ops import chunked as chunked_ops
 from apsim_tpu_torch.ops import panel_mesh
 from apsim_tpu_torch.ops import tri_score as ts
+from apsim_tpu_torch.parallel.collectives import gather_rows
 from apsim_tpu_torch.parallel.mesh import Mesh
 from apsim_tpu_torch.vector.batch import round_up
 
@@ -38,6 +39,7 @@ from oracle import brute_force_pairs, random_sparse_corpus
 
 DIM = 500
 TAUS = (0.3, 0.5, 0.7)
+CPU = torch.device("cpu")
 
 
 def cfg_kw(**kw):
@@ -248,6 +250,118 @@ def test_stage_split_has_reduce_and_epilogue(pair8):
     p.all_pairs(0.5)
     for k in stages:  # two panels: pairs (0, 0), (0, 1), (1, 1)
         assert p.timer.counts[k] - before[k] == 3
+
+
+def finished_pair(mesh, xi, xj, aux, row0, col0, tau_eff, bounds, devices):
+    """A panel pair end to end with a wait after each stage: kernel 4 on
+    every shard, ``gather_rows`` with its stream waits, then
+    ``pair_candidates`` over the same row slices."""
+    rb = xi[0].shape[0]
+    parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
+    placed = gather_rows(parts, bounds, devices)
+    return panel_mesh.pair_candidates(
+        placed, bounds, devices, aux[:, row0:row0 + rb],
+        aux[:, col0:col0 + rb], row0, col0, rb, tau_eff, mesh.lead)
+
+
+@pytest.mark.parametrize("pair", [(0, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_pending_pair_equals_finished_pair(big_corpus, n_shards, pair):
+    """``mesh_panel_pair`` launches a pending pair; its lists equal those
+    of the same pair finished stage by stage, value and order, over the
+    mesh's own slices and over one row slice per shard (the cut of a mesh
+    with one shard a card), on 256-row panels."""
+    p = pt.MeshChunkedAllPairs(pt.AllPairsConfig(**cfg_kw()),
+                               mesh=cpu_mesh(n_shards), chunk_dim=32,
+                               panel_rows=256)
+    p.build(to_pt(big_corpus))
+    state = p._panel_state()
+    rb = state["geom"][0]
+    assert (rb, state["geom"][3]) == (256, 2)
+    pi, pj = pair
+    xi, xj = p._build_slab(state, pi), p._build_slab(state, pj)
+    aux = state["aux_on"][p.mesh.lead]
+    tau_eff = p._tau_eff(0.3)
+    tally = ts.CountTally("cpu")
+    pending = panel_mesh.mesh_panel_pair(
+        p.mesh, xi, xj, state["aux_on"], pi * rb, pj * rb, tau_eff,
+        tally=tally)
+    assert isinstance(pending, panel_mesh.MeshPendingPair)
+    assert not pending.done
+    got = pending.result()
+    assert pending.done
+    tally.check()
+    bounds, devices = panel_mesh.card_slices(p.mesh.devices, rb)
+    want = finished_pair(p.mesh, xi, xj, aux, pi * rb, pj * rb, tau_eff,
+                         bounds, devices)
+    assert tally.want[0] == want[0].numel() > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # one row slice per shard, as over n_shards cards
+    bounds = panel_mesh.row_slices(rb, n_shards)
+    assert all(b > a for a, b in bounds)
+    parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
+    placed, copied = gather_rows(parts, bounds, [CPU] * n_shards,
+                                 wait=False)
+    assert copied == [[]] * n_shards
+    sliced = panel_mesh.MeshPendingPair(
+        placed, copied, bounds, [CPU] * n_shards, {CPU: aux}, pi * rb,
+        pj * rb, rb, tau_eff, CPU).result()
+    for a, b in zip(sliced, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sweep", list(SWEEPS))
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_join_with_pairs_pending_counts_them(n_shards, sweep, request):
+    """The sweep takes pair k's lists after it has launched pair k+1, so
+    every pair of a join but the last is still pending at the next
+    launch (``stats["mesh_pairs_overlapped"]``), join after join; the
+    pair sets are the JAX mesh's and the oracle's."""
+    csr = request.getfixturevalue(SWEEPS[sweep])
+    p = port_engine(csr, n_shards)
+    if sweep == "rolling":
+        rb, _, _, _, d_cap = p._panel_geom()
+        p._panel_resident_bytes = 0
+        p._panel_sweep_bytes = 4 * p._slab_bytes(rb, d_cap)
+    j = jax_engine(csr, n_shards, panel_rows=128)
+    n_panels = p._panel_geom()[3]
+    n_pairs = n_panels * (n_panels + 1) // 2
+    assert p.stats["mesh_pairs_overlapped"] == 0
+    for k, tau in enumerate(TAUS):
+        rp = p.all_pairs(tau)
+        assert rp.pair_set() == j.all_pairs(tau).pair_set() == (
+            brute_force_pairs(csr, tau))
+        assert p.stats["mesh_pairs_overlapped"] == (k + 1) * (n_pairs - 1)
+    assert n_pairs > 1
+
+
+def test_mesh_planted_count_raises_at_the_end(corpus, monkeypatch):
+    """The pending pairs leave their count check to the join's tally: a
+    count planted wrong in the first pair's kernel 5 raises once every
+    pair is compacted."""
+    p = port_engine(corpus, 2)
+    want = p.all_pairs(0.5).pair_set()
+    bits = panel_mesh.pair_bits_int8
+    planted = []
+
+    def plant(*a, **k):
+        gb, g64, cnt = bits(*a, **k)
+        if not planted:
+            cnt[0, 0] += 1
+        planted.append(1)
+        return gb, g64, cnt
+
+    monkeypatch.setattr(panel_mesh, "pair_bits_int8", plant)
+    compacted = []
+    compact = ts.PendingPair.compact
+    monkeypatch.setattr(ts.PendingPair, "compact", lambda self, n: (
+        compacted.append(1), compact(self, n))[1])
+    with pytest.raises(RuntimeError, match="kernel counted"):
+        p.all_pairs(0.5)
+    assert len(planted) == len(compacted) == 3  # every pair, one slice
+    monkeypatch.setattr(panel_mesh, "pair_bits_int8", bits)
+    assert p.all_pairs(0.5).pair_set() == want and want
 
 
 def test_epilogue_chunking_is_invisible(corpus, monkeypatch):

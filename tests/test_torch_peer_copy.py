@@ -45,6 +45,26 @@ def test_gather_rows_counts_no_view(n_parts, n_slices):
                for k, (a, _) in enumerate(bounds) for s in range(n_parts))
 
 
+@pytest.mark.parametrize("n_parts,n_slices", [(1, 1), (2, 2), (4, 4),
+                                              (4, 2)])
+def test_deferred_gather_rows_equals_default(n_parts, n_slices):
+    """``wait=False`` gives the same slices and counts the same bytes, and
+    no event where nothing crossed."""
+    parts = _parts(n_parts)
+    bounds = panel_mesh.row_slices(256, n_slices)
+    stats = {"peer_copy_bytes": 0}
+    want = gather_rows(parts, bounds, [CPU] * n_slices, stats)
+    deferred = {"peer_copy_bytes": 0}
+    got, copied = gather_rows(parts, bounds, [CPU] * n_slices, deferred,
+                              wait=False)
+    assert copied == [[]] * n_slices
+    assert deferred == stats == {"peer_copy_bytes": 0}
+    for row_got, row_want in zip(got, want):
+        assert [t.data_ptr() for t in row_got] == [t.data_ptr()
+                                                   for t in row_want]
+        assert all(torch.equal(a, b) for a, b in zip(row_got, row_want))
+
+
 def _mesh_engine(shards: int, **cfg):
     return MeshChunkedAllPairs(
         AllPairsConfig(similarity_threshold=0.5, **cfg),
@@ -130,3 +150,67 @@ def test_mesh_join_over_two_cards_counts_its_copies(corpus):
     assert res.n_pairs > 0
     assert eng.stats["peer_copy_bytes"] == pairs * rb * rb * 4
     assert sum(eng.stats["shard_entries"]) == int(np.sum(eng._counts))
+
+
+@pytest.mark.cuda
+def test_deferred_gather_rows_over_two_cards():
+    """The deferred form's slices, once each destination's stream waits on
+    its events, equal the default form's, with the same bytes counted;
+    each slice waits on one event per card its rows came from."""
+    cards = _cards(2)
+    parts = [p.to(cards[k]) for k, p in enumerate(_parts(2))]
+    bounds = [(0, 64), (64, 256)]
+    stats = {"peer_copy_bytes": 0}
+    want = gather_rows(parts, bounds, cards, stats)
+    deferred = {"peer_copy_bytes": 0}
+    got, copied = gather_rows(parts, bounds, cards, deferred, wait=False)
+    assert [len(e) for e in copied] == [1, 1]
+    for dev, events in zip(cards, copied):
+        for done in events:
+            torch.cuda.current_stream(dev).wait_event(done)
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    assert deferred == stats
+    for row_got, row_want in zip(got, want):
+        assert all(torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(row_got, row_want))
+
+
+@pytest.mark.cuda
+def test_join_with_pairs_pending_over_two_cards_equals_one_card():
+    """One shard a card, pairs pending: pair k's copies run while pair
+    k+1's kernel 4 writes a new partial.  Every panel pair's partials
+    differ (21 pairs of 256-row panels over distinct rows), so a copy
+    that read a partial the next kernel 4 had overwritten would change
+    the lists.  The candidate lists equal, in order, those of the same
+    mesh with both shards on one card, and the pairs, similarities
+    included, the one-card engine's bit for bit (ordered by pair: the
+    one-card kernel lists its hits in its own block order)."""
+    cards = _cards(2)
+    csr = synthetic_corpus(1500, seed=11)
+    cfg = AllPairsConfig(similarity_threshold=0.5)
+    meshes = {}
+    for name, devs in (("cards", cards), ("card0", [cards[0]] * 2)):
+        eng = MeshChunkedAllPairs(cfg, mesh=make_mesh(2, devices=devs),
+                                  chunk_dim=256, panel_rows=256)
+        eng.build(csr)
+        meshes[name] = eng
+    one = ChunkedAllPairs(cfg, cards[0], chunk_dim=256, panel_rows=256)
+    one.build(csr)
+    eng = meshes["cards"]
+    rb, _, _, n_panels, _ = eng._panel_geom()
+    n_pairs = n_panels * (n_panels + 1) // 2
+    assert (rb, n_pairs) == (256, 21)
+    for tau in (0.1, 0.5, 0.7):  # at 0.1 every row has candidates
+        tau_eff = eng._tau_eff(tau)
+        got = eng._all_pairs_panel(tau_eff)
+        want = meshes["card0"]._all_pairs_panel(tau_eff)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert got[0].size > 0
+        res, ref = eng.all_pairs(tau), one.all_pairs(tau)
+        by_pair = [np.lexsort((r.j, r.i)) for r in (res, ref)]
+        for name in ("i", "j", "sims"):
+            a, b = (getattr(r, name)[o] for r, o in zip((res, ref), by_pair))
+            assert np.array_equal(a, b)
+    assert eng.stats["mesh_pairs_overlapped"] == 6 * (n_pairs - 1)
+    assert eng.stats["peer_copy_bytes"] == 6 * n_pairs * rb * rb * 4
