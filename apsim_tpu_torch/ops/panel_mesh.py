@@ -448,37 +448,19 @@ def pair_candidates(placed, bounds, devices, aux_i, aux_j, row0: int,
     """Global (row, col) int64 candidate lists of one rectangle from its
     row slices, on ``lead``: slice ``k`` holds rows ``bounds[k] = (a, b)``
     of the rectangle, ``placed[k]`` the partials of those rows on
-    ``devices[k]`` (``collectives.gather_rows``).  The rectangle is a panel
-    pair (``rb`` rows and columns) or a stripe (``rb`` the stripe's row
-    capacity, ``cols`` its width, the slices its live rows).  Each device
-    runs kernel 5 on its slice, with ``aux_i``'s rows ``[a, b)`` and
-    ``aux_j``, or, where ``aux_i`` is None (fp32 scores), kernel 6
-    ("epilogue"); then ``tri_score.compact_bits`` on its bits; the lists
-    cross to ``lead`` and are concatenated in slice order ("compact").
-    Every slice compacts with the whole rectangle's scan (the pre-level of
-    ``rb`` rows; ``row_slices``' cuts), so the lists equal the whole
-    rectangle's, in order."""
-    width = rb if cols is None else cols
-    pre = (rb // ts.SUPER) % (ts.SUPER2 // ts.SUPER) == 0
-    with ts._section(timer, "epilogue"):
-        bits = [pair_bits_f32(ps, row0 + a, col0, tau_eff) if aux_i is None
-                else pair_bits_int8(ps, aux_i[:, a:b].to(dev),
-                                    aux_j.to(dev), row0 + a, col0, tau_eff)
-                for ps, (a, b), dev in zip(placed, bounds, devices)]
-        sync(devices)
-    with ts._section(timer, "compact"):
-        found_r, found_c = [], []
-        for (gb, g64, cnt), (a, b), dev in zip(bits, bounds, devices):
-            zero = torch.zeros(1, dtype=torch.int32, device=dev)
-            r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, width,
-                                   pre_level=pre, timer=timer)
-            found_r.append((r + (row0 + a)).to(lead))
-            found_c.append((c + col0).to(lead))
-        if len(found_r) == 1:
-            return found_r[0], found_c[0]
-        found = torch.cat(found_r), torch.cat(found_c)
-        sync(devices)
-        return found
+    ``devices[k]`` (``collectives.gather_rows``, waited for).  The
+    rectangle is a panel pair (``rb`` rows and columns) or a stripe
+    (``rb`` the stripe's row capacity, ``cols`` its width, the slices its
+    live rows).  ``aux_i`` holds the rectangle's rows of the (α, α·L1(q),
+    nnz) table and ``aux_j`` its columns', or both are None (fp32 scores).
+    ``MeshPendingPair`` over these slices with no copy in flight, finished
+    at once, each slice's counts checked as it is compacted."""
+    def on(t):
+        return None if t is None else {dev: t.to(dev) for dev in devices}
+
+    return MeshPendingPair(placed, [[]] * len(bounds), bounds, devices,
+                           on(aux_i), on(aux_j), row0, col0, rb, tau_eff,
+                           lead, timer, cols=cols).result()
 
 
 def mesh_panel_pair(mesh, xis, xjs, aux, row0: int, col0: int, tau_eff,
@@ -519,8 +501,10 @@ def mesh_panel_pair(mesh, xis, xjs, aux, row0: int, col0: int, tau_eff,
     with ts._section(timer, "reduce"):
         placed, copied = gather_rows(parts, bounds, devices, stats,
                                      wait=False)
-    return MeshPendingPair(placed, copied, bounds, devices, aux, row0, col0,
-                           rb, tau_eff, mesh.lead, timer, tally)
+    aux_i = {dev: t[:, row0:row0 + rb] for dev, t in aux.items()}
+    aux_j = {dev: t[:, col0:col0 + rb] for dev, t in aux.items()}
+    return MeshPendingPair(placed, copied, bounds, devices, aux_i, aux_j,
+                           row0, col0, rb, tau_eff, mesh.lead, timer, tally)
 
 
 def _summed_pair(mesh, parts, aux, row0: int, col0: int, rb: int, tau_eff,
@@ -545,39 +529,54 @@ def _summed_pair(mesh, parts, aux, row0: int, col0: int, rb: int, tau_eff,
 
 
 class MeshPendingPair:
-    """A one-process mesh panel pair whose kernel 4 and peer copies are
-    queued (``mesh_panel_pair``) and whose epilogue is not.  ``result()``,
-    called once the next pair's kernel 4 is queued, orders the rest on the
-    cards: each device's stream waits for the copies into it (events, no
-    host wait), runs kernel 5 over its row slice and starts its counts'
-    copy to pinned host memory (``tri_score.PendingPair``), every device
-    before any wait; then one wait for the counts ("epilogue"), kernel 7
-    on each device with the whole rectangle's scan and the lists moved to
-    the lead device in slice order ("compact").  A card's stream thus runs
-    kernel 4 of the next pair while the copies of this one land.  The
-    lists equal ``pair_candidates``' over the same slices, in order."""
+    """One rectangle (a panel pair or a stripe, as ``pair_candidates``
+    takes it) cut into row slices whose partials are placed on their
+    devices, or on their way (``copied[k]``: the events of the copies into
+    slice ``k``, ``gather_rows(..., wait=False)``), and whose epilogue is
+    not queued.  ``aux_i`` / ``aux_j`` map each device to the rectangle's
+    rows / columns of the (α, α·L1(q), nnz) table there, or are None (fp32
+    scores).
 
-    def __init__(self, placed, copied, bounds, devices, aux, row0: int,
-                 col0: int, rb: int, tau_eff, lead, timer=None, tally=None):
-        self.placed, self.copied, self.aux = placed, copied, aux
+    ``result()``, called once the next pair's kernel 4 is queued, orders
+    the rest on the cards: each device's stream waits for the copies into
+    it (events, no host wait), runs kernel 5 over its row slice (kernel 6
+    without aux) and starts its counts' copy to pinned host memory
+    (``tri_score.PendingPair``), every device before any wait; then one
+    wait for the counts ("epilogue"), kernel 7 on each device with the
+    whole rectangle's scan (the pre-level of ``rb`` rows; ``row_slices``'
+    cuts) and the lists moved to the lead device in slice order
+    ("compact"), so they equal the whole rectangle's, in order.  A card's
+    stream thus runs kernel 4 of the next pair while the copies of this
+    one land.  The check of what kernel 7 decoded goes to ``tally``, or
+    runs at each compaction without one."""
+
+    def __init__(self, placed, copied, bounds, devices, aux_i, aux_j,
+                 row0: int, col0: int, rb: int, tau_eff, lead, timer=None,
+                 tally=None, cols: int | None = None):
+        self.placed, self.copied = placed, copied
+        self.aux_i, self.aux_j = aux_i, aux_j
         self.bounds, self.devices = bounds, devices
         self.row0, self.col0, self.rb, self.tau_eff = row0, col0, rb, tau_eff
+        self.cols = rb if cols is None else cols
         self.lead, self.timer, self.tally = lead, timer, tally
         self.done = False
 
     def _epilogue(self, k: int) -> ts.PendingPair:
-        """Kernel 5 over slice ``k`` behind its copies, its counts on their
-        way to the host."""
+        """Kernel 5 (or 6) over slice ``k`` behind its copies, its counts
+        on their way to the host."""
         (a, b), dev = self.bounds[k], self.devices[k]
         for done in self.copied[k]:
             torch.cuda.current_stream(dev).wait_event(done)
-        aux = self.aux[dev]
-        r0, c0 = self.row0 + a, self.col0
-        bits = pair_bits_int8(self.placed[k], aux[:, r0:self.row0 + b],
-                              aux[:, c0:c0 + self.rb], r0, c0, self.tau_eff)
+        r0 = self.row0 + a
+        if self.aux_i is None:
+            bits = pair_bits_f32(self.placed[k], r0, self.col0, self.tau_eff)
+        else:
+            bits = pair_bits_int8(self.placed[k], self.aux_i[dev][:, a:b],
+                                  self.aux_j[dev], r0, self.col0,
+                                  self.tau_eff)
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
         pre = (self.rb // ts.SUPER) % (ts.SUPER2 // ts.SUPER) == 0
-        return ts.PendingPair(bits, (zero, zero, b - a, self.rb, pre),
+        return ts.PendingPair(bits, (zero, zero, b - a, self.cols, pre),
                               self.timer, self.tally)
 
     def result(self):

@@ -32,6 +32,8 @@ The single-slab tier never applies: slabs are shard-split.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -85,7 +87,7 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
                          panel_rows)
         self.stats.update(shard_entries=[0] * self.n_shards,
                           peer_copy_bytes=0, mesh_pairs_overlapped=0)
-        self._last_pair = None  # the panel pair launched last
+        self._last_pair = lambda: None  # weak: the pair launched last
 
     def _sync(self) -> None:
         sync(self.mesh)
@@ -330,14 +332,16 @@ class MeshChunkedAllPairs(ChunkedAllPairs):
         process a pending pair whose peer copies run beside the next
         pair's kernel 4, the check of its counts left to ``tally``; over
         several processes a finished one."""
-        if self._last_pair is not None and not self._last_pair.done:
+        last = self._last_pair()
+        if last is not None and not last.done:
             self.stats["mesh_pairs_overlapped"] += 1
         rb = state["geom"][0]
-        self._last_pair = panel_mesh.mesh_panel_pair(
+        pair = panel_mesh.mesh_panel_pair(
             self.mesh, xi, xj, state["aux_on"], pi * rb, pj * rb, tau_eff,
             timer=self.timer, stats=self.stats, tally=tally,
         )
-        return self._last_pair
+        self._last_pair = weakref.ref(pair)  # the sweep alone keeps it
+        return pair
 
     # ---------------------------------------------------------- introspection
     def shard_layout(self) -> dict:

@@ -343,15 +343,18 @@ def _peer_stream(src: torch.device, dst: torch.device):
 
 
 def _peer_copy(dst: torch.Tensor, src: torch.Tensor, stream) -> None:
-    """Queue the copy of contiguous ``src`` into ``dst`` (another card) on
-    ``stream``: one asynchronous peer copy of the runtime
-    (``peer_copy`` of ``csrc/score_bits.cu``), the copy engines' work that
-    torch's ``copy_`` between cards queues, without its events and stream
-    switches."""
+    """Queue the copy of ``src`` into contiguous ``dst`` (another card) on
+    ``stream``, a stream of ``src``'s card: one asynchronous peer copy of
+    the runtime (``peer_copy`` of ``csrc/score_bits.cu``), the copy
+    engines' work that torch's ``copy_`` between cards queues, without its
+    events and stream switches.  A ``src`` that is not contiguous (the
+    rows of a column slice of a wider tensor) is first made so on its own
+    card, on ``stream``."""
     from ..ops._build import kernels
 
     if not src.is_contiguous():
-        raise ValueError("gather_rows copies row slices of contiguous parts")
+        with torch.cuda.stream(stream):
+            src = src.contiguous()
     rc = kernels().peer_copy(dst.data_ptr(), dst.device.index,
                              src.data_ptr(), src.device.index,
                              src.numel() * src.element_size(),
@@ -365,8 +368,8 @@ def gather_rows(parts: Sequence, bounds: Sequence, devices: Sequence,
     """The shards' tensors cut into row slices, each slice on its own
     device (one process): for slice ``k``, rows ``bounds[k] = (a, b)`` of
     every part, in shard order, on ``devices[k]``.  A part already there
-    gives a view; any other crosses as a copy of its rows (a part that
-    crosses between cards must be contiguous).  A reduce-scatter by rows
+    gives a view; any other crosses as a copy of its rows.  A
+    reduce-scatter by rows
     that leaves the adds to the reader: each row of each part travels
     once, to the one device that sums it.  With a ``stats`` dict, the
     bytes of every copy from one card to another are added to

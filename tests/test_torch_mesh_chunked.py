@@ -253,15 +253,23 @@ def test_stage_split_has_reduce_and_epilogue(pair8):
 
 
 def finished_pair(mesh, xi, xj, aux, row0, col0, tau_eff, bounds, devices):
-    """A panel pair end to end with a wait after each stage: kernel 4 on
-    every shard, ``gather_rows`` with its stream waits, then
-    ``pair_candidates`` over the same row slices."""
+    """A panel pair end to end, stage by stage: kernel 4 on every shard,
+    ``gather_rows`` with its stream waits, then on each row slice kernel
+    5 and ``compact_bits`` (its counts read and checked there), the lists
+    moved to the lead device in slice order."""
     rb = xi[0].shape[0]
     parts = [panel_mesh.int8_matmul(a, b) for a, b in zip(xi, xj)]
     placed = gather_rows(parts, bounds, devices)
-    return panel_mesh.pair_candidates(
-        placed, bounds, devices, aux[:, row0:row0 + rb],
-        aux[:, col0:col0 + rb], row0, col0, rb, tau_eff, mesh.lead)
+    found = []
+    for ps, (a, b), dev in zip(placed, bounds, devices):
+        gb, g64, cnt = panel_mesh.pair_bits_int8(
+            ps, aux[:, row0 + a:row0 + b].to(dev),
+            aux[:, col0:col0 + rb].to(dev), row0 + a, col0, tau_eff)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        r, c = ts.compact_bits(gb, g64, cnt, zero, zero, b - a, rb,
+                               pre_level=rb % ts.SUPER2 == 0)
+        found.append(((r + row0 + a).to(mesh.lead), (c + col0).to(mesh.lead)))
+    return tuple(torch.cat(lists) for lists in zip(*found))
 
 
 @pytest.mark.parametrize("pair", [(0, 0), (0, 1), (1, 1)])
@@ -305,8 +313,10 @@ def test_pending_pair_equals_finished_pair(big_corpus, n_shards, pair):
                                  wait=False)
     assert copied == [[]] * n_shards
     sliced = panel_mesh.MeshPendingPair(
-        placed, copied, bounds, [CPU] * n_shards, {CPU: aux}, pi * rb,
-        pj * rb, rb, tau_eff, CPU).result()
+        placed, copied, bounds, [CPU] * n_shards,
+        {CPU: aux[:, pi * rb:(pi + 1) * rb]},
+        {CPU: aux[:, pj * rb:(pj + 1) * rb]}, pi * rb, pj * rb, rb, tau_eff,
+        CPU).result()
     for a, b in zip(sliced, want):
         assert torch.equal(a, b)
 

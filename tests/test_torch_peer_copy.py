@@ -214,3 +214,45 @@ def test_join_with_pairs_pending_over_two_cards_equals_one_card():
             assert np.array_equal(a, b)
     assert eng.stats["mesh_pairs_overlapped"] == 6 * (n_pairs - 1)
     assert eng.stats["peer_copy_bytes"] == 6 * n_pairs * rb * rb * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("super_tile", [64, 400])
+def test_int8_stripe_join_over_two_cards_equals_one_card(super_tile):
+    """The mesh's int8 stripes, one shard a card.  At a 64-wide stripe
+    each shard's int32 partial is a column slice of kernel 4's 128-wide
+    product, so the rows that cross to the other card are not one run of
+    memory (400 rounds down to 256, a whole product).  The candidate
+    lists equal, in order, those of the same mesh with both shards on one
+    card, and the pairs, similarities included, the one-card engine's
+    bit for bit; rows crossed."""
+    cards = _cards(2)
+    csr = synthetic_corpus(1500, seed=11)
+    cfg = AllPairsConfig(similarity_threshold=0.5, use_pallas="off")
+    meshes = {}
+    for name, devs in (("cards", cards), ("card0", [cards[0]] * 2)):
+        eng = MeshChunkedAllPairs(cfg, mesh=make_mesh(2, devices=devs),
+                                  chunk_dim=256, super_tile=super_tile)
+        eng._int8_stripes = True
+        eng.build(csr)
+        meshes[name] = eng
+    one = ChunkedAllPairs(cfg, cards[0], chunk_dim=256,
+                          super_tile=super_tile)
+    one._int8_stripes = True
+    one.build(csr)
+    eng = meshes["cards"]
+    assert not eng._panel_ok() and eng._int8_slabs() is not None
+    assert eng._q_super() == min(super_tile, 256)
+    for tau in (0.3, 0.6):
+        tau_eff = eng._tau_eff(tau)
+        got = eng._all_pairs_stripes(tau_eff)
+        want = meshes["card0"]._all_pairs_stripes(tau_eff)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert got[0].size > 0
+        res, ref = eng.all_pairs(tau), one.all_pairs(tau)
+        by_pair = [np.lexsort((r.j, r.i)) for r in (res, ref)]
+        for name in ("i", "j", "sims"):
+            a, b = (getattr(r, name)[o] for r, o in zip((res, ref), by_pair))
+            assert np.array_equal(a, b)
+    assert eng.stats["peer_copy_bytes"] > 0
+    assert meshes["card0"].stats["peer_copy_bytes"] == 0
